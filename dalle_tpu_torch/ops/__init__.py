@@ -1,0 +1,22 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version. A wrapper given CPU tensors runs the plain version; given CUDA
+tensors it launches its kernel or raises.
+
+``LAUNCHES`` counts, per wrapper, the calls that launched its kernel(s): a
+wrapper adds one where it launches and nowhere else, so a run can show
+which kernels its path went through. It counts calls, not CUDA launches:
+one ``geglu_ff`` call launches two kernels (the gate GEMM and the output
+GEMM) and adds one.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+LAUNCHES: Dict[str, int] = {"layer_norm": 0, "line_attention": 0,
+                            "window_attention": 0, "geglu_ff": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

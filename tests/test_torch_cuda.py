@@ -1,0 +1,91 @@
+"""The port's Hopper kernels against their plain PyTorch versions, on a GPU.
+
+Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false (a
+CUDA kernel has no CPU mode; tests/test_torch_ops.py holds the plain
+versions against the JAX kernels there). This file imports no JAX, so on a
+GPU machine without JAX it runs alone:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerances: bf16 outputs 2^-7 relative and absolute (the kernel and the
+plain version round the same f32 math, summed in another order; the GEGLU
+output 2^-6, since its hg intermediate is rounded to bf16 in both before a
+4096-term sum); the f32 logsumexp 1e-5.
+"""
+
+import pytest
+import torch
+
+from dalle_tpu_torch.ops import LAUNCHES, reset_launches
+from dalle_tpu_torch.ops.attention import (line_attention,
+                                           line_attention_plain,
+                                           window_attention,
+                                           window_attention_plain)
+from dalle_tpu_torch.ops.geglu import geglu_ff, geglu_ff_plain
+from dalle_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernels have no CPU "
+                    "mode; tests/test_torch_ops.py covers their plain "
+                    "versions")
+    return torch.device("cuda")
+
+
+def _bf16(shape, seed, device, scale=1.0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(shape, generator=g) * scale).to(torch.bfloat16).to(
+        device)
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_kernel(cuda_device):
+    x = _bf16((512, 1024), 0, cuda_device, 2.0)
+    g = torch.ones(1024, device=cuda_device)
+    b = torch.zeros(1024, device=cuda_device)
+    reset_launches()
+    got = layer_norm(x, g, b)
+    assert LAUNCHES["layer_norm"] == 1
+    torch.testing.assert_close(got.float(), layer_norm_plain(x, g, b).float(),
+                               rtol=2 ** -7, atol=2 ** -7)
+
+
+@pytest.mark.cuda
+def test_cuda_geglu_kernel(cuda_device):
+    m, d, k = 320, 256, 512
+    ops = [_bf16(s, i, cuda_device, sc) for i, (s, sc) in enumerate(
+        [((m, d), 0.5), ((d, k), 0.05), ((d, k), 0.05), ((k, d), 0.05),
+         ((k,), 0.1), ((k,), 0.1), ((d,), 0.1)])]
+    got = geglu_ff(*ops)
+    torch.testing.assert_close(got.float(), geglu_ff_plain(*ops).float(),
+                               rtol=2 ** -6, atol=2 ** -6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["text", "axial_row", "axial_col",
+                                  "conv_like", "full"])
+def test_cuda_attention_kernels(cuda_device, kind):
+    b, h, grid, text = 2, 4, 8, 32
+    if kind == "text":
+        q, k, v = (_bf16((b, text, h, 64), i, cuda_device).transpose(1, 2)
+                   for i in range(3))
+        args, fn, plain = (None, None, text, 0, False), line_attention, \
+            line_attention_plain
+    else:
+        q, k, v = (_bf16((b, grid * grid, h, 64), i, cuda_device)
+                   .transpose(1, 2) for i in range(3))
+        kp, vp = (_bf16((b, text, h, 64), 5 + i, cuda_device).transpose(1, 2)
+                  for i in range(2))
+        if kind.startswith("axial"):
+            args = (kp, vp, grid, grid, kind == "axial_col")
+            fn, plain = line_attention, line_attention_plain
+        else:
+            args = (kp, vp, grid, 2 if kind == "conv_like" else None)
+            fn, plain = window_attention, window_attention_plain
+    out, lse = fn(q, k, v, *args)
+    out_p, lse_p = plain(q, k, v, *args)
+    torch.testing.assert_close(out.float(), out_p.float(), rtol=2 ** -7,
+                               atol=2 ** -7)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
