@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship inference path on one NVIDIA GPU.
+"""Drive the PyTorch port's flagship inference and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--out RECORDS.json] [--profile TABLE.txt]
 
@@ -8,19 +9,30 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
 
 1. the card (``nvidia-smi`` name and power limit) and the build of the
    CUDA kernels from ``dalle_tpu_torch/csrc`` (one ``nvcc`` per source, all
-   started together; the Triton LayerNorm compiles at its first call);
-2. each of the four kernels against its plain PyTorch version on the card,
-   at the flagship shapes in bf16, with kernel, plain and library times
-   (CUDA events, inputs rotated through more than the 50 MB L2) and the
-   least time the card could take (bytes over 3.35 TB/s or operations over
-   the bf16 tensor-core peak of 989 TFLOP/s, whichever is larger);
+   started together; the Triton LayerNorm kernels compile at first call);
+2. each of the four forward kernels against its plain PyTorch version on
+   the card, at the flagship shapes in bf16, with kernel, plain and library
+   times (CUDA events, inputs rotated through more than the 50 MB L2) and
+   the least time the card could take (bytes over 3.35 TB/s or operations
+   over the bf16 tensor-core peak of 989 TFLOP/s, whichever is larger);
 3. the flagship forward loss at B=4 through ``dalle_tpu_torch.entry`` with
    seeded random weights, with every kernel's launch count from that run
-   (129 LayerNorm / 127 line / 1 window / 15 GEGLU);
+   (129 LayerNorm / 127 line / 1 window / 15 GEGLU) and its peak memory;
 4. teacher-forced cached decode of one sequence against the forward's
    logits on the card;
 5. ``generate_images`` for 2 captions x 2 images (temperature 1, top-k 64);
-6. the ``kernels`` line.
+6. each of the four backward kernels against its plain backward on the
+   card at the flagship shapes, run twice (bitwise-equal outputs), with
+   the same times, bound and library yardstick (autograd of the PyTorch
+   call, timed eagerly);
+7. six flagship training steps through ``dalle_tpu_torch.entry.train_entry``
+   (micro-batch 4, accumulation 2, fp32 LAMB, one fixed batch): finite and
+   falling loss, the exact launch counts of the eight wrappers (forward,
+   remat replay, backward), step time, img/s and peak memory;
+8. the ``kernels`` line.
+
+With ``--profile``, one flagship forward and one training micro-batch are
+traced with ``torch.profiler`` and split by kernel class.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -40,14 +52,23 @@ BF16_FLOP_PER_S = 989e12       # dense bf16 tensor cores
 F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
 BF16_TOL = 2 ** -6             # rtol = atol for bf16 outputs (see phase 2)
 LSE_TOL = 1e-4                 # f32 logsumexp
+SUM_TOL = 1e-4                 # f32 sums over 5120 rows (LN dscale/dbias)
 ARGMAX_AGREE = 0.9             # cached decode vs forward, share of positions
 SEED = 0                       # weights, inputs and sampling noise
+TRAIN_STEPS = 6                # flagship train steps on one fixed batch
+MICRO, ACCUM = 4, 2            # micro-batch size, micro-batches per step
+LOSS_FALL = 0.2                # least fall of the loss over the six steps
+                               # (0.489 in the first run on one H100)
 
 
 RECORDS = []
+T_START = time.perf_counter()
 
 
 def emit(**record) -> None:
+    """Print a phase's record as one JSON line, with the seconds since the
+    script started (``t_s``)."""
+    record["t_s"] = time.perf_counter() - T_START
     RECORDS.append(record)
     print(json.dumps(record), flush=True)
 
@@ -65,11 +86,31 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_forward(torch, fn, args, path: str) -> None:
-    """Trace one flagship forward (a first traced forward warms the
-    tracer): device time by kernel, and the device's busy share of the
-    host's wall clock over the traced forward. Kernel rows are the rows
-    with device time and no host time of their own."""
+KERNEL_CLASSES = (
+    ("attn_fwd_kernel", "attention kernel, forward"),
+    ("attn_bwd_", "attention kernels, backward (dq pass, dk/dv pass)"),
+    ("geglu_bwd_kernel", "GEGLU backward kernel"),
+    ("gemm_kernel", "GEGLU forward kernels"),
+    ("_ln_bwd", "LayerNorm backward kernels (row pass, partial sum)"),
+    ("_ln_fwd", "LayerNorm forward kernel"),
+)
+CUBLAS_MARKS = ("nvjet", "xmma", "gemm", "cutlass")
+
+
+def kernel_class(key: str) -> str:
+    for mark, cls in KERNEL_CLASSES:
+        if mark in key:
+            return cls
+    if any(m in key for m in CUBLAS_MARKS):
+        return "cuBLAS GEMMs"
+    return "PyTorch elementwise, copies, reductions"
+
+
+def profile_run(torch, fn, args, path: str, phase: str) -> None:
+    """Trace one call of ``fn`` (a first traced call warms the tracer):
+    device time by kernel, and the device's busy share of the host's wall
+    clock over the traced call. Kernel rows are the rows with device time
+    and no host time of their own."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU,
@@ -87,18 +128,15 @@ def profile_forward(torch, fn, args, path: str) -> None:
     busy = sum(r[1] for r in dev)
     classes = {}
     for key, ms, _ in dev:
-        cls = ("attention kernel" if "attn_fwd_kernel" in key
-               else "GEGLU kernels" if "gemm_kernel" in key
-               else "LayerNorm kernel" if "_ln_fwd" in key
-               else "cuBLAS GEMMs" if any(s in key for s in (
-                   "nvjet", "xmma", "gemm", "cutlass"))
-               else "PyTorch elementwise, copies, reductions")
+        cls = kernel_class(key)
         classes[cls] = classes.get(cls, 0.0) + ms
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "w") as f:
+    with open(path, "a") as f:
+        f.write(f"== {phase} ==\n")
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=80))
-    emit(phase="profile", wall_ms=wall_ms, device_busy_ms=busy,
+        f.write("\n")
+    emit(phase=phase, wall_ms=wall_ms, device_busy_ms=busy,
          device_idle_share=1.0 - busy / wall_ms, classes_ms=classes,
          top=[dict(kernel=k[:90], ms=ms, calls=n) for k, ms, n in dev[:16]])
 
@@ -108,8 +146,9 @@ def main() -> int:
     parser.add_argument("--out", default=None,
                         help="also write every record to this JSON file")
     parser.add_argument("--profile", default=None, metavar="PATH",
-                        help="also trace one flagship forward with "
-                             "torch.profiler and write its table to PATH")
+                        help="also trace one flagship forward and one "
+                             "training micro-batch with torch.profiler and "
+                             "write their tables to PATH")
     args = parser.parse_args()
 
     import torch
@@ -123,18 +162,27 @@ def main() -> int:
 
     from dalle_tpu_torch import resolve_device
     from dalle_tpu_torch.config import flagship_model_config
-    from dalle_tpu_torch.entry import entry
+    from dalle_tpu_torch.entry import entry, train_entry
     from dalle_tpu_torch.models.attention import zoo_attention_mask
     from dalle_tpu_torch.models.decode import (SamplingConfig, decode_step,
                                                decode_tables,
                                                generate_images, init_cache)
+    from dalle_tpu_torch.models.transformer import wrapper_calls
     from dalle_tpu_torch.ops import LAUNCHES, _build, reset_launches
     from dalle_tpu_torch.ops.attention import (line_attention,
+                                               line_attention_bwd,
+                                               line_attention_bwd_plain,
                                                line_attention_plain,
                                                window_attention,
+                                               window_attention_bwd,
+                                               window_attention_bwd_plain,
                                                window_attention_plain)
-    from dalle_tpu_torch.ops.geglu import geglu_ff, geglu_ff_plain
-    from dalle_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
+    from dalle_tpu_torch.ops.geglu import (geglu_ff, geglu_ff_bwd,
+                                           geglu_ff_bwd_plain, geglu_ff_plain)
+    from dalle_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
+                                                layer_norm_bwd_plain,
+                                                layer_norm_plain)
+    from dalle_tpu_torch.training.steps import grad_step
 
     dev = resolve_device("cuda")
     smi = nvidia_smi()
@@ -347,6 +395,12 @@ def main() -> int:
         emit(phase="kernel_check", **rec)
 
     # -- 3. the flagship forward through the entry point ------------------
+    # the checks' buffers go first, so that the peak is the forward's own
+    del ln_sets, att_sets, ff_sets, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem_base = torch.cuda.memory_allocated()
     fn, (model, _, _) = entry(device="cuda", batch=B, seed=SEED)
     rng = np.random.default_rng(SEED)
     text = torch.from_numpy(rng.integers(
@@ -361,7 +415,9 @@ def main() -> int:
     expected = {"layer_norm": 2 * cfg.depth + 1,
                 "line_attention": 2 * (cfg.depth - 1) + 1,
                 "window_attention": 1,
-                "geglu_ff": sum(1 for u, _ in cfg.layer_schedule() if u == 3)}
+                "geglu_ff": sum(1 for u, _ in cfg.layer_schedule() if u == 3),
+                "layer_norm_bwd": 0, "line_attention_bwd": 0,
+                "window_attention_bwd": 0, "geglu_ff_bwd": 0}
     loss = float(loss)
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
@@ -375,9 +431,13 @@ def main() -> int:
         fwd_ms.append((time.perf_counter() - t0) * 1e3)
     emit(phase="forward", batch=B, loss=loss, launches=launches,
          expected=expected, forward_ms=fwd_ms,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         mem_before_gb=mem_base / 1e9)
     if args.profile:
-        profile_forward(torch, fn, (model, text, image), args.profile)
+        if os.path.exists(args.profile):
+            os.remove(args.profile)
+        profile_run(torch, fn, (model, text, image), args.profile,
+                    "profile")
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
 
@@ -439,7 +499,271 @@ def main() -> int:
          seconds=gen_s, img_per_s=4 / gen_s,
          distinct_codes=int(codes.unique().numel()))
 
-    # -- 6. kernels line and the end ------------------------------------------
+    del model, fn, logits, got, cache, codes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 6. the backward kernels against their plain backwards ------------
+    def twice(name, kernel_fn, *args):
+        """The kernel's outputs; a second run must give the same bits."""
+        first, second = kernel_fn(*args), kernel_fn(*args)
+        for a, b in zip(first, second):
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"{name}: two runs on the same inputs "
+                                     "gave different bits")
+        return first
+
+    def library_ms(fn, arg_sets, iters=20):
+        """Eager time of the library yardstick (autograd through a kept
+        graph: no CUDA graph capture)."""
+        def run():
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+        run()
+        return events_ms(run, iters)
+
+    def backward_record(name, route, source, replaces, kernel_fn, plain_fn,
+                        sets, lib_fn, lib_sets, nbytes, flops, peak, errs,
+                        tolerance, shape, iters=20):
+        bms, by = bound(nbytes, flops, peak)
+        rec = dict(name=name, route=route, source=source, replaces=replaces,
+                   max_abs_err=max(errs), tolerance=tolerance,
+                   bitwise_reproducible=True,
+                   **times(kernel_fn, plain_fn, None, sets, iters),
+                   bound_ms=bms, bound_by=by, shape=shape)
+        rec["library_ms"] = (library_ms(lib_fn, lib_sets, iters)
+                             if lib_fn is not None else None)
+        rec["library"] = ("autograd backward of one PyTorch call, eager"
+                          if lib_fn is not None else None)
+        return rec
+
+    def check_backward_kernels():
+        recs = {}
+        # LayerNorm backward: scale in bf16, as the hoisted cast gives it
+        sets = [(randn(M, D, scale=2.0), randn(D, scale=0.2) + 1,
+                 randn(M, D)) for _ in range(4)]
+        got = twice("layer_norm_bwd", layer_norm_bwd, *sets[0])
+        want = layer_norm_bwd_plain(*sets[0])
+        errs = [compare("layer_norm_bwd dx", got[0], want[0], BF16_TOL),
+                compare("layer_norm_bwd dscale", got[1], want[1], SUM_TOL),
+                compare("layer_norm_bwd dbias", got[2], want[2], SUM_TOL)]
+
+        def ln_graph(x, g, dy):
+            leaves = [x.clone().requires_grad_(True),
+                      g.clone().requires_grad_(True),
+                      torch.zeros_like(g).requires_grad_(True)]
+            return (F.layer_norm(leaves[0], (D,), leaves[1], leaves[2],
+                                 1e-6), leaves, dy)
+
+        lib_sets = [ln_graph(*st) for st in sets]
+        recs["layer_norm_bwd"] = backward_record(
+            "layer_norm_bwd", "triton", "dalle_tpu_torch/ops/layer_norm.py",
+            "dalle_tpu/ops/pallas/ln_kernels.py:94", layer_norm_bwd,
+            layer_norm_bwd_plain, sets, autograd_retained, lib_sets,
+            3 * M * D * 2 + D * 2 + 2 * D * 4, 16 * M * D, F32_FLOP_PER_S,
+            errs, f"rtol=atol={BF16_TOL} (bf16 dx), {SUM_TOL} (f32 sums)",
+            f"x, dy ({M}, {D}) bf16, scale ({D},) bf16; two launches per "
+            "call (row pass, partial sum)")
+        del sets, lib_sets, got, want
+
+        # GEGLU backward tensors
+        sets = [(randn(M, D), randn(D, K, scale=D ** -0.5),
+                 randn(D, K, scale=D ** -0.5), randn(K, D, scale=K ** -0.5),
+                 randn(K, scale=0.1), randn(K, scale=0.1), randn(M, D))
+                for _ in range(2)]
+        got = twice("geglu_ff_bwd", geglu_ff_bwd, *sets[0])
+        want = geglu_ff_bwd_plain(*sets[0])
+        errs = [compare("geglu_ff_bwd dh|dg", got[0], want[0], BF16_TOL),
+                compare("geglu_ff_bwd hg", got[1], want[1], BF16_TOL)]
+        recs["geglu_ff_bwd"] = backward_record(
+            "geglu_ff_bwd", "cuda", "dalle_tpu_torch/csrc/geglu_bwd.cu",
+            "dalle_tpu/ops/pallas/geglu_kernels.py:153", geglu_ff_bwd,
+            geglu_ff_bwd_plain, sets, None, None,
+            (2 * M * D + 3 * D * K + 2 * K + 3 * M * K) * 2,
+            3 * 2 * M * D * K, BF16_FLOP_PER_S, errs,
+            f"rtol=atol={BF16_TOL} (bf16 outputs)",
+            f"x, dO ({M}, {D}), Wi/Wg ({D}, {K}), Wo ({K}, {D}) bf16 -> "
+            f"dh|dg ({M}, {2 * K}), hg ({M}, {K}) bf16", iters=10)
+        del sets, got, want
+
+        # attention: q/k/v/dO as the model makes them, (B, T, H, d) views
+        def att_set():
+            q, k, v, do = (randn(B, T, H, Dh).transpose(1, 2)
+                           for _ in range(4))
+            return q, k, v, do
+
+        def line_fwd(q, k, v, col):
+            (qt, kt, vt), (qi, ki, vi) = split(q, k, v)
+            return (line_attention(qt, kt, vt, None, None, TT, 0, False),
+                    line_attention(qi, ki, vi, kt, vt, G, G, col))
+
+        def line_bwd_layer(q, k, v, do, fo, col=False,
+                           fn=line_attention_bwd):
+            """One axial layer's backward: the text call and the image
+            call (whose prefix gradients autograd adds to the text k/v)."""
+            (qt, kt, vt), (qi, ki, vi) = split(q, k, v)
+            (ot, lt), (oi, li) = fo
+            gt = fn(qt, kt, vt, None, None, ot, lt, do[:, :, :TT], TT, 0,
+                    False)
+            gi = fn(qi, ki, vi, kt, vt, oi, li, do[:, :, TT:], G, G, col)
+            return gt[:3] + gi
+
+        sets = []
+        for _ in range(3):
+            q, k, v, do = att_set()
+            sets.append((q, k, v, do, line_fwd(q, k, v, False)))
+        errs = []
+        for col in (False, True):
+            q, k, v, do, _ = sets[0]
+            fo = line_fwd(q, k, v, col)
+            got = twice("line_attention_bwd",
+                        lambda *a: line_bwd_layer(*a, col=col),
+                        q, k, v, do, fo)
+            want = line_bwd_layer(q, k, v, do, fo, col=col,
+                                  fn=line_attention_bwd_plain)
+            errs += [compare(f"line_attention_bwd {n}", a, b, BF16_TOL)
+                     for n, a, b in zip(("dq_t", "dk_t", "dv_t", "dq_i",
+                                         "dk_i", "dv_i", "dkp", "dvp"),
+                                        got, want)]
+
+        def sdpa_graph(q, k, v, do, mask, image_queries=False):
+            leaves = [x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v)]
+            qq = leaves[0][:, :, TT:] if image_queries else leaves[0]
+            out = F.scaled_dot_product_attention(qq, leaves[1], leaves[2],
+                                                 attn_mask=mask)
+            return out, leaves, do[:, :, TT:] if image_queries else do
+
+        lib_sets = [sdpa_graph(*st[:4], row_mask) for st in sets]
+        att_bytes = lambda t, s: (5 * B * H * t * Dh * 2  # noqa: E731
+                                  + B * H * t * 4
+                                  + 3 * B * H * t * Dh * 2
+                                  + 2 * B * H * s * Dh * 2)
+        # the image call reads the text k/v (counted with the text call)
+        # and writes their prefix gradients
+        recs["line_attention_bwd"] = backward_record(
+            "line_attention_bwd", "cuda",
+            "dalle_tpu_torch/csrc/attention_bwd.cu",
+            "dalle_tpu/ops/pallas/attention_kernels.py:259",
+            line_bwd_layer,
+            lambda *a: line_bwd_layer(*a, fn=line_attention_bwd_plain),
+            sets, autograd_retained, lib_sets,
+            att_bytes(TT, 0) + att_bytes(G * G, TT),
+            10 * Dh * B * H * (text_pairs + row_pairs), BF16_FLOP_PER_S,
+            errs, f"rtol=atol={BF16_TOL} (bf16 gradients)",
+            f"one axial_row layer: text call ({B},{H},{TT},{Dh}) + image "
+            f"call ({B},{H},{G * G},{Dh}) with a {TT}-token prefix, bf16, "
+            "strided (B,T,H,d) views; two launches per call (dq pass, "
+            "dk/dv pass)")
+        recs["line_attention_bwd"]["ms_axial_col"] = cuda_ms(
+            lambda *a: line_bwd_layer(*a, col=True),
+            [(q, k, v, do, line_fwd(q, k, v, True))
+             for q, k, v, do, _ in sets])[0]
+        del lib_sets
+
+        def win_fwd(q, k, v):
+            (_, kt, vt), (qi, ki, vi) = split(q, k, v)
+            return window_attention(qi, ki, vi, kt, vt, G, hw)
+
+        def win_bwd(q, k, v, do, fo, fn=window_attention_bwd):
+            (_, kt, vt), (qi, ki, vi) = split(q, k, v)
+            return fn(qi, ki, vi, kt, vt, *fo, do[:, :, TT:], G, hw)
+
+        sets = [(q, k, v, do, win_fwd(q, k, v)) for q, k, v, do, _ in sets]
+        got = twice("window_attention_bwd", win_bwd, *sets[0])
+        want = win_bwd(*sets[0], fn=window_attention_bwd_plain)
+        errs = [compare(f"window_attention_bwd {n}", a, b, BF16_TOL)
+                for n, a, b in zip(("dq", "dk", "dv", "dkp", "dvp"), got,
+                                   want)]
+        lib_sets = [sdpa_graph(*st[:4], conv_rows, image_queries=True)
+                    for st in sets]
+        # the window call's text k/v are its prefix: read, and written as
+        # dkp/dvp
+        recs["window_attention_bwd"] = backward_record(
+            "window_attention_bwd", "cuda",
+            "dalle_tpu_torch/csrc/attention_bwd.cu",
+            "dalle_tpu/ops/pallas/attention_kernels.py:548", win_bwd,
+            lambda *a: win_bwd(*a, fn=window_attention_bwd_plain), sets,
+            autograd_retained, lib_sets,
+            att_bytes(G * G, TT) + 2 * B * H * TT * Dh * 2,
+            10 * Dh * B * H * win_pairs, BF16_FLOP_PER_S, errs,
+            f"rtol=atol={BF16_TOL} (bf16 gradients)",
+            f"conv_like hw={hw}: image call ({B},{H},{G * G},{Dh}) with a "
+            f"{TT}-token prefix, bf16; two launches per call")
+        return recs
+
+    def autograd_retained(out, leaves, do):
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    bwd_kernels = check_backward_kernels()
+    for rec in bwd_kernels.values():
+        emit(phase="kernel_check", **rec)
+    kernels.update(bwd_kernels)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 7. flagship training steps through the entry point ---------------
+    torch.cuda.reset_peak_memory_stats()
+    mem_base = torch.cuda.memory_allocated()
+    step, (state, batch) = train_entry(device="cuda", micro=MICRO,
+                                       accum=ACCUM, seed=SEED)
+    tcfg = state.model.cfg
+    per_micro = wrapper_calls(tcfg, training=True)
+    expected = {k: ACCUM * v for k, v in per_micro.items()}
+    losses, norms, step_s = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        if i == 0:
+            reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            train_launches = dict(LAUNCHES)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    if train_launches != expected:
+        raise AssertionError(f"training launch counts {train_launches} != "
+                             f"{expected} ({ACCUM} x one micro-batch: "
+                             f"{per_micro})")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad_norm: {losses}, "
+                             f"{norms}")
+    # step 1 has learning rate 0 (count 0), so the loss can fall from
+    # step 2 on; it must fall at every step after that
+    falls = [losses[i] - losses[i + 1] for i in range(1, TRAIN_STEPS - 1)]
+    if not (min(falls) > 0 and losses[-1] < losses[0] - LOSS_FALL):
+        raise AssertionError(f"the loss does not fall: {losses}")
+    steady = step_s[1:]
+    emit(phase="train", micro=MICRO, accum=ACCUM, steps=TRAIN_STEPS,
+         optimizer="fp32 LAMB, OptimizerConfig(state_bits=32, "
+                   "warmup_steps=2, total_steps=100)",
+         losses=losses, grad_norms=norms, loss_fall=losses[0] - losses[-1],
+         launches=train_launches, launches_per_micro_batch=per_micro,
+         step_s=step_s, step_s_mean=sum(steady) / len(steady),
+         img_per_s=MICRO * ACCUM * len(steady) / sum(steady),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         mem_before_gb=mem_base / 1e9, card=smi)
+    # the step's split: its gradient half alone (the rest is LAMB and the
+    # metrics)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grad_step(state.model, batch, ACCUM)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    emit(phase="train_split", grad_step_s=grad_s,
+         step_minus_grad_s=sum(steady) / len(steady) - grad_s)
+    for name in ("layer_norm_bwd", "geglu_ff_bwd", "line_attention_bwd",
+                 "window_attention_bwd"):
+        kernels[name]["launches"] = train_launches[name]
+    if args.profile:
+        micro = {k: v[:MICRO] for k, v in batch.items()}
+        profile_run(torch, grad_step, (state.model, micro), args.profile,
+                    "profile_train_micro_batch")
+    del state, batch, step
+
+    # -- 8. kernels line and the end ------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_line = {"kernels": [{k: rec[k] for k in keys}

@@ -1,17 +1,20 @@
-"""Model configuration of the PyTorch port.
+"""Configuration of the PyTorch port.
 
-The port's own copy of the model half of ``dalle_tpu/config.py``
-(``ModelConfig``, the attention-type names, ``tiny_model_config`` and the
-flagship preset): the port imports nothing of ``dalle_tpu``. Field names,
-defaults and the derived schedule are identical, so one set of keyword
-arguments builds the same model in either package, and the parameter
-converter (``params.py``) can map one tree onto the other.
+The port's own copy of ``dalle_tpu/config.py``'s model and optimizer
+halves (``ModelConfig``, the attention-type names, ``tiny_model_config``,
+the flagship preset and ``OptimizerConfig``): the port imports nothing of
+``dalle_tpu``. Field names, defaults and the derived schedule are
+identical, so one set of keyword arguments builds the same model in either
+package, and the parameter converter (``params.py``) can map one tree onto
+the other.
 
-Fields that only shape the JAX training step (``remat``, ``remat_policy``,
-``scan_unroll``, ``param_cast_hoist``, ``head_chunk``, ``sequence_parallel``)
-are kept for that reason: ``remat`` and ``remat_skip_blocks`` still decide
-which blocks run the fused GEGLU kernel (``fuse_ff``), and ``scan_unroll``
-decides which parameter layout the JAX model writes.
+The training knobs ``remat``, ``remat_policy``, ``remat_skip_blocks`` and
+``param_cast_hoist`` shape the port's training step as they shape the JAX
+one (``remat`` and ``remat_skip_blocks`` also decide which blocks run the
+fused GEGLU kernel, ``fuse_ff``). ``scan_unroll``, ``head_chunk`` and
+``sequence_parallel`` are kept so both packages build the same
+configuration: ``scan_unroll`` decides which parameter layout the JAX model
+writes, and the port ignores the other two.
 """
 
 from __future__ import annotations
@@ -165,9 +168,11 @@ def tiny_model_config(**overrides: Any) -> ModelConfig:
     return ModelConfig(**base)
 
 
-# The JAX package's flagship training knobs. Only ``ln_fusion`` and
+# The JAX package's flagship training knobs. ``ln_fusion`` and
 # ``remat_skip_blocks`` (through ``fuse_ff``) change what the forward runs;
-# the rest are kept so the two packages build the same configuration.
+# ``remat_policy`` and ``param_cast_hoist`` shape the training step;
+# ``head_chunk`` and ``scan_unroll`` are kept so the two packages build the
+# same configuration.
 FLAGSHIP_TUNED = dict(remat_skip_blocks=1, head_chunk=2048, scan_unroll=2,
                       ln_fusion=True, remat_policy="save_attn",
                       param_cast_hoist=True)
@@ -178,3 +183,22 @@ def flagship_model_config(**overrides: Any) -> ModelConfig:
     base = dict(FLAGSHIP_TUNED)
     base.update(overrides)
     return dataclasses.replace(ModelConfig(), **base)
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """LAMB hyperparameters (``dalle_tpu.config.OptimizerConfig``, the
+    fields this port reads). ``state_bits`` 8 (the default, as in the JAX
+    package) is the 8-bit LAMB, which is not ported yet; 32 is the fp32
+    clipped LAMB."""
+
+    learning_rate: float = 2.5e-3
+    warmup_steps: int = 3125
+    total_steps: int = 31250
+    beta1: float = 0.9
+    beta2: float = 0.96
+    eps: float = 1e-6
+    weight_decay: float = 0.045
+    max_grad_norm: float = 4.0
+    clamp_value: float = 10000.0
+    state_bits: int = 8

@@ -6,11 +6,17 @@ plus, by layer type: ``full`` every earlier image token, ``axial_row`` its
 row up to c, ``axial_col`` its column up to r, ``conv_like`` the raster-
 causal k x k window around it.
 
-:func:`zoo_attention` routes every type through the port's kernels as the
-JAX package routes them through Pallas: axial layers run ``line_attention``
-for the text half and the image half; ``full`` and ``conv_like`` layers run
-``line_attention`` for the text half and ``window_attention`` for the image
-half. :func:`dense_attention` with :func:`zoo_attention_mask` is the masked
+:func:`zoo_attention_halves` routes every type through the port's kernels
+as the JAX package routes them through Pallas: axial layers run
+``line_attention`` for the text half and the image half; ``full`` and
+``conv_like`` layers run ``line_attention`` for the text half and
+``window_attention`` for the image half. Each call goes through its
+autograd Function (``LineAttention``, ``WindowAttention``), so the backward
+kernels give the gradients. The text keys and values are both the text
+call's k/v and the image call's prefix: their gradient is the sum of the
+text call's dk/dv and the image call's dkp/dvp, which autograd forms where
+the two slices of k and v meet.
+:func:`dense_attention` with :func:`zoo_attention_mask` is the masked
 lowering the cached decode uses.
 """
 
@@ -24,7 +30,7 @@ import torch
 
 from dalle_tpu_torch.config import (ATTN_AXIAL_COL, ATTN_AXIAL_ROW,
                                     ATTN_CONV_LIKE, ATTN_FULL)
-from dalle_tpu_torch.ops.attention import line_attention, window_attention
+from dalle_tpu_torch.ops.attention import LineAttention, WindowAttention
 
 NEG_INF = -1e9
 
@@ -99,21 +105,27 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def zoo_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  attn_type: str, text_len: int, grid: int,
-                  conv_kernel: int = 11) -> torch.Tensor:
-    """Attention over [text || image] for one zoo layer type.
-    q/k/v: (B, T, H, d) -> (B, T, H, d)."""
+def zoo_attention_halves(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, attn_type: str, text_len: int, grid: int,
+                         conv_kernel: int = 11):
+    """The kernel calls of one zoo layer: ``(out_text, out_image)``, each
+    (B, H, t, d). q/k/v: (B, T, H, d)."""
     q, k, v = (x.transpose(1, 2) for x in (q, k, v))   # (B, H, T, d) views
     q_t, k_t, v_t = (x[:, :, :text_len] for x in (q, k, v))
     q_i, k_i, v_i = (x[:, :, text_len:] for x in (q, k, v))
-    out_t, _ = line_attention(q_t, k_t, v_t, None, None, text_len, 0, False)
+    out_t = LineAttention.apply(q_t, k_t, v_t, None, None, text_len, 0,
+                                False)
     if attn_type in (ATTN_AXIAL_ROW, ATTN_AXIAL_COL):
-        out_i, _ = line_attention(q_i, k_i, v_i, k_t, v_t, grid, grid,
-                                  attn_type == ATTN_AXIAL_COL)
+        out_i = LineAttention.apply(q_i, k_i, v_i, k_t, v_t, grid, grid,
+                                    attn_type == ATTN_AXIAL_COL)
     elif attn_type in (ATTN_CONV_LIKE, ATTN_FULL):
         hw = conv_kernel // 2 if attn_type == ATTN_CONV_LIKE else None
-        out_i, _ = window_attention(q_i, k_i, v_i, k_t, v_t, grid, hw)
+        out_i = WindowAttention.apply(q_i, k_i, v_i, k_t, v_t, grid, hw)
     else:
         raise ValueError(f"unknown attention type {attn_type!r}")
+    return out_t, out_i
+
+
+def join_halves(out_t: torch.Tensor, out_i: torch.Tensor) -> torch.Tensor:
+    """(B, H, t, d) text and image outputs -> (B, T, H, d)."""
     return torch.cat([out_t.transpose(1, 2), out_i.transpose(1, 2)], dim=1)

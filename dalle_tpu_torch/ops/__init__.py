@@ -6,15 +6,25 @@ tensors it launches its kernel or raises.
 wrapper adds one where it launches and nowhere else, so a run can show
 which kernels its path went through. It counts calls, not CUDA launches:
 one ``geglu_ff`` call launches two kernels (the gate GEMM and the output
-GEMM) and adds one.
+GEMM) and adds one; so do the backward wrappers (the LayerNorm backward's
+row pass and partial sum, the attention backward's dq pass and dk/dv
+pass). A forward kernel run again by a rematerialised block in backward
+counts again.
+
+Each forward/backward pair is also a ``torch.autograd.Function``
+(``LayerNormFn``, ``GEGLUFn``, ``LineAttention``, ``WindowAttention``)
+whose backward calls the backward wrapper, as the JAX package wraps each
+Pallas pair in a ``jax.custom_vjp``.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"layer_norm": 0, "line_attention": 0,
-                            "window_attention": 0, "geglu_ff": 0}
+LAUNCHES: Dict[str, int] = {
+    "layer_norm": 0, "line_attention": 0, "window_attention": 0,
+    "geglu_ff": 0, "layer_norm_bwd": 0, "line_attention_bwd": 0,
+    "window_attention_bwd": 0, "geglu_ff_bwd": 0}
 
 
 def reset_launches() -> None:

@@ -1,4 +1,5 @@
-"""Forward line and window attention: CUDA kernels and plain versions.
+"""Line and window attention, forward and backward: CUDA kernels and plain
+versions.
 
 Replaces the TPU kernels of ``dalle_tpu/ops/pallas/attention_kernels.py``:
 
@@ -8,24 +9,38 @@ Replaces the TPU kernels of ``dalle_tpu/ops/pallas/attention_kernels.py``:
   rows; axial_col: raster columns);
 - :func:`window_attention`: ``_window_attention_fwd`` -- the text prefix plus
   the raster-causal conv window ``|dr|, |dc| <= hw`` (``conv_like``), or
-  every earlier token (``hw=None``, ``full``).
+  every earlier token (``hw=None``, ``full``);
+- :func:`line_attention_bwd` / :func:`window_attention_bwd`:
+  ``_line_attention_bwd`` / ``_window_attention_bwd`` -- ``(dq, dk, dv,
+  dkp, dvp)`` from the forward's output and logsumexp
+  (``csrc/attention_bwd.cu``, a query-major dq pass and a key-major dk/dv
+  pass, no atomics).
 
-Both return ``(out, lse)``: ``out`` (B, H, T, d) in q's dtype and the row
-logsumexp ``lse`` (B, H, 1, T) f32 in raster token order (for axial_col the
-TPU kernel keeps its statistics in column-major order; the port keeps one
-order for every policy).
+The forwards return ``(out, lse)``: ``out`` (B, H, T, d) in q's dtype and
+the row logsumexp ``lse`` (B, H, 1, T) f32 in raster token order (for
+axial_col the TPU kernel keeps its statistics in column-major order; the
+port keeps one order for every policy). :class:`LineAttention` and
+:class:`WindowAttention` are the ``custom_vjp`` pairs: they save q, k, v,
+the prefix, ``out`` and ``lse`` (the residuals of the TPU kernels'
+``_vjp_fwd``), so backward never runs the forward kernel again.
 
 Numerics of the TPU kernels, kept by both versions here: scores in f32 with
 the bf16 operands' products exact, masked scores filled with -1e9,
 probabilities cast to the value dtype before P.V with f32 accumulation, and
-the division by the f32 denominator at the end. The plain versions are the
-XLA lowerings of ``dalle_tpu/models/attention.py`` (``_axial_lines``,
-``_text_causal``, the dense masked path), written to also return the
-logsumexp.
+the division by the f32 denominator at the end. Backward: P = exp(s - lse)
+in f32, dd = rowsum(dO . O), dS = P (dP - dd), dS cast to the operand dtype
+before its products, dq and dk scaled at the end, dv = P^T dO with P in f32.
+The plain versions are the XLA lowerings of ``dalle_tpu/models/attention.py``
+(``_axial_lines``, ``_text_causal``, the dense masked path), written to also
+return the logsumexp, and the TPU backward kernels' formulas written out.
 
 Operands may be strided views (unit stride along d): the model passes
 (B, T, H, d) projections through ``transpose(1, 2)`` without a copy, and
-the kernel reads axial_col lines with strides instead of relayout copies.
+the kernels read axial_col lines with strides instead of relayout copies.
+The backward wrappers write every gradient into (B, T, H, d) storage and
+return its (B, H, T, d) view, so the model's transposes chain without
+copies; a cotangent that arrives with strides the kernel does not take is
+copied once.
 """
 
 from __future__ import annotations
@@ -120,6 +135,80 @@ def window_attention_plain(q, k, v, kp, vp, grid: int, hw: Optional[int]):
     return o.to(q.dtype), lse[:, :, None, :]
 
 
+def _grads(qf, kf, vf, gf, dd, s, lse, op_dtype):
+    """Backward through masked scores ``s`` (already scaled and filled):
+    ``(dq, dk, dv)`` f32 before the final scaling, P in f32 for dv."""
+    p = torch.exp(s - lse[..., None])
+    dp = gf.to(op_dtype).float() @ vf.transpose(-1, -2)
+    ds = (p * (dp - dd)).to(op_dtype).float()
+    return ds @ kf, ds.transpose(-1, -2) @ qf, p.transpose(-1, -2) @ gf
+
+
+def _prefix_grads(qf, kp, vp, gf, dd, lse, scale, op_dtype):
+    """``attention_kernels._prefix_grads``: the prefix's share of dq and
+    (dkp, dvp), over all of a (b, h)'s queries at once (f32, unscaled dq)."""
+    kpf, vpf = kp.float(), vp.float()
+    s_p = (qf @ kpf.transpose(-1, -2)) * scale
+    return _grads(qf, kpf, vpf, gf, dd, s_p, lse, op_dtype)
+
+
+def line_attention_bwd_plain(q, kl, vl, kp, vp, out, lse, dout, n: int,
+                             grid_side: int, transpose: bool):
+    """The plain backward of :func:`line_attention_plain`
+    (``attention_kernels._bwd_kernel``): ``(dq, dk, dv, dkp, dvp)`` in q's
+    dtype, ``dkp``/``dvp`` None without a prefix."""
+    b, h, t, d = q.shape
+    scale = d ** -0.5
+    lse = lse[:, :, 0, :]
+    if transpose:
+        q, kl, vl, out, dout = (_col_major(x, grid_side)
+                                for x in (q, kl, vl, out, dout))
+        lse = _col_major(lse, grid_side)
+    qf, kf, vf, gf = (x.float() for x in (q, kl, vl, dout))
+    dd = (gf * out.float()).sum(dim=-1, keepdim=True)
+    lines = t // n
+    per_line = lambda x: x.reshape(b, h, lines, n, -1)  # noqa: E731
+    s = (per_line(qf) @ per_line(kf).transpose(-1, -2)) * scale
+    causal = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+    s = torch.where(causal, s, NEG_INF)
+    dq, dk, dv = (x.reshape(b, h, t, d) for x in _grads(
+        per_line(qf), per_line(kf), per_line(vf), per_line(gf), per_line(dd),
+        s, lse.reshape(b, h, lines, n), q.dtype))
+    dkp = dvp = None
+    if kp is not None:
+        dq_p, dkp, dvp = _prefix_grads(qf, kp, vp, gf, dd, lse, scale,
+                                       q.dtype)
+        dq = dq + dq_p
+        dkp, dvp = (dkp * scale).to(q.dtype), dvp.to(q.dtype)
+    dq, dk, dv = ((dq * scale).to(q.dtype), (dk * scale).to(q.dtype),
+                  dv.to(q.dtype))
+    if transpose:
+        dq, dk, dv = (_col_major(x, grid_side) for x in (dq, dk, dv))
+    return dq, dk, dv, dkp, dvp
+
+
+def window_attention_bwd_plain(q, k, v, kp, vp, out, lse, dout, grid: int,
+                               hw: Optional[int]):
+    """The plain backward of :func:`window_attention_plain`
+    (``attention_kernels._win_bwd_kernel``)."""
+    b, h, t, d = q.shape
+    scale = d ** -0.5
+    lse = lse[:, :, 0, :]
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, dout))
+    dd = (gf * out.float()).sum(dim=-1, keepdim=True)
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    s = torch.where(window_mask(t, grid, hw, q.device), s, NEG_INF)
+    dq, dk, dv = _grads(qf, kf, vf, gf, dd, s, lse, q.dtype)
+    dkp = dvp = None
+    if kp is not None:
+        dq_p, dkp, dvp = _prefix_grads(qf, kp, vp, gf, dd, lse, scale,
+                                       q.dtype)
+        dq = dq + dq_p
+        dkp, dvp = (dkp * scale).to(q.dtype), dvp.to(q.dtype)
+    return ((dq * scale).to(q.dtype), (dk * scale).to(q.dtype),
+            dv.to(q.dtype), dkp, dvp)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel binding
 # ---------------------------------------------------------------------------
@@ -137,16 +226,49 @@ class _AttnArgs(ctypes.Structure):
                 + [("scale", ctypes.c_float)])
 
 
-def _lib():
-    lib = _build.load("attention_fwd")
+class _AttnBwdArgs(ctypes.Structure):
+    """Mirror of ``struct AttnBwdArgs`` in ``csrc/attention_bwd.cu``."""
+
+    _fields_ = ([(name, ctypes.c_void_p)
+                 for name in ("q", "k", "v", "kp", "vp", "o", "dout", "lse",
+                              "dd", "dq", "dk", "dv", "dkp", "dvp")]
+                + [(name, ctypes.c_longlong * 3)
+                   for name in ("q_s", "k_s", "v_s", "kp_s", "vp_s", "o_s",
+                                "do_s", "dq_s", "dk_s", "dv_s", "dkp_s",
+                                "dvp_s")]
+                + [(name, ctypes.c_int)
+                   for name in ("B", "H", "T", "S", "policy", "n", "grid",
+                                "hw", "transpose")]
+                + [("scale", ctypes.c_float)])
+
+
+def _lib(name: str, args_type):
+    lib = _build.load(name)
     if not getattr(lib, "_typed", False):
-        lib.attention_fwd.argtypes = [ctypes.POINTER(_AttnArgs),
-                                      ctypes.c_void_p]
-        lib.attention_fwd.restype = ctypes.c_int
-        lib.attention_fwd_error.argtypes = [ctypes.c_int]
-        lib.attention_fwd_error.restype = ctypes.c_char_p
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(args_type), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def _run(name: str, args_type, args, counter: str, device) -> None:
+    lib = _lib(name, args_type)
+    err = getattr(lib, name)(ctypes.byref(args),
+                             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error")(err).decode()
+        raise RuntimeError(f"{counter}: launch failed: {msg}")
+    LAUNCHES[counter] += 1
+
+
+def _kernel_ready(x: torch.Tensor) -> bool:
+    """Whether ``x`` (B, H, T, d) has the strides the kernels take."""
+    return (x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3])
+            and x.data_ptr() % 16 == 0)
 
 
 def _check_operand(name: str, x: torch.Tensor, shape, device) -> None:
@@ -156,55 +278,113 @@ def _check_operand(name: str, x: torch.Tensor, shape, device) -> None:
     if x.dtype != torch.bfloat16 or x.device != device:
         raise ValueError(f"{name}: expected bf16 on {device}, got "
                          f"{x.dtype} on {x.device}")
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]) \
-            or x.data_ptr() % 16:
+    if not _kernel_ready(x):
         raise ValueError(f"{name}: rows must be 16-byte aligned with unit "
                          f"stride along d (strides {x.stride()})")
 
 
-def _launch(counter: str, q, k, v, kp, vp, policy: int, n: int, grid: int,
-            hw: int, transpose: bool):
+def _check_operands(counter: str, q, k, v, kp, vp) -> int:
+    """Checks q/k/v (and the prefix) for the kernels; returns S (0 without
+    a prefix)."""
     b, h, t, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"{counter}: the kernel takes head_dim "
                          f"{HEAD_DIM}, got {d}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(f"{counter} {name}", x, (b, h, t, d), q.device)
-    s = 0
     if (kp is None) != (vp is None):
         raise ValueError(f"{counter}: kp and vp come together")
-    if kp is not None:
-        s = kp.shape[2]
-        for name, x in (("kp", kp), ("vp", vp)):
-            _check_operand(f"{counter} {name}", x, (b, h, s, d), q.device)
-    out = torch.empty((b, t, h, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    if kp is None:
+        return 0
+    s = kp.shape[2]
+    for name, x in (("kp", kp), ("vp", vp)):
+        _check_operand(f"{counter} {name}", x, (b, h, s, d), q.device)
+    return s
+
+
+def _strides(x):
+    if x is None:
+        return (ctypes.c_longlong * 3)(0, 0, 0)
+    return (ctypes.c_longlong * 3)(*x.stride()[:3])
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _bthd(b, t, h, d, like):
+    """An empty (B, H, T, d) view of (B, T, H, d) storage."""
+    return torch.empty((b, t, h, d), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _launch(counter: str, q, k, v, kp, vp, policy: int, n: int, grid: int,
+            hw: int, transpose: bool):
+    b, h, t, d = q.shape
+    s = _check_operands(counter, q, k, v, kp, vp)
+    out = _bthd(b, t, h, d, q)
     lse = torch.empty((b, h, 1, t), dtype=torch.float32, device=q.device)
-    strides = lambda x: (ctypes.c_longlong * 3)(*x.stride()[:3])  # noqa: E731
-    none3 = (ctypes.c_longlong * 3)(0, 0, 0)
     args = _AttnArgs(
-        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
-        kp=kp.data_ptr() if kp is not None else None,
-        vp=vp.data_ptr() if vp is not None else None,
-        out=out.data_ptr(), lse=lse.data_ptr(),
-        q_s=strides(q), k_s=strides(k), v_s=strides(v),
-        kp_s=strides(kp) if kp is not None else none3,
-        vp_s=strides(vp) if vp is not None else none3,
-        o_s=strides(out), B=b, H=h, T=t, S=s, policy=policy, n=n,
-        grid=grid, hw=hw, transpose=int(transpose), scale=d ** -0.5)
-    lib = _lib()
-    err = lib.attention_fwd(ctypes.byref(args),
-                            torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{counter}: launch failed: "
-                           f"{lib.attention_fwd_error(err).decode()}")
-    LAUNCHES[counter] += 1
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), kp=_ptr(kp),
+        vp=_ptr(vp), out=out.data_ptr(), lse=lse.data_ptr(),
+        q_s=_strides(q), k_s=_strides(k), v_s=_strides(v),
+        kp_s=_strides(kp), vp_s=_strides(vp), o_s=_strides(out), B=b, H=h,
+        T=t, S=s, policy=policy, n=n, grid=grid, hw=hw,
+        transpose=int(transpose), scale=d ** -0.5)
+    _run("attention_fwd", _AttnArgs, args, counter, q.device)
     return out, lse
+
+
+def _launch_bwd(counter: str, q, k, v, kp, vp, out, lse, dout, policy: int,
+                n: int, grid: int, hw: int, transpose: bool):
+    b, h, t, d = q.shape
+    s = _check_operands(counter, q, k, v, kp, vp)
+    for name, x in (("out", out), ("dout", dout)):
+        _check_operand(f"{counter} {name}", x, (b, h, t, d), q.device)
+    if (tuple(lse.shape) != (b, h, 1, t) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"{counter}: lse must be a contiguous f32 "
+                         f"({b}, {h}, 1, {t}) tensor on {q.device}")
+    dq, dk, dv = (_bthd(b, t, h, d, q) for _ in range(3))
+    dkp = dvp = None
+    if kp is not None:
+        dkp, dvp = (_bthd(b, s, h, d, q) for _ in range(2))
+    dd = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    args = _AttnBwdArgs(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), kp=_ptr(kp),
+        vp=_ptr(vp), o=out.data_ptr(), dout=dout.data_ptr(),
+        lse=lse.data_ptr(), dd=dd.data_ptr(), dq=dq.data_ptr(),
+        dk=dk.data_ptr(), dv=dv.data_ptr(), dkp=_ptr(dkp), dvp=_ptr(dvp),
+        q_s=_strides(q), k_s=_strides(k), v_s=_strides(v),
+        kp_s=_strides(kp), vp_s=_strides(vp), o_s=_strides(out),
+        do_s=_strides(dout), dq_s=_strides(dq), dk_s=_strides(dk),
+        dv_s=_strides(dv), dkp_s=_strides(dkp), dvp_s=_strides(dvp),
+        B=b, H=h, T=t, S=s, policy=policy, n=n, grid=grid, hw=hw,
+        transpose=int(transpose), scale=d ** -0.5)
+    _run("attention_bwd", _AttnBwdArgs, args, counter, q.device)
+    return dq, dk, dv, dkp, dvp
 
 
 # ---------------------------------------------------------------------------
 # public wrappers
 # ---------------------------------------------------------------------------
+
+def _check_lines(what: str, t: int, n: int, grid_side: int,
+                 transpose: bool) -> None:
+    if t % n or (transpose and t != grid_side * grid_side):
+        raise ValueError(f"{what}: T={t} is not whole lines of {n} (grid "
+                         f"{grid_side}, transpose {transpose})")
+
+
+def _plain(what: str, q: torch.Tensor) -> bool:
+    """Whether to take the plain version (a CPU tensor) rather than the
+    kernel (a CUDA tensor); other devices raise."""
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    return False
+
 
 def line_attention(q, kl, vl, kp, vp, n: int, grid_side: int,
                    transpose: bool) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -214,17 +394,26 @@ def line_attention(q, kl, vl, kp, vp, n: int, grid_side: int,
     (B, H, S, d) prefix; ``n`` tokens per line; ``transpose`` makes raster
     columns the lines (axial_col, ``n == grid_side``). CPU tensors take the
     plain version; CUDA tensors launch ``csrc/attention_fwd.cu``."""
-    t = q.shape[2]
-    if t % n or (transpose and t != grid_side * grid_side):
-        raise ValueError(f"line_attention: T={t} is not whole lines of "
-                         f"{n} (grid {grid_side}, transpose {transpose})")
-    if q.device.type == "cpu":
+    _check_lines("line_attention", q.shape[2], n, grid_side, transpose)
+    if _plain("line_attention", q):
         return line_attention_plain(q, kl, vl, kp, vp, n, grid_side,
                                     transpose)
-    if q.device.type != "cuda":
-        raise ValueError(f"line_attention: unsupported device {q.device}")
     return _launch("line_attention", q, kl, vl, kp, vp, POLICY_LINE, n,
                    grid_side, 0, transpose)
+
+
+def line_attention_bwd(q, kl, vl, kp, vp, out, lse, dout, n: int,
+                       grid_side: int, transpose: bool):
+    """``(dq, dkl, dvl, dkp, dvp)`` of :func:`line_attention` for the
+    cotangent ``dout`` (B, H, T, d), from its ``out`` and ``lse``; the
+    prefix pair is None without a prefix. CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/attention_bwd.cu``."""
+    _check_lines("line_attention_bwd", q.shape[2], n, grid_side, transpose)
+    if _plain("line_attention_bwd", q):
+        return line_attention_bwd_plain(q, kl, vl, kp, vp, out, lse, dout,
+                                        n, grid_side, transpose)
+    return _launch_bwd("line_attention_bwd", q, kl, vl, kp, vp, out, lse,
+                       dout, POLICY_LINE, n, grid_side, 0, transpose)
 
 
 def window_attention(q, k, v, kp, vp, grid: int,
@@ -234,10 +423,71 @@ def window_attention(q, k, v, kp, vp, grid: int,
     t = q.shape[2]
     if t != grid * grid:
         raise ValueError(f"window_attention: T={t} != grid^2={grid * grid}")
-    if q.device.type == "cpu":
+    if _plain("window_attention", q):
         return window_attention_plain(q, k, v, kp, vp, grid, hw)
-    if q.device.type != "cuda":
-        raise ValueError(f"window_attention: unsupported device {q.device}")
     policy = POLICY_FULL if hw is None else POLICY_CONV
     return _launch("window_attention", q, k, v, kp, vp, policy, 0, grid,
                    hw or 0, False)
+
+
+def window_attention_bwd(q, k, v, kp, vp, out, lse, dout, grid: int,
+                         hw: Optional[int]):
+    """``(dq, dk, dv, dkp, dvp)`` of :func:`window_attention` for the
+    cotangent ``dout``. CPU tensors take the plain version; CUDA tensors
+    launch ``csrc/attention_bwd.cu``."""
+    t = q.shape[2]
+    if t != grid * grid:
+        raise ValueError(f"window_attention_bwd: T={t} != "
+                         f"grid^2={grid * grid}")
+    if _plain("window_attention_bwd", q):
+        return window_attention_bwd_plain(q, k, v, kp, vp, out, lse, dout,
+                                          grid, hw)
+    policy = POLICY_FULL if hw is None else POLICY_CONV
+    return _launch_bwd("window_attention_bwd", q, k, v, kp, vp, out, lse,
+                       dout, policy, 0, grid, hw or 0, False)
+
+
+def _cotangent(dout: torch.Tensor) -> torch.Tensor:
+    """The cotangent as the kernels take it: a view with other strides
+    (for example a broadcast) is copied once."""
+    if dout.device.type == "cuda" and not _kernel_ready(dout):
+        return dout.contiguous()
+    return dout
+
+
+class LineAttention(torch.autograd.Function):
+    """:func:`line_attention` returning ``out`` only, with
+    :func:`line_attention_bwd` as its gradient (the ``custom_vjp`` of
+    ``attention_kernels.line_attention``)."""
+
+    @staticmethod
+    def forward(ctx, q, kl, vl, kp, vp, n, grid_side, transpose):
+        out, lse = line_attention(q, kl, vl, kp, vp, n, grid_side, transpose)
+        ctx.save_for_backward(q, kl, vl, kp, vp, out, lse)
+        ctx.line = (n, grid_side, transpose)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = line_attention_bwd(*ctx.saved_tensors, _cotangent(dout),
+                                   *ctx.line)
+        return grads + (None, None, None)
+
+
+class WindowAttention(torch.autograd.Function):
+    """:func:`window_attention` returning ``out`` only, with
+    :func:`window_attention_bwd` as its gradient (the ``custom_vjp`` of
+    ``attention_kernels.window_attention``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kp, vp, grid, hw):
+        out, lse = window_attention(q, k, v, kp, vp, grid, hw)
+        ctx.save_for_backward(q, k, v, kp, vp, out, lse)
+        ctx.window = (grid, hw)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = window_attention_bwd(*ctx.saved_tensors, _cotangent(dout),
+                                     *ctx.window)
+        return grads + (None, None)

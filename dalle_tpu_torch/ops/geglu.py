@@ -1,12 +1,26 @@
-"""Fused GEGLU feed-forward forward: CUDA kernels and the plain version.
+"""Fused GEGLU feed-forward: CUDA kernels and the plain versions.
 
-Replaces the TPU kernel ``dalle_tpu/ops/pallas/geglu_kernels.py``
-``_ff_fwd`` (``_ff_fwd_kernel``): ``(x.Wi + bi) * gelu_tanh(x.Wg + bg)``,
-rounded to the activation dtype, then ``. Wo + bo`` with an f32
-accumulator seeded with ``bo``. On the card it runs as two hand-written
-GEMM kernels (``csrc/geglu_fwd.cu``: the dual GEMM with the gate epilogue,
-then the output GEMM); the source says why the TPU kernel's single pass
-was split there.
+Replaces the TPU kernels of ``dalle_tpu/ops/pallas/geglu_kernels.py``:
+
+- ``_ff_fwd`` (``_ff_fwd_kernel``): ``(x.Wi + bi) * gelu_tanh(x.Wg + bg)``,
+  rounded to the activation dtype, then ``. Wo + bo`` with an f32
+  accumulator seeded with ``bo``. On the card it runs as two hand-written
+  GEMM kernels (``csrc/geglu_fwd.cu``: the dual GEMM with the gate
+  epilogue, then the output GEMM); the source says why the TPU kernel's
+  single pass was split there.
+- ``_ff_bwd_tensors`` (``_ff_bwd_kernel``): recomputes ``h = x.Wi + bi``
+  and ``g = x.Wg + bg``, forms ``dhg = dO.Wo^T`` and emits, in the
+  activation dtype, ``dh = dhg * gelu(g)``, ``dg = dhg * h * gelu'(g)`` and
+  ``hg = h * gelu(g)`` (``csrc/geglu_bwd.cu``, one triple-GEMM kernel).
+
+:class:`GEGLUFn` is the ``custom_vjp`` of ``geglu_kernels.geglu_ff``: it
+saves ``x`` and the weights, and its backward runs the tensors kernel and
+then the contractions the JAX package leaves to XLA (``dx``, ``dWi``,
+``dWg``, ``dWo``, the bias sums) as ``torch.matmul``/``sum``. The kernel
+writes ``dh`` and ``dg`` side by side into one (M, 2K) buffer, so that
+``dx = [dh | dg] . [Wi | Wg]^T`` is one GEMM: its f32 accumulator sums
+both products and rounds once, as ``_vjp_bwd`` adds the two f32 products
+before its single cast; and ``[dWi | dWg] = x^T . [dh | dg]`` is one GEMM.
 """
 
 from __future__ import annotations
@@ -27,6 +41,14 @@ def gelu_tanh(g: torch.Tensor) -> torch.Tensor:
     return 0.5 * g * (1.0 + torch.tanh(u))
 
 
+def gelu_tanh_grad(g: torch.Tensor) -> torch.Tensor:
+    """d gelu_tanh / dg, the formula of ``geglu_kernels._gelu_grad``."""
+    u = SQRT_2_OVER_PI * (g + GELU_C * g * g * g)
+    t = torch.tanh(u)
+    du = SQRT_2_OVER_PI * (1.0 + 3.0 * GELU_C * g * g)
+    return 0.5 * (1.0 + t) + 0.5 * g * (1.0 - t * t) * du
+
+
 def geglu_ff_plain(x, wi, wg, wo, bi, bg, bo) -> torch.Tensor:
     """The plain version. Products of the (bf16) operands are taken in f32,
     which is exact, so they match f32 accumulation of bf16 inputs."""
@@ -36,24 +58,55 @@ def geglu_ff_plain(x, wi, wg, wo, bi, bg, bo) -> torch.Tensor:
     return (bo.float() + hg.float() @ wo.float()).to(x.dtype)
 
 
-def _lib():
-    lib = _build.load("geglu_fwd")
+def geglu_ff_bwd_plain(x, wi, wg, wo, bi, bg, dout):
+    """The plain backward tensors (``geglu_kernels._ff_bwd_kernel``):
+    ``(dhdg, hg)`` in x's dtype, ``dhdg`` (M, 2K) holding ``dh`` in its
+    first K columns and ``dg`` in its last K, ``hg`` (M, K)."""
+    h = x.float() @ wi.float() + bi.float()
+    g = x.float() @ wg.float() + bg.float()
+    a = gelu_tanh(g)
+    dhg = dout.float() @ wo.float().t()
+    dh = (dhg * a).to(x.dtype)
+    dg = (dhg * h * gelu_tanh_grad(g)).to(x.dtype)
+    return torch.cat([dh, dg], dim=1), (h * a).to(x.dtype)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of each library's entry points (pointers, ints, stream)
+_SIGNATURES = {
+    "geglu_fwd": {"geglu_gate_fwd": [_P] * 6 + [_I] * 3 + [_P],
+                  "geglu_out_fwd": [_P] * 4 + [_I] * 3 + [_P]},
+    "geglu_bwd": {"geglu_bwd_tensors": [_P] * 9 + [_I] * 3 + [_P]},
+}
+
+
+def _lib(name: str):
+    lib = _build.load(name)
     if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.geglu_gate_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
-        lib.geglu_gate_fwd.restype = i
-        lib.geglu_out_fwd.argtypes = [p, p, p, p, i, i, i, p]
-        lib.geglu_out_fwd.restype = i
-        lib.geglu_fwd_error.argtypes = [i]
-        lib.geglu_fwd_error.restype = ctypes.c_char_p
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
+        err = getattr(lib, f"{name}_error")
+        err.argtypes = [_I]
+        err.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
-def _check(lib, err: int, what: str) -> None:
+def _check(lib, name: str, err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what}: launch failed: "
-                           f"{lib.geglu_fwd_error(err).decode()}")
+        msg = getattr(lib, f"{name}_error")(err).decode()
+        raise RuntimeError(f"{what}: launch failed: {msg}")
+
+
+def _check_operands(what: str, device, shapes) -> None:
+    for name, (t, shape) in shapes.items():
+        if (tuple(t.shape) != shape or t.dtype != torch.bfloat16
+                or t.device != device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{what}: {name} must be a contiguous, "
+                             f"16-byte aligned bf16 {shape} tensor on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)}")
 
 
 def geglu_ff(x, wi, wg, wo, bi, bg, bo) -> torch.Tensor:
@@ -66,28 +119,83 @@ def geglu_ff(x, wi, wg, wo, bi, bg, bo) -> torch.Tensor:
         raise ValueError(f"geglu_ff: unsupported device {x.device}")
     m, d = x.shape
     k = wi.shape[1]
-    shapes = {"x": (x, (m, d)), "wi": (wi, (d, k)), "wg": (wg, (d, k)),
-              "wo": (wo, (k, d)), "bi": (bi, (k,)), "bg": (bg, (k,)),
-              "bo": (bo, (d,))}
-    for name, (t, shape) in shapes.items():
-        if (tuple(t.shape) != shape or t.dtype != torch.bfloat16
-                or t.device != x.device or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError(f"geglu_ff: {name} must be a contiguous, "
-                             f"16-byte aligned bf16 {shape} tensor on "
-                             f"{x.device}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
+    _check_operands("geglu_ff", x.device, {
+        "x": (x, (m, d)), "wi": (wi, (d, k)), "wg": (wg, (d, k)),
+        "wo": (wo, (k, d)), "bi": (bi, (k,)), "bg": (bg, (k,)),
+        "bo": (bo, (d,))})
     if d % 64 or k % 64:
         raise ValueError(f"geglu_ff: d={d} and K={k} must be multiples of 64")
-    lib = _lib()
+    lib = _lib("geglu_fwd")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     hg = torch.empty((m, k), dtype=x.dtype, device=x.device)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
-    _check(lib, lib.geglu_gate_fwd(x.data_ptr(), wi.data_ptr(), wg.data_ptr(),
-                                   bi.data_ptr(), bg.data_ptr(), hg.data_ptr(),
-                                   m, d, k, stream), "geglu_gate_fwd")
-    _check(lib, lib.geglu_out_fwd(hg.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-                                  out.data_ptr(), m, k, d, stream),
+    _check(lib, "geglu_fwd",
+           lib.geglu_gate_fwd(x.data_ptr(), wi.data_ptr(), wg.data_ptr(),
+                              bi.data_ptr(), bg.data_ptr(), hg.data_ptr(),
+                              m, d, k, stream), "geglu_gate_fwd")
+    _check(lib, "geglu_fwd",
+           lib.geglu_out_fwd(hg.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+                             out.data_ptr(), m, k, d, stream),
            "geglu_out_fwd")
     LAUNCHES["geglu_ff"] += 1
     return out
+
+
+def geglu_ff_bwd(x, wi, wg, wo, bi, bg, dout):
+    """The backward tensors of :func:`geglu_ff` for the cotangent ``dout``
+    (M, d): ``(dhdg, hg)`` as :func:`geglu_ff_bwd_plain` returns them. CPU
+    tensors take the plain version; CUDA tensors launch
+    ``csrc/geglu_bwd.cu`` (bf16, contiguous, d % 64 == 0, K % 64 == 0)."""
+    if x.device.type == "cpu":
+        return geglu_ff_bwd_plain(x, wi, wg, wo, bi, bg, dout)
+    if x.device.type != "cuda":
+        raise ValueError(f"geglu_ff_bwd: unsupported device {x.device}")
+    m, d = x.shape
+    k = wi.shape[1]
+    _check_operands("geglu_ff_bwd", x.device, {
+        "x": (x, (m, d)), "wi": (wi, (d, k)), "wg": (wg, (d, k)),
+        "wo": (wo, (k, d)), "bi": (bi, (k,)), "bg": (bg, (k,)),
+        "dout": (dout, (m, d))})
+    if d % 64 or k % 64:
+        raise ValueError(f"geglu_ff_bwd: d={d} and K={k} must be multiples "
+                         "of 64")
+    lib = _lib("geglu_bwd")
+    dhdg = torch.empty((m, 2 * k), dtype=x.dtype, device=x.device)
+    hg = torch.empty((m, k), dtype=x.dtype, device=x.device)
+    _check(lib, "geglu_bwd",
+           lib.geglu_bwd_tensors(
+               x.data_ptr(), wi.data_ptr(), wg.data_ptr(), wo.data_ptr(),
+               bi.data_ptr(), bg.data_ptr(), dout.data_ptr(),
+               dhdg.data_ptr(), hg.data_ptr(), m, d, k,
+               torch.cuda.current_stream(x.device).cuda_stream),
+           "geglu_bwd_tensors")
+    LAUNCHES["geglu_ff_bwd"] += 1
+    return dhdg, hg
+
+
+class GEGLUFn(torch.autograd.Function):
+    """:func:`geglu_ff` with the tensors kernel plus plain contractions as
+    its gradient (``geglu_kernels.geglu_ff``'s ``custom_vjp``). Residuals:
+    ``x`` and the weights; the (M, K) intermediates are recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, wi, wg, wo, bi, bg, bo):
+        ctx.save_for_backward(x, wi, wg, wo, bi, bg)
+        ctx.bo_dtype = bo.dtype
+        return geglu_ff(x, wi, wg, wo, bi, bg, bo)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, wi, wg, wo, bi, bg = ctx.saved_tensors
+        dout = dout.contiguous()
+        dhdg, hg = geglu_ff_bwd(x, wi, wg, wo, bi, bg, dout)
+        k = wi.shape[1]
+        # the contractions the JAX package leaves to XLA: each GEMM takes
+        # bf16 operands with an f32 accumulator and rounds its result once
+        dx = torch.matmul(dhdg, torch.cat([wi, wg], dim=1).t())
+        dw = torch.matmul(x.t(), dhdg)
+        dwo = torch.matmul(hg.t(), dout)
+        db = dhdg.float().sum(dim=0)
+        return (dx, dw[:, :k].to(wi.dtype), dw[:, k:].to(wg.dtype),
+                dwo.to(wo.dtype), db[:k].to(bi.dtype), db[k:].to(bg.dtype),
+                dout.float().sum(dim=0).to(ctx.bo_dtype))

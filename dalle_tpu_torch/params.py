@@ -18,7 +18,7 @@ The ``dense_scan`` layout (stacked per-repetition leaves) is not taken.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -96,18 +96,23 @@ def params_from_jax(tree, cfg: ModelConfig) -> DALLE:
     return model
 
 
+def flax_path(name: str, cfg: ModelConfig) -> Tuple[str, ...]:
+    """The flax tree path (under ``params``) of the port parameter
+    ``name``, in the layout the JAX model of ``cfg`` writes."""
+    path = name.split(".")
+    if path[:2] == ["transformer", "blocks"]:
+        scanned = jax_layout_scanned(cfg) and path[2] != "block_wconv"
+        path = (["transformer", "cycle"] if scanned
+                else ["transformer"]) + path[2:]
+    return tuple(path)
+
+
 def params_to_jax(model: DALLE) -> Dict:
     """The flax tree (``{"params": ...}``, numpy leaves) of ``model``, in
     the layout the JAX model of the same config writes."""
-    scanned = jax_layout_scanned(model.cfg)
     out: Dict = {}
     for name, t in model.state_dict().items():
-        path = name.split(".")
-        if path[:2] == ["transformer", "blocks"]:
-            block = path[2]
-            head = (["transformer", "cycle"] if scanned
-                    and block != "block_wconv" else ["transformer"])
-            path = head + path[2:]
+        path = flax_path(name, model.cfg)
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})

@@ -10,7 +10,10 @@ GPU machine without JAX it runs alone:
 Tolerances: bf16 outputs 2^-7 relative and absolute (the kernel and the
 plain version round the same f32 math, summed in another order; the GEGLU
 output 2^-6, since its hg intermediate is rounded to bf16 in both before a
-4096-term sum); the f32 logsumexp 1e-5.
+4096-term sum); the f32 logsumexp 1e-5; the LayerNorm backward's f32
+parameter sums 1e-4 (sums over 512 rows in another order). Every backward
+kernel also runs twice on the same inputs and must give identical bits (no
+atomics, fixed reduction orders).
 """
 
 import pytest
@@ -18,11 +21,20 @@ import torch
 
 from dalle_tpu_torch.ops import LAUNCHES, reset_launches
 from dalle_tpu_torch.ops.attention import (line_attention,
+                                           line_attention_bwd,
+                                           line_attention_bwd_plain,
                                            line_attention_plain,
                                            window_attention,
+                                           window_attention_bwd,
+                                           window_attention_bwd_plain,
                                            window_attention_plain)
-from dalle_tpu_torch.ops.geglu import geglu_ff, geglu_ff_plain
-from dalle_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
+from dalle_tpu_torch.ops.geglu import (geglu_ff, geglu_ff_bwd,
+                                       geglu_ff_bwd_plain, geglu_ff_plain)
+from dalle_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
+                                            layer_norm_bwd_plain,
+                                            layer_norm_plain)
+
+BF16 = dict(rtol=2 ** -7, atol=2 ** -7)
 
 
 @pytest.fixture
@@ -89,3 +101,77 @@ def test_cuda_attention_kernels(cuda_device, kind):
     torch.testing.assert_close(out.float(), out_p.float(), rtol=2 ** -7,
                                atol=2 ** -7)
     torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+
+
+def _same_twice(fn, *args):
+    """Runs ``fn`` twice; asserts bitwise-equal outputs; returns the first."""
+    first, second = fn(*args), fn(*args)
+    for a, b in zip(first, second):
+        if a is not None:
+            assert torch.equal(a, b)
+    return first
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_bwd_kernel(cuda_device):
+    x = _bf16((512, 1024), 0, cuda_device, 2.0)
+    dy = _bf16((512, 1024), 1, cuda_device)
+    g = _bf16((1024,), 2, cuda_device, 0.2).float() + 1.0
+    reset_launches()
+    got = _same_twice(layer_norm_bwd, x, g, dy)
+    assert LAUNCHES["layer_norm_bwd"] == 2
+    want = layer_norm_bwd_plain(x, g, dy)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **BF16)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_geglu_bwd_kernel(cuda_device):
+    m, d, k = 320, 256, 512
+    ops = [_bf16(s, i, cuda_device, sc) for i, (s, sc) in enumerate(
+        [((m, d), 0.5), ((d, k), 0.05), ((d, k), 0.05), ((k, d), 0.05),
+         ((k,), 0.1), ((k,), 0.1), ((m, d), 1.0)])]
+    reset_launches()
+    got = _same_twice(geglu_ff_bwd, *ops)
+    assert LAUNCHES["geglu_ff_bwd"] == 2
+    for a, b in zip(got, geglu_ff_bwd_plain(*ops)):
+        torch.testing.assert_close(a.float(), b.float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["text", "axial_row", "axial_col",
+                                  "axial_row_noprefix", "conv_like", "full",
+                                  "conv_like_noprefix"])
+def test_cuda_attention_bwd_kernels(cuda_device, kind):
+    b, h, grid, text = 2, 4, 8, 32
+    t = text if kind == "text" else grid * grid
+    q, k, v, dout = (_bf16((b, t, h, 64), 10 + i, cuda_device).transpose(1, 2)
+                     for i in range(4))
+    kp = vp = None
+    if kind != "text" and not kind.endswith("noprefix"):
+        kp, vp = (_bf16((b, text, h, 64), 20 + i, cuda_device).transpose(1, 2)
+                  for i in range(2))
+    if kind == "text":
+        extra = (text, 0, False)
+    elif kind.startswith("axial"):
+        extra = (grid, grid, kind == "axial_col")
+    else:
+        extra = (grid, 2 if kind.startswith("conv_like") else None)
+    if len(extra) == 3:
+        fwd, bwd, plain = line_attention, line_attention_bwd, \
+            line_attention_bwd_plain
+    else:
+        fwd, bwd, plain = window_attention, window_attention_bwd, \
+            window_attention_bwd_plain
+    out, lse = fwd(q, k, v, kp, vp, *extra)
+    reset_launches()
+    got = _same_twice(bwd, q, k, v, kp, vp, out, lse, dout, *extra)
+    assert sum(LAUNCHES.values()) == 2
+    want = plain(q, k, v, kp, vp, out, lse, dout, *extra)
+    for name, a, w in zip(("dq", "dk", "dv", "dkp", "dvp"), got, want):
+        assert (a is None) == (w is None), name
+        if a is not None:
+            assert a.shape == w.shape, name
+            torch.testing.assert_close(a.float(), w.float(), msg=name,
+                                       **BF16)

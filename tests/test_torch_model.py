@@ -106,8 +106,9 @@ def test_flagship_tiny_routes_like_the_flagship(monkeypatch):
     LayerNorm wrapper, the fused FF only on the un-rematted block_3, the
     line wrapper on the text half of every layer and the image half of
     the axial ones, the window wrapper on w_conv."""
-    import dalle_tpu_torch.models.attention as tatt
-    import dalle_tpu_torch.models.transformer as ttr
+    import dalle_tpu_torch.ops.attention as tatt
+    import dalle_tpu_torch.ops.geglu as tgeglu
+    import dalle_tpu_torch.ops.layer_norm as tln
 
     _, tcfg, _, model, text, image = _setup("flagship_tiny")
     fused = {name for name, blk in model.transformer.blocks.items()
@@ -121,8 +122,12 @@ def test_flagship_tiny_routes_like_the_flagship(monkeypatch):
             return fn(*a, **k)
         return inner
 
-    for mod, name in ((ttr, "layer_norm"), (ttr, "geglu_ff"),
-                      (tatt, "line_attention"), (tatt, "window_attention")):
+    # the autograd Functions call the wrappers by their module's name
+    for mod, name in ((tln, "layer_norm"), (tgeglu, "geglu_ff"),
+                      (tatt, "line_attention"), (tatt, "window_attention"),
+                      (tln, "layer_norm_bwd"), (tgeglu, "geglu_ff_bwd"),
+                      (tatt, "line_attention_bwd"),
+                      (tatt, "window_attention_bwd")):
         monkeypatch.setattr(mod, name, counting(name, getattr(mod, name)))
     reset_launches()
     with torch.no_grad():
@@ -131,7 +136,9 @@ def test_flagship_tiny_routes_like_the_flagship(monkeypatch):
     n_block3 = sum(1 for uid, _ in tcfg.layer_schedule() if uid == 3)
     assert calls == {"layer_norm": 2 * depth + 1,
                      "line_attention": 2 * (depth - 1) + 1,
-                     "window_attention": 1, "geglu_ff": n_block3}
+                     "window_attention": 1, "geglu_ff": n_block3,
+                     "layer_norm_bwd": 0, "line_attention_bwd": 0,
+                     "window_attention_bwd": 0, "geglu_ff_bwd": 0}
     # on the CPU every wrapper took its plain version: no kernel launched
     assert all(v == 0 for v in LAUNCHES.values())
 

@@ -1,6 +1,7 @@
 """The port's kernel modules (dalle_tpu_torch/ops) against the JAX package's
 Pallas kernels run in interpret mode, at the shapes of the JAX package's own
-kernel tests, in f32 and bf16.
+kernel tests, in f32 and bf16: each forward, and each autograd Function's
+gradients against ``jax.vjp`` of the Pallas ``custom_vjp`` function.
 
 On the CPU each wrapper runs its plain PyTorch version, which is what these
 tests hold against the TPU kernels (tests/test_torch_cuda.py holds the
@@ -9,8 +10,10 @@ Hopper kernels against the plain versions on a GPU).
 Tolerances: f32 1e-5 (the same math in another summation order); bf16
 outputs 2 bf16 ulps relative (2^-7), since one rounding of an f32 value that
 differs in its last f32 bits can land on the neighbouring bf16 value.
+Gradients take the same tolerances.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,9 +23,10 @@ from dalle_tpu.ops.pallas import attention_kernels as jak
 from dalle_tpu.ops.pallas.geglu_kernels import geglu_ff as jax_geglu_ff
 from dalle_tpu.ops.pallas.ln_kernels import layer_norm as jax_layer_norm
 from dalle_tpu_torch.ops import LAUNCHES, reset_launches
-from dalle_tpu_torch.ops.attention import line_attention, window_attention
-from dalle_tpu_torch.ops.geglu import geglu_ff
-from dalle_tpu_torch.ops.layer_norm import layer_norm
+from dalle_tpu_torch.ops.attention import (LineAttention, WindowAttention,
+                                           line_attention, window_attention)
+from dalle_tpu_torch.ops.geglu import GEGLUFn, geglu_ff
+from dalle_tpu_torch.ops.layer_norm import LayerNormFn, layer_norm
 
 torch.set_num_threads(2)
 
@@ -145,3 +149,117 @@ def test_wrappers_refuse_bad_shapes():
         line_attention(q, q, q, None, None, 4, 0, False)   # 10 % 4 != 0
     with pytest.raises(ValueError):
         window_attention(q, q, q, None, None, 4, 1)         # 10 != 4 * 4
+
+
+def _leaves(pairs):
+    """(jax arrays, torch leaves requiring grad) of ``_both`` pairs."""
+    return ([p[0] for p in pairs],
+            [p[1].clone().requires_grad_(True) for p in pairs])
+
+
+def _assert_grads(got, want, dtype, names):
+    for name, g, w in zip(names, got, want):
+        assert g is not None, name
+        np.testing.assert_allclose(_f32(g), _f32(w), err_msg=name,
+                                   **DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,d", [(256, 128), (384, 256)])
+def test_layer_norm_grads_match_pallas_vjp(dtype, m, d):
+    rng = np.random.default_rng(10)
+    x = (rng.standard_normal((m, d)) * 2.0 + 0.3).astype(np.float32)
+    g = (rng.standard_normal(d) * 0.2 + 1.0).astype(np.float32)
+    b = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    dy = rng.standard_normal((m, d)).astype(np.float32)
+    xj, xt = _both(x, dtype)
+    dyj, dyt = _both(dy, dtype)
+    _, vjp = jax.vjp(lambda *a: jax_layer_norm(*a, 1e-6, 128, True), xj,
+                     jnp.asarray(g), jnp.asarray(b))
+    want = vjp(dyj)
+    leaves = [xt.clone().requires_grad_(True)] + [
+        torch.from_numpy(a).requires_grad_(True) for a in (g, b)]
+    reset_launches()
+    LayerNormFn.apply(*leaves, 1e-6).backward(dyt)
+    assert LAUNCHES["layer_norm_bwd"] == 0   # the plain backward on the CPU
+    assert leaves[0].grad.dtype == xt.dtype
+    _assert_grads([t.grad for t in leaves], want, dtype,
+                  ["dx", "dscale", "dbias"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k", [(256, 512), (384, 640)])
+def test_geglu_grads_match_pallas_vjp(dtype, m, k):
+    d = 128
+    rng = np.random.default_rng(11)
+    shapes = [(m, d), (d, k), (d, k), (k, d), (k,), (k,), (d,)]
+    scales = [0.5, 0.05, 0.05, 0.05, 0.1, 0.1, 0.1]
+    pairs = [_both((rng.standard_normal(s) * sc).astype(np.float32), dtype)
+             for s, sc in zip(shapes, scales)]
+    dy = _both(rng.standard_normal((m, d)).astype(np.float32), dtype)
+    jargs, leaves = _leaves(pairs)
+    _, vjp = jax.vjp(lambda *a: jax_geglu_ff(*a, 128, 256, True), *jargs)
+    want = vjp(dy[0])
+    reset_launches()
+    GEGLUFn.apply(*leaves).backward(dy[1])
+    assert LAUNCHES["geglu_ff_bwd"] == 0
+    _assert_grads([t.grad for t in leaves], want, dtype,
+                  ["dx", "dwi", "dwg", "dwo", "dbi", "dbg", "dbo"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,grid", [("text", 4), ("axial_row", 4),
+                                       ("axial_col", 4), ("axial_row", 6),
+                                       ("axial_col", 6),
+                                       ("axial_row_noprefix", 4)])
+def test_line_attention_grads_match_pallas_vjp(dtype, kind, grid):
+    if kind == "text":
+        arrays, n, side, transpose = _qkv(12, TEXT), TEXT, 0, False
+    else:
+        arrays = _qkv(13, grid * grid)
+        if not kind.endswith("noprefix"):
+            arrays += _qkv(14, TEXT)[:2]
+        n, side, transpose = grid, grid, kind == "axial_col"
+    pairs = [_both(a, dtype) for a in arrays]
+    dy = _both(np.random.default_rng(15).standard_normal(
+        arrays[0].shape).astype(np.float32), dtype)
+    jargs, leaves = _leaves(pairs)
+    pad = [None] * (5 - len(jargs))
+
+    def jfn(*a):
+        return jak.line_attention(*a, *pad, n, side, transpose, True)
+
+    _, vjp = jax.vjp(jfn, *jargs)
+    want = vjp(dy[0])
+    reset_launches()
+    LineAttention.apply(*leaves, *pad, n, side, transpose).backward(dy[1])
+    assert LAUNCHES["line_attention_bwd"] == 0
+    _assert_grads([t.grad for t in leaves], want, dtype,
+                  ["dq", "dk", "dv", "dkp", "dvp"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["conv_like", "full"])
+@pytest.mark.parametrize("grid,conv_kernel,prefix", [(4, 3, True),
+                                                     (8, 5, True),
+                                                     (4, 3, False)])
+def test_window_attention_grads_match_pallas_vjp(dtype, kind, grid,
+                                                 conv_kernel, prefix):
+    hw = conv_kernel // 2 if kind == "conv_like" else None
+    arrays = _qkv(16, grid * grid) + (_qkv(17, TEXT)[:2] if prefix else [])
+    pairs = [_both(a, dtype) for a in arrays]
+    dy = _both(np.random.default_rng(18).standard_normal(
+        arrays[0].shape).astype(np.float32), dtype)
+    jargs, leaves = _leaves(pairs)
+    pad = [None] * (5 - len(jargs))
+
+    def jfn(*a):
+        return jak.window_attention(*a, *pad, grid, hw, True)
+
+    _, vjp = jax.vjp(jfn, *jargs)
+    want = vjp(dy[0])
+    reset_launches()
+    WindowAttention.apply(*leaves, *pad, grid, hw).backward(dy[1])
+    assert LAUNCHES["window_attention_bwd"] == 0
+    _assert_grads([t.grad for t in leaves], want, dtype,
+                  ["dq", "dk", "dv", "dkp", "dvp"])

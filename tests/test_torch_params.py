@@ -1,6 +1,7 @@
 """Weights carried between the JAX package's flax tree and the PyTorch port
 (dalle_tpu_torch/params.py), and the port's isolation from JAX."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -110,5 +111,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert "dalle_tpu_torch.models.decode" in mods
-    assert "dalle_tpu_torch.entry" in mods
+    for mod in ("dalle_tpu_torch.models.decode", "dalle_tpu_torch.entry",
+                "dalle_tpu_torch.optim", "dalle_tpu_torch.optim.lamb",
+                "dalle_tpu_torch.training.steps",
+                "dalle_tpu_torch.data.synthetic"):
+        assert mod in mods, mod
+    # chip_smoke.py imports inside main(): read every import it names
+    tree = ast.parse((root / "chip_smoke.py").read_text())
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names}
+    names |= {n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module}
+    bad = sorted(n for n in names
+                 if n.split(".")[0] in ("jax", "flax", "optax", "dalle_tpu"))
+    assert not bad, bad
+    assert "dalle_tpu_torch.training.steps" in names
