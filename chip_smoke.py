@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship inference and training paths on one
-NVIDIA GPU.
+"""Drive the PyTorch port's flagship inference and training paths, the
+8-bit LAMB and a swarm round's device codec on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out RECORDS.json] [--profile TABLE.txt]
 
@@ -29,7 +29,21 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    (micro-batch 4, accumulation 2, fp32 LAMB, one fixed batch): finite and
    falling loss, the exact launch counts of the eight wrappers (forward,
    remat replay, backward), step time, img/s and peak memory;
-8. the ``kernels`` line.
+8. the three quantizer kernels against their plain versions on the card,
+   codes and scales identical: ``quantize_blockwise`` on a tensor the size
+   of ``token_emb`` (signed and unsigned), the wire u8 and u4 kernels on one
+   quarter of the flat gradient (a 4-peer round's part), and ragged sizes;
+   then six flagship training steps with the 8-bit LAMB (same weights and
+   batch as phase 7): steps 1-2 equal phase 7's, the loss falls and stays
+   within ``LOSS_GAP`` of phase 7's, exact launch counts (two
+   ``quantize_blockwise`` per quantized tensor per step and at init), and
+   peak memory below phase 7's;
+9. one swarm round's device codec on the gradients of one 8-bit
+   ``grad_step``: the flat vector in 4 parts, each encoded u8 and u4 by
+   ``encode_part``; every wire chunk byte-identical to the host codec's,
+   the device decodes, the fused accumulation of three senders and one
+   error-feedback round bitwise equal to the host arithmetic;
+10. the ``kernels`` line (all eleven kernels).
 
 With ``--profile``, one flagship forward and one training micro-batch are
 traced with ``torch.profiler`` and split by kernel class.
@@ -59,6 +73,12 @@ TRAIN_STEPS = 6                # flagship train steps on one fixed batch
 MICRO, ACCUM = 4, 2            # micro-batch size, micro-batches per step
 LOSS_FALL = 0.2                # least fall of the loss over the six steps
                                # (0.489 in the first run on one H100)
+LOSS_GAP = 0.02                # 8-bit LAMB vs fp32: largest loss gap as a
+                               # share of the fp32 loss (the JAX package's
+                               # tests/test_quant.py allows 2% drift)
+SAME_LOSS = 1e-6               # steps 1-2: 8-bit vs fp32 (same weights)
+CHUNK_ELEMS = 1 << 22          # a swarm wire chunk (allreduce.CHUNK_ELEMS)
+PARTS = 4                      # peers of the swarm round in phase 9
 
 
 RECORDS = []
@@ -161,7 +181,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from dalle_tpu_torch import resolve_device
-    from dalle_tpu_torch.config import flagship_model_config
+    from dalle_tpu_torch.config import OptimizerConfig, flagship_model_config
     from dalle_tpu_torch.entry import entry, train_entry
     from dalle_tpu_torch.models.attention import zoo_attention_mask
     from dalle_tpu_torch.models.decode import (SamplingConfig, decode_step,
@@ -182,6 +202,16 @@ def main() -> int:
     from dalle_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
                                                 layer_norm_bwd_plain,
                                                 layer_norm_plain)
+    from dalle_tpu_torch.ops.quant import (codebook_midpoints,
+                                           quantize_blockwise,
+                                           quantize_blockwise_plain,
+                                           wire_quantize_u4,
+                                           wire_quantize_u4_plain,
+                                           wire_quantize_u8,
+                                           wire_quantize_u8_plain)
+    from dalle_tpu_torch.optim import optimizer_state_bytes
+    from dalle_tpu_torch.swarm import compression, device_codec
+    from dalle_tpu_torch.swarm.error_feedback import ErrorFeedback
     from dalle_tpu_torch.training.steps import grad_step
 
     dev = resolve_device("cuda")
@@ -412,12 +442,10 @@ def main() -> int:
     loss = fn(model, text, image)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    expected = {"layer_norm": 2 * cfg.depth + 1,
-                "line_attention": 2 * (cfg.depth - 1) + 1,
-                "window_attention": 1,
-                "geglu_ff": sum(1 for u, _ in cfg.layer_schedule() if u == 3),
-                "layer_norm_bwd": 0, "line_attention_bwd": 0,
-                "window_attention_bwd": 0, "geglu_ff_bwd": 0}
+    expected = dict.fromkeys(LAUNCHES, 0) | {
+        "layer_norm": 2 * cfg.depth + 1,
+        "line_attention": 2 * (cfg.depth - 1) + 1, "window_attention": 1,
+        "geglu_ff": sum(1 for u, _ in cfg.layer_schedule() if u == 3)}
     loss = float(loss)
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
@@ -706,7 +734,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     mem_base = torch.cuda.memory_allocated()
     step, (state, batch) = train_entry(device="cuda", micro=MICRO,
-                                       accum=ACCUM, seed=SEED)
+                                       accum=ACCUM, seed=SEED, state_bits=32)
     tcfg = state.model.cfg
     per_micro = wrapper_calls(tcfg, training=True)
     expected = {k: ACCUM * v for k, v in per_micro.items()}
@@ -736,6 +764,11 @@ def main() -> int:
     if not (min(falls) > 0 and losses[-1] < losses[0] - LOSS_FALL):
         raise AssertionError(f"the loss does not fall: {losses}")
     steady = step_s[1:]
+    fp32 = dict(losses=losses, peak=torch.cuda.max_memory_allocated(),
+                launches=train_launches,
+                step_s=sum(steady) / len(steady),
+                emb_numel=state.model.token_emb.numel(),
+                n_params=sum(p.numel() for p in state.model.parameters()))
     emit(phase="train", micro=MICRO, accum=ACCUM, steps=TRAIN_STEPS,
          optimizer="fp32 LAMB, OptimizerConfig(state_bits=32, "
                    "warmup_steps=2, total_steps=100)",
@@ -763,7 +796,277 @@ def main() -> int:
                     "profile_train_micro_batch")
     del state, batch, step
 
-    # -- 8. kernels line and the end ------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 8a. the three quantizers against their plain versions ------------
+    def exact(name, got, want):
+        """Codes and scales must be identical, not merely close."""
+        for a, b in zip(got, want):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"{name}: kernel differs from its plain "
+                                     f"version ({tuple(a.shape)} vs "
+                                     f"{tuple(b.shape)})")
+
+    def f32_set(n, square=False):
+        x = torch.randn(n, generator=gen, device=dev) * 1e-3
+        return (x * x if square else x,)
+
+    def ragged(n):
+        """Zeros, -0.0, and values on exact midpoints of the codebook and
+        half steps of a power-of-two wire scale (ties)."""
+        x = torch.randn(n, generator=gen, device=dev)
+        x[: n // 5] = 0.0
+        x[n // 5: n // 5 + 9] = -0.0
+        k = torch.arange(-127, 127, dtype=torch.float32, device=dev)
+        x[256:256 + k.numel()] = (k + 0.5) * 2 ** -3
+        x[256 + k.numel()] = 127 * 2 ** -3
+        mids = torch.from_numpy(codebook_midpoints(True)).to(dev)
+        x[4096:4096 + mids.numel()] = mids * 2.0
+        x[4096 + mids.numel()] = 2.0
+        return x
+
+    def qtuple(q):
+        return q.codes, q.absmax
+
+    def quant_record(name, replaces, kernel, plain, sets, nbytes, ops,
+                     shape):
+        bms, by = bound(nbytes, ops, F32_FLOP_PER_S)
+        return dict(name=name, route="cuda",
+                    source="dalle_tpu_torch/csrc/quant.cu",
+                    replaces=replaces, max_abs_err=0.0,
+                    tolerance="identical codes and scales (torch.equal)",
+                    **times(kernel, plain, None, sets), bound_ms=bms,
+                    bound_by=by, library=None, shape=shape)
+
+    n_emb = fp32["emb_numel"]
+    quant = {}
+    for signed in (True, False):
+        sets = [f32_set(n_emb, square=not signed) for _ in range(2)]
+        exact(f"quantize_blockwise signed={signed}",
+              qtuple(quantize_blockwise(*sets[0], signed=signed)),
+              quantize_blockwise_plain(*sets[0], signed=signed))
+        x = ragged(3 * 4096 + 1000)
+        x = x if signed else x.abs()
+        exact("quantize_blockwise ragged", qtuple(quantize_blockwise(
+            x, signed=signed)), quantize_blockwise_plain(x, signed=signed))
+        nb = -(-n_emb // 4096)
+        quant[signed] = quant_record(
+            "quantize_blockwise", "dalle_tpu/ops/pallas/quant_kernels.py:64",
+            lambda x, s=signed: quantize_blockwise(x, signed=s),
+            lambda x, s=signed: quantize_blockwise_plain(x, signed=s), sets,
+            4 * n_emb + nb * 4096 + 4 * nb + 256 * 4, 11 * n_emb,
+            f"token_emb-sized moment ({n_emb},) f32 -> ({nb}, 4096) u8 + "
+            f"({nb}, 1) f32, {'signed' if signed else 'unsigned'} codebook")
+        del sets
+    kernels["quantize_blockwise"] = quant[True]
+    kernels["quantize_blockwise"]["unsigned_ms"] = quant[False]["ms"]
+    kernels["quantize_blockwise"]["unsigned_plain_ms"] = \
+        quant[False]["plain_ms"]
+
+    # one part of a 4-peer round over the flagship's flat gradient
+    n_part = fp32["n_params"] // PARTS // 1024 * 1024
+    for name, replaces, kernel, plain, block, code_bytes in (
+            ("wire_quantize_u8", "dalle_tpu/ops/pallas/quant_kernels.py:126",
+             wire_quantize_u8, wire_quantize_u8_plain, 256, lambda n: n),
+            ("wire_quantize_u4", "dalle_tpu/ops/pallas/quant_kernels.py:155",
+             wire_quantize_u4, wire_quantize_u4_plain, 1024,
+             lambda n: (n + 1) // 2)):
+        sets = [f32_set(n_part) for _ in range(2)]
+        exact(name, kernel(*sets[0]), plain(*sets[0]))
+        for n in (1_000_003, 4096 + 1001, 5):       # ragged, odd
+            x = ragged(max(n, 5000))[:n].contiguous()
+            exact(f"{name} n={n}", kernel(x), plain(x))
+        nb = -(-n_part // block)
+        kernels[name] = quant_record(
+            name, replaces, kernel, plain, sets,
+            4 * n_part + code_bytes(n_part) + 4 * nb, 6 * n_part,
+            f"one part of a {PARTS}-peer round ({n_part},) f32 -> "
+            f"{code_bytes(n_part)} code bytes + ({nb},) f32 scales"
+            + ("; nibble pairs packed in the kernel" if block == 1024
+               else ""))
+        del sets
+    for name in ("quantize_blockwise", "wire_quantize_u8",
+                 "wire_quantize_u4"):
+        emit(phase="kernel_check", **kernels[name])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 8b. flagship training steps with the 8-bit LAMB -------------------
+    torch.cuda.reset_peak_memory_stats()
+    mem_base = torch.cuda.memory_allocated()
+    reset_launches()
+    step, (state, batch) = train_entry(device="cuda", micro=MICRO,
+                                       accum=ACCUM, seed=SEED, state_bits=8)
+    torch.cuda.synchronize()
+    n_big = sum(p.numel() >= OptimizerConfig().min_8bit_size
+                for p in state.model.parameters())
+    init_launches = dict(LAUNCHES)
+    if init_launches != dict.fromkeys(LAUNCHES, 0) | {
+            "quantize_blockwise": 2 * n_big}:
+        raise AssertionError(f"8-bit LAMB init launches {init_launches}, "
+                             f"expected 2 x {n_big} quantize_blockwise")
+    expected = fp32["launches"] | {"quantize_blockwise": 2 * n_big}
+    losses, norms, step_s = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        if i == 0:
+            reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            train_launches = dict(LAUNCHES)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    if train_launches != expected:
+        raise AssertionError(f"8-bit training launch counts {train_launches}"
+                             f" != {expected}")
+    if LAUNCHES["quantize_blockwise"] != TRAIN_STEPS * 2 * n_big:
+        raise AssertionError(f"{LAUNCHES['quantize_blockwise']} "
+                             f"quantize_blockwise launches in {TRAIN_STEPS} "
+                             f"steps, expected {TRAIN_STEPS} x 2 x {n_big}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"8-bit LAMB: non-finite loss or grad_norm: "
+                             f"{losses}, {norms}")
+    same = [abs(losses[i] - fp32["losses"][i]) for i in range(2)]
+    if max(same) > SAME_LOSS:
+        raise AssertionError(f"8-bit LAMB steps 1-2 {losses[:2]} differ from "
+                             f"the fp32 run's {fp32['losses'][:2]}")
+    falls = [losses[i] - losses[i + 1] for i in range(1, TRAIN_STEPS - 1)]
+    if not (min(falls) > 0 and losses[-1] < losses[0] - LOSS_FALL):
+        raise AssertionError(f"8-bit LAMB: the loss does not fall: {losses}")
+    gaps = [a - b for a, b in zip(losses, fp32["losses"])]
+    gap_share = max(abs(g) / b for g, b in zip(gaps, fp32["losses"]))
+    if gap_share > LOSS_GAP:
+        raise AssertionError(f"8-bit LAMB loss gaps to fp32 {gaps}: "
+                             f"{gap_share:.4f} of the loss > {LOSS_GAP}")
+    peak = torch.cuda.max_memory_allocated()
+    if not peak < fp32["peak"]:
+        raise AssertionError(f"8-bit LAMB peak memory {peak / 1e9:.3f} GB "
+                             f"is not below the fp32 run's "
+                             f"{fp32['peak'] / 1e9:.3f} GB")
+    steady = step_s[1:]
+    emit(phase="train_8bit", micro=MICRO, accum=ACCUM, steps=TRAIN_STEPS,
+         optimizer="8-bit LAMB, OptimizerConfig(state_bits=8, "
+                   "warmup_steps=2, total_steps=100)",
+         losses=losses, grad_norms=norms, loss_fall=losses[0] - losses[-1],
+         loss_gaps_to_fp32=gaps, max_gap_share=gap_share,
+         quantized_tensors=n_big, init_launches=init_launches,
+         launches=train_launches, state_bytes=optimizer_state_bytes(
+             state.opt_state),
+         step_s=step_s, step_s_mean=sum(steady) / len(steady),
+         img_per_s=MICRO * ACCUM * len(steady) / sum(steady),
+         fp32_step_s_mean=fp32["step_s"],
+         peak_mem_gb=peak / 1e9, fp32_peak_mem_gb=fp32["peak"] / 1e9,
+         mem_before_gb=mem_base / 1e9, card=smi)
+    kernels["quantize_blockwise"]["launches"] = \
+        train_launches["quantize_blockwise"]
+
+    # -- 9. one swarm round's device codec ---------------------------------
+    _, _, grads = grad_step(state.model, batch, ACCUM)
+    del state, batch, step
+    t0 = time.perf_counter()
+    flat = device_codec.flatten_device(list(grads.values()))
+    torch.cuda.synchronize()
+    flatten_s = time.perf_counter() - t0
+    del grads
+    n = flat.numel()
+    host = flat.cpu().numpy()
+    cuts = [n * i // PARTS // 1024 * 1024 for i in range(PARTS)] + [n]
+    parts = list(zip(cuts[:-1], cuts[1:]))
+    U8, U4 = compression.UNIFORM8BIT, compression.UNIFORM4BIT
+    codec_rec = dict(phase="swarm_codec", elements=n, parts=parts,
+                     chunk_elems=CHUNK_ELEMS, flatten_s=flatten_s)
+    for codec, name in ((U8, "wire_quantize_u8"), (U4, "wire_quantize_u4")):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        encs = [device_codec.encode_part(flat, lo, hi, codec)
+                for lo, hi in parts]
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        if launches != dict.fromkeys(LAUNCHES, 0) | {name: PARTS}:
+            raise AssertionError(f"{name}: encode launches {launches}, "
+                                 f"expected {PARTS}")
+        kernels[name]["launches"] = launches[name]
+        t0 = time.perf_counter()
+        chunks = 0
+        payloads = []
+        for (lo, hi), enc in zip(parts, encs):
+            mine = []
+            for clo in range(0, hi - lo, CHUNK_ELEMS):
+                chi = min(hi - lo, clo + CHUNK_ELEMS)
+                got = device_codec.part_payload(enc, clo, chi)
+                if got != compression.compress(host[lo + clo:lo + chi],
+                                               codec):
+                    raise AssertionError(f"{name}: chunk [{lo + clo}, "
+                                         f"{lo + chi}) differs from the host "
+                                         "codec's bytes")
+                mine.append(got)
+                chunks += 1
+            payloads.append(mine)
+        frame_s = time.perf_counter() - t0
+        for (lo, hi), enc, pls in zip(parts, encs, payloads):
+            want = np.concatenate([compression.decompress(
+                p, codec, min(hi - lo, c + CHUNK_ELEMS) - c)
+                for p, c in zip(pls, range(0, hi - lo, CHUNK_ELEMS))])
+            if enc.decoded_dev().cpu().numpy().tobytes() != want.tobytes():
+                raise AssertionError(f"{name}: decoded_dev differs from the "
+                                     "host decompress")
+        # the owner of part 0 folds three senders' payloads of its part
+        # (stand-ins: the payloads of parts 1-3 over part 0's length)
+        m = min(hi - lo for lo, hi in parts)
+        weights = (0.25, 0.3, 0.7, 1.0 / 3.0)
+        acc = device_codec.accumulator_init(flat, 0, m, weights[0])
+        want = host[:m] * np.float32(weights[0])
+        for j, w in zip(range(1, PARTS), weights[1:]):
+            pls = [device_codec.part_payload(encs[j], c,
+                                             min(m, c + CHUNK_ELEMS))
+                   for c in range(0, m, CHUNK_ELEMS)]
+            acc = device_codec.fused_accumulate(acc, pls, codec, m, w)
+            dec = np.concatenate([compression.decompress(
+                p, codec, min(m, c + CHUNK_ELEMS) - c)
+                for p, c in zip(pls, range(0, m, CHUNK_ELEMS))])
+            want = want + dec * np.float32(w)
+        if acc.cpu().numpy().tobytes() != want.tobytes():
+            raise AssertionError(f"{name}: fused_accumulate differs from "
+                                 "the host arithmetic")
+        codec_rec[name] = dict(encode_s=encode_s, frame_and_check_s=frame_s,
+                               chunks=chunks,
+                               wire_bytes=sum(len(p) for ps in payloads
+                                              for p in ps))
+        del encs, payloads, acc
+    # error feedback (the wire_bits=4 rounds' residual): two rounds, the
+    # own part raw, the others as their owners decode them
+    ef, ef_host = ErrorFeedback(), ErrorFeedback()
+    for _ in range(2):
+        comp = ef.compensate(flat.clone())
+        comp_h = ef_host.compensate(host.copy())
+        segs, segs_h = [], []
+        for i, (lo, hi) in enumerate(parts):
+            if i == 0:
+                segs.append(comp[lo:hi].clone())
+                segs_h.append(comp_h[lo:hi])
+            else:
+                segs.append(device_codec.encode_part(comp, lo, hi,
+                                                     U4).decoded_dev())
+                segs_h.append(compression.decompress(compression.compress(
+                    comp_h[lo:hi], U4), U4, hi - lo))
+        ef.store(comp, segs)
+        ef_host.store(comp_h, segs_h)
+        if ef.residual_host().tobytes() != ef_host.residual_host().tobytes():
+            raise AssertionError("error feedback: the device residual "
+                                 "differs from the host version's")
+    codec_rec["error_feedback_rounds"] = 2
+    emit(**codec_rec)
+    del flat, host, ef, ef_host, comp, segs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 10. kernels line and the end ------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_line = {"kernels": [{k: rec[k] for k in keys}

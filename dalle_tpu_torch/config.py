@@ -189,8 +189,10 @@ def flagship_model_config(**overrides: Any) -> ModelConfig:
 class OptimizerConfig:
     """LAMB hyperparameters (``dalle_tpu.config.OptimizerConfig``, the
     fields this port reads). ``state_bits`` 8 (the default, as in the JAX
-    package) is the 8-bit LAMB, which is not ported yet; 32 is the fp32
-    clipped LAMB."""
+    package) is the 8-bit LAMB: moments of tensors with at least
+    ``min_8bit_size`` elements block-quantized in blocks of ``block_size``;
+    32 is the fp32 clipped LAMB. ``max_grad_norm`` None turns the global
+    clip off."""
 
     learning_rate: float = 2.5e-3
     warmup_steps: int = 3125
@@ -199,6 +201,8 @@ class OptimizerConfig:
     beta2: float = 0.96
     eps: float = 1e-6
     weight_decay: float = 0.045
-    max_grad_norm: float = 4.0
+    max_grad_norm: Optional[float] = 4.0
     clamp_value: float = 10000.0
     state_bits: int = 8
+    block_size: int = 4096
+    min_8bit_size: int = 65536

@@ -37,23 +37,25 @@ def entry(device="cuda", batch: int = 1, seed: int = 0):
 
 
 def train_entry(device="cuda", micro: int = 4, accum: int = 2,
-                seed: int = 0, **model_overrides):
+                seed: int = 0, state_bits: int = 8, **model_overrides):
     """``(fn, args)``: ``fn(*args)`` is one flagship training step, ``(state,
     metrics)``, over ``accum`` micro-batches of ``micro`` samples followed
-    by one fp32 LAMB update. The model: the flagship with
+    by one LAMB update. The model: the flagship with
     ``FLAGSHIP_TUNED`` (fused LayerNorm, ``save_attn`` remat of all blocks
     but ``block_3``, hoisted bf16 parameter casts), f32 parameters drawn
     from ``seed``, bf16 activations; ``model_overrides`` change it (for
-    example a smaller ``depth``). The batch: the first of
-    ``SyntheticCodes(cfg, micro * accum, seed)``. The optimizer:
-    ``OptimizerConfig(state_bits=32, warmup_steps=2, total_steps=100)``, so
-    the learning rate leaves 0 at the second step. Runs on the GPU unless
-    ``device="cpu"`` is asked for."""
+    example a smaller ``depth``, or ``dtype="float32"``). The batch: the
+    first of ``SyntheticCodes(cfg, micro * accum, seed)``. The optimizer:
+    ``OptimizerConfig(state_bits=state_bits, warmup_steps=2,
+    total_steps=100)``, the 8-bit LAMB by default (the JAX package's and
+    ``bench.py``'s), the fp32 LAMB with ``state_bits=32``; the learning rate
+    leaves 0 at the second step. Runs on the GPU unless ``device="cpu"`` is
+    asked for."""
     dev = resolve_device(device)
-    cfg = flagship_model_config(param_dtype="float32", dtype="bfloat16",
-                                **model_overrides)
-    tx = make_optimizer(OptimizerConfig(state_bits=32, warmup_steps=2,
-                                        total_steps=100))
+    cfg = flagship_model_config(**{"param_dtype": "float32",
+                                   "dtype": "bfloat16", **model_overrides})
+    tx = make_optimizer(OptimizerConfig(state_bits=state_bits,
+                                        warmup_steps=2, total_steps=100))
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
     model.train()
     state = TrainState.create(model, tx)

@@ -42,6 +42,7 @@ from dalle_tpu_torch.config import ATTN_AXIAL_COL, ATTN_AXIAL_ROW, ModelConfig
 from dalle_tpu_torch.models.attention import (apply_rotary, join_halves,
                                               rotary_cos_sin,
                                               zoo_attention_halves)
+from dalle_tpu_torch.ops import LAUNCHES
 from dalle_tpu_torch.ops.geglu import GEGLUFn
 from dalle_tpu_torch.ops.layer_norm import LayerNormFn
 
@@ -251,7 +252,9 @@ def wrapper_calls(cfg: ModelConfig, training: bool) -> Dict[str, int]:
     forward of a (B, T) batch, from the schedule and the remat set; with
     ``training``, also those of its backward: one backward call per forward
     call, and the forward calls a rematerialised block runs again (under
-    ``save_attn`` all but the attention's; under blanket remat all)."""
+    ``save_attn`` all but the attention's; under blanket remat all). The
+    wrappers the model never calls (the backward ones without
+    ``training``, the quantizers) count 0."""
     plain = set(cfg.plain_block_ids())
     calls = {"layer_norm": 0, "line_attention": 0, "window_attention": 0,
              "geglu_ff": 0}
@@ -276,4 +279,4 @@ def wrapper_calls(cfg: ModelConfig, training: bool) -> Dict[str, int]:
                 block(uid, attn_type, 1,
                       attention=cfg.remat_policy is None)
         out.update(calls)
-    return out
+    return dict.fromkeys(LAUNCHES, 0) | out

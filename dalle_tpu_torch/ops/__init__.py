@@ -24,7 +24,8 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {
     "layer_norm": 0, "line_attention": 0, "window_attention": 0,
     "geglu_ff": 0, "layer_norm_bwd": 0, "line_attention_bwd": 0,
-    "window_attention_bwd": 0, "geglu_ff_bwd": 0}
+    "window_attention_bwd": 0, "geglu_ff_bwd": 0, "quantize_blockwise": 0,
+    "wire_quantize_u8": 0, "wire_quantize_u4": 0}
 
 
 def reset_launches() -> None:

@@ -75,6 +75,28 @@ def lamb_leaf_update(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     return (-lr * trust * adam_step).to(p.dtype)
 
 
+def check_unstacked(model: nn.Module) -> None:
+    """Refuse stacked per-layer parameters, by the rule of
+    ``lamb.default_stacked_mask``: a block leaf above its kind's rank
+    (kernel 2, bias/scale 1) would be stacked."""
+    for name, p in model.named_parameters():
+        canonical = 2 if name.endswith("kernel") else 1
+        if name.startswith("transformer.blocks.") and p.dim() > canonical:
+            raise ValueError(f"{name}: stacked per-layer parameters are "
+                             "not supported")
+
+
+def clip_grads(grads: Tensors, max_grad_norm) -> Tensors:
+    """The gradients in f32, scaled by ``min(1, max_grad_norm / (global
+    norm + 1e-12))``; unscaled when ``max_grad_norm`` is None."""
+    grads = {n: g.float() for n, g in grads.items()}
+    if max_grad_norm is None:
+        return grads
+    scale = torch.clamp(max_grad_norm / (global_norm(grads.values()) + 1e-12),
+                        max=1.0)
+    return {n: g * scale for n, g in grads.items()}
+
+
 def _linear(init: float, end: float, steps: int, count: int) -> np.float32:
     """``optax.linear_schedule(init, end, steps)`` at ``count``, in the
     float32 arithmetic optax runs it in."""
@@ -112,15 +134,9 @@ class Lamb:
         self.schedule, self.cfg = schedule, cfg
 
     def init(self, model: nn.Module) -> LambState:
-        zeros = {}
-        for name, p in model.named_parameters():
-            # the rule of lamb.default_stacked_mask: a block leaf above its
-            # kind's rank (kernel 2, bias/scale 1) would be stacked
-            canonical = 2 if name.endswith("kernel") else 1
-            if name.startswith("transformer.blocks.") and p.dim() > canonical:
-                raise ValueError(f"{name}: stacked per-layer parameters are "
-                                 "not supported")
-            zeros[name] = torch.zeros_like(p, dtype=torch.float32)
+        check_unstacked(model)
+        zeros = {name: torch.zeros_like(p, dtype=torch.float32)
+                 for name, p in model.named_parameters()}
         return LambState(0, zeros,
                          {n: torch.zeros_like(t) for n, t in zeros.items()})
 
@@ -128,10 +144,7 @@ class Lamb:
     def update(self, grads: Tensors, state: LambState,
                model: nn.Module) -> Tuple[Tensors, LambState]:
         cfg = self.cfg
-        grads = {n: g.float() for n, g in grads.items()}
-        scale = torch.clamp(cfg.max_grad_norm
-                            / (global_norm(grads.values()) + 1e-12), max=1.0)
-        grads = {n: g * scale for n, g in grads.items()}
+        grads = clip_grads(grads, cfg.max_grad_norm)
         mu = {n: cfg.beta1 * state.mu[n] + (1 - cfg.beta1) * g
               for n, g in grads.items()}
         nu = {n: cfg.beta2 * state.nu[n] + (1 - cfg.beta2) * g * g

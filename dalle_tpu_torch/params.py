@@ -14,6 +14,9 @@ out) kernel layout, so the mapping is by path:
   bias}``, ``ff/{wi,gate,wo}/{kernel,bias}``, ``{attn,ff}_norm/{scale,bias}``.
 
 The ``dense_scan`` layout (stacked per-repetition leaves) is not taken.
+
+:func:`opt_state_from_jax` carries the 8-bit LAMB's state across the same
+way, so that both optimizers can step from one state.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from dalle_tpu_torch.config import ModelConfig
 from dalle_tpu_torch.models.dalle import DALLE
+from dalle_tpu_torch.ops.quant import Quantized
 
 
 def jax_layout_scanned(cfg: ModelConfig) -> bool:
@@ -94,6 +98,42 @@ def params_from_jax(tree, cfg: ModelConfig) -> DALLE:
                              f"{tuple(expected[name].shape)}")
     model.load_state_dict(state)
     return model
+
+
+def _moment_from_jax(leaf):
+    """A port moment from a JAX one: a ``Quantized`` (codes, absmax, shape,
+    signed) or a dense f32 array."""
+    if hasattr(leaf, "codes"):
+        return Quantized(_to_torch(leaf.codes), _to_torch(leaf.absmax),
+                         tuple(leaf.shape), bool(leaf.signed))
+    return _to_torch(leaf)
+
+
+def _moments_from_jax(tree) -> Dict:
+    root = tree["params"] if "params" in tree else tree
+    return {_port_name(tuple(path)): _moment_from_jax(leaf)
+            for path, leaf in _flatten(root)}
+
+
+def opt_state_from_jax(state, cfg: ModelConfig):
+    """The port's ``Lamb8bitState`` (on the CPU, keyed by the port's
+    parameter names) holding the JAX package's ``Lamb8bitState``: ``count``
+    and the ``mu``/``nu`` trees, whose leaves are numpy ``Quantized`` records
+    (codes (n_blocks, block) u8, absmax (n_blocks, 1) f32) or dense f32
+    moments, in the flax layout of ``cfg``'s model."""
+    from dalle_tpu_torch.optim.lamb8bit import Lamb8bitState
+    if cfg.dense_scan_reps() > 0:
+        raise ValueError("opt_state_from_jax: the dense_scan layout is not "
+                         "supported")
+    expected = set(DALLE(cfg).state_dict())
+    mu, nu = _moments_from_jax(state.mu), _moments_from_jax(state.nu)
+    for moments in (mu, nu):
+        if set(moments) != expected:
+            raise ValueError(
+                "opt_state_from_jax: moments do not match the config: "
+                f"missing {sorted(expected - set(moments))[:8]}, "
+                f"unexpected {sorted(set(moments) - expected)[:8]}")
+    return Lamb8bitState(int(np.asarray(state.count)), mu, nu)
 
 
 def flax_path(name: str, cfg: ModelConfig) -> Tuple[str, ...]:

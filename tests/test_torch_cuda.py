@@ -13,7 +13,8 @@ output 2^-6, since its hg intermediate is rounded to bf16 in both before a
 4096-term sum); the f32 logsumexp 1e-5; the LayerNorm backward's f32
 parameter sums 1e-4 (sums over 512 rows in another order). Every backward
 kernel also runs twice on the same inputs and must give identical bits (no
-atomics, fixed reduction orders).
+atomics, fixed reduction orders). The three quantizers' codes and scales
+must equal their plain versions' exactly.
 """
 
 import pytest
@@ -33,6 +34,12 @@ from dalle_tpu_torch.ops.geglu import (geglu_ff, geglu_ff_bwd,
 from dalle_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
                                             layer_norm_bwd_plain,
                                             layer_norm_plain)
+from dalle_tpu_torch.ops.quant import (quantize_blockwise,
+                                       quantize_blockwise_plain,
+                                       wire_quantize_u4,
+                                       wire_quantize_u4_plain,
+                                       wire_quantize_u8,
+                                       wire_quantize_u8_plain)
 
 BF16 = dict(rtol=2 ** -7, atol=2 ** -7)
 
@@ -175,3 +182,61 @@ def test_cuda_attention_bwd_kernels(cuda_device, kind):
             assert a.shape == w.shape, name
             torch.testing.assert_close(a.float(), w.float(), msg=name,
                                        **BF16)
+
+
+def _quant_input(n, seed, device):
+    """Mixed magnitudes, zeros, -0.0, and values on exact midpoints and
+    half steps of power-of-two scales (ties)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(n, generator=g) * torch.tensor([1e-6, 1.0, 100.0])[
+        torch.randint(0, 3, (n,), generator=g)]
+    x[: n // 5] = 0.0
+    x[n // 5: n // 5 + 7] = -0.0
+    if n >= 4096:
+        k = torch.arange(-127, 127, dtype=torch.float32)
+        x[256:256 + k.numel()] = (k + 0.5) * 2 ** -3
+        x[256 + k.numel()] = 127 * 2 ** -3
+    return x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 3 * 4096 + 1000, 129, 70001])
+@pytest.mark.parametrize("signed", [True, False])
+def test_cuda_quantize_blockwise_kernel(cuda_device, n, signed):
+    x = _quant_input(n, n, cuda_device)
+    if not signed:
+        x = x.abs()
+    for block in (4096, 128, 1152):
+        reset_launches()
+        q = quantize_blockwise(x, block, signed=signed)
+        assert LAUNCHES["quantize_blockwise"] == 1
+        codes, absmax = quantize_blockwise_plain(x, block, signed)
+        assert torch.equal(q.codes, codes), block
+        assert torch.equal(q.absmax, absmax), block
+    y = x.clone()
+    y[5], y[n // 2] = float("inf"), float("nan")
+    q = quantize_blockwise(y, 128, signed=signed)
+    codes, absmax = quantize_blockwise_plain(y, 128, signed)
+    assert torch.equal(q.codes, codes)
+    assert torch.equal(q.absmax.isnan(), absmax.isnan())
+    ok = ~absmax.isnan()
+    assert torch.equal(q.absmax[ok], absmax[ok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 255, 256, 257, 1023, 1024, 1025, 4096,
+                               65537, 100_003])
+def test_cuda_wire_quantize_kernels(cuda_device, n):
+    x = _quant_input(n, 7 + n, cuda_device)
+    reset_launches()
+    got8, got4 = wire_quantize_u8(x), wire_quantize_u4(x)
+    assert LAUNCHES["wire_quantize_u8"] == LAUNCHES["wire_quantize_u4"] == 1
+    for got, want in ((got8, wire_quantize_u8_plain(x)),
+                      (got4, wire_quantize_u4_plain(x))):
+        assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got4[0].numel() == (n + 1) // 2
+    if n % 2:
+        assert int(got4[0][-1]) >> 4 == 0       # the pad nibble
+    with pytest.raises(ValueError, match="float32"):
+        wire_quantize_u8(x.double())

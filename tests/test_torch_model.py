@@ -138,7 +138,9 @@ def test_flagship_tiny_routes_like_the_flagship(monkeypatch):
                      "line_attention": 2 * (depth - 1) + 1,
                      "window_attention": 1, "geglu_ff": n_block3,
                      "layer_norm_bwd": 0, "line_attention_bwd": 0,
-                     "window_attention_bwd": 0, "geglu_ff_bwd": 0}
+                     "window_attention_bwd": 0, "geglu_ff_bwd": 0,
+                     "quantize_blockwise": 0, "wire_quantize_u8": 0,
+                     "wire_quantize_u4": 0}
     # on the CPU every wrapper took its plain version: no kernel launched
     assert all(v == 0 for v in LAUNCHES.values())
 

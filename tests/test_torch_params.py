@@ -113,6 +113,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert res.returncode == 0, res.stderr
     for mod in ("dalle_tpu_torch.models.decode", "dalle_tpu_torch.entry",
                 "dalle_tpu_torch.optim", "dalle_tpu_torch.optim.lamb",
+                "dalle_tpu_torch.optim.lamb8bit", "dalle_tpu_torch.ops.quant",
+                "dalle_tpu_torch.swarm", "dalle_tpu_torch.swarm.compression",
+                "dalle_tpu_torch.swarm.device_codec",
+                "dalle_tpu_torch.swarm.error_feedback",
                 "dalle_tpu_torch.training.steps",
                 "dalle_tpu_torch.data.synthetic"):
         assert mod in mods, mod
@@ -126,3 +130,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  if n.split(".")[0] in ("jax", "flax", "optax", "dalle_tpu"))
     assert not bad, bad
     assert "dalle_tpu_torch.training.steps" in names
+    assert "dalle_tpu_torch.swarm.error_feedback" in names

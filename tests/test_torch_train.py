@@ -45,8 +45,8 @@ from dalle_tpu_torch.data.synthetic import SyntheticCodes
 from dalle_tpu_torch.models import transformer as ttransformer
 from dalle_tpu_torch.models.transformer import wrapper_calls
 from dalle_tpu_torch.ops import LAUNCHES, reset_launches
-from dalle_tpu_torch.optim import (default_wd_mask, make_lr_schedule,
-                                   make_optimizer)
+from dalle_tpu_torch.optim import (Lamb, Lamb8bit, default_wd_mask,
+                                   make_lr_schedule, make_optimizer)
 from dalle_tpu_torch.params import params_from_jax
 from dalle_tpu_torch.training.steps import TrainState, grad_step, train_step
 
@@ -268,7 +268,8 @@ def test_wd_mask_equals_jax(name):
 def test_configs_and_data_copies_equal_jax():
     for field in ("learning_rate", "warmup_steps", "total_steps", "beta1",
                   "beta2", "eps", "weight_decay", "max_grad_norm",
-                  "clamp_value", "state_bits"):
+                  "clamp_value", "state_bits", "block_size",
+                  "min_8bit_size"):
         assert getattr(tconfig.OptimizerConfig(), field) == \
             getattr(jconfig.OptimizerConfig(), field), field
     jcfg, tcfg = _configs("flagship_tiny")
@@ -283,8 +284,12 @@ def test_configs_and_data_copies_equal_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        make_optimizer(tconfig.OptimizerConfig())    # state_bits=8
+    # state_bits=8, the default, is the 8-bit LAMB (tests/test_torch_quant.py)
+    assert isinstance(make_optimizer(tconfig.OptimizerConfig()), Lamb8bit)
+    assert isinstance(make_optimizer(tconfig.OptimizerConfig(state_bits=32)),
+                      Lamb)
+    with pytest.raises(ValueError, match="state_bits"):
+        make_optimizer(tconfig.OptimizerConfig(state_bits=16))
     _, tcfg, _, model, text, image = _setup("flagship_tiny",
                                             remat_policy="save_ctx")
     _, tb = _batches(text, image)
@@ -348,9 +353,9 @@ def test_train_entry_needs_cuda_unless_cpu_is_asked_for(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_entry()
     step, (state, batch) = train_entry(
-        "cpu", micro=2, accum=2, depth=6, dim=64, heads=4, head_dim=16,
-        text_seq_len=16, image_grid=4, vocab_text=128, vocab_image=64,
-        conv_kernel=3)
+        "cpu", micro=2, accum=2, state_bits=32, depth=6, dim=64, heads=4,
+        head_dim=16, text_seq_len=16, image_grid=4, vocab_text=128,
+        vocab_image=64, conv_kernel=3)
     assert batch["text"].shape == (4, 16)
     losses = []
     for _ in range(3):
