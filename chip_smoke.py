@@ -15,6 +15,9 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    times (CUDA events, inputs rotated through more than the 50 MB L2) and
    the least time the card could take (bytes over 3.35 TB/s or operations
    over the bf16 tensor-core peak of 989 TFLOP/s, whichever is larger);
+   the attention records also carry their time over SDPA's
+   (``ms_vs_library``) and each kernel instance's registers, shared memory
+   and spills (``resources``: the runtime's attributes and ``ptxas``);
 3. the flagship forward loss at B=4 through ``dalle_tpu_torch.entry`` with
    seeded random weights, with every kernel's launch count from that run
    (129 LayerNorm / 127 line / 1 window / 15 GEGLU) and its peak memory;
@@ -24,7 +27,9 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
 6. each of the four backward kernels against its plain backward on the
    card at the flagship shapes, run twice (bitwise-equal outputs), with
    the same times, bound and library yardstick (autograd of the PyTorch
-   call, timed eagerly);
+   call, timed eagerly); the attention backwards also split one call's
+   device time by pass from one ``torch.profiler`` trace (``ms_dq_pass``,
+   ``ms_dkdv_pass``, ``ms_dkdv_prefix_pass``);
 7. six flagship training steps through ``dalle_tpu_torch.entry.train_entry``
    (micro-batch 4, accumulation 2, fp32 LAMB, one fixed batch): finite and
    falling loss, the exact launch counts of the eight wrappers (forward,
@@ -57,6 +62,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -108,7 +114,8 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
 
 KERNEL_CLASSES = (
     ("attn_fwd_kernel", "attention kernel, forward"),
-    ("attn_bwd_", "attention kernels, backward (dq pass, dk/dv pass)"),
+    ("attn_bwd_", "attention kernels, backward (dq pass, dk/dv pass, "
+                  "prefix dk/dv pass)"),
     ("geglu_bwd_kernel", "GEGLU backward kernel"),
     ("gemm_kernel", "GEGLU forward kernels"),
     ("_ln_bwd", "LayerNorm backward kernels (row pass, partial sum)"),
@@ -124,6 +131,54 @@ def kernel_class(key: str) -> str:
     if any(m in key for m in CUBLAS_MARKS):
         return "cuBLAS GEMMs"
     return "PyTorch elementwise, copies, reductions"
+
+
+def ptxas_instances(reports) -> dict:
+    """Registers and spill bytes of every kernel instance that ``nvcc
+    -Xptxas -v`` reported while building, keyed like ``attn_fwd_kernel<0>``
+    (the template's policy number)."""
+    out, cur = {}, None
+    for log in reports.values():
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
+            if m:
+                n = int(m.group(1))
+                name, rest = m.group(2)[:n], m.group(2)[n:]
+                targs = re.match(r"ILi(\d+)E", rest)
+                cur = f"{name}<{targs.group(1)}>" if targs else name
+                out[cur] = {}
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                out[cur].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[cur]["ptxas_registers"] = int(m.group(1))
+    return out
+
+
+def pass_ms(torch, fn, args, marks) -> dict:
+    """Device ms of one call of ``fn`` split by kernel, from one
+    ``torch.profiler`` trace (the second of two, as in ``profile_run``: the
+    first warms the tracer): for each mark (a substring of the kernel's
+    name) the sum over the kernels it names, None where the trace holds
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+    out = dict.fromkeys(marks)
+    for e in prof.key_averages():
+        for mark in marks:
+            if mark in e.key and e.self_device_time_total > 0:
+                out[mark] = (out[mark] or 0.0) + e.self_device_time_total / 1e3
+    return out
 
 
 def profile_run(torch, fn, args, path: str, phase: str) -> None:
@@ -189,7 +244,8 @@ def main() -> int:
                                                generate_images, init_cache)
     from dalle_tpu_torch.models.transformer import wrapper_calls
     from dalle_tpu_torch.ops import LAUNCHES, _build, reset_launches
-    from dalle_tpu_torch.ops.attention import (line_attention,
+    from dalle_tpu_torch.ops.attention import (BWD_PASSES, kernel_resources,
+                                               line_attention,
                                                line_attention_bwd,
                                                line_attention_bwd_plain,
                                                line_attention_plain,
@@ -230,7 +286,7 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
              for name, log in reports.items()}
     emit(phase="build", seconds=build_s, sources=_build.sources(),
-         ptxas=usage)
+         ptxas=usage, instances=ptxas_instances(reports))
 
     cfg = flagship_model_config(param_dtype="bfloat16")
     B, H, Dh = 4, cfg.heads, cfg.head_dim
@@ -403,6 +459,19 @@ def main() -> int:
         bound_ms=bms, bound_by=by,
         shape=(f"conv_like hw={hw}: image q/k/v ({B},{H},{G * G},{Dh}) "
                f"with a {TT}-token prefix, bf16"))
+
+    # per template instance: registers, shared memory and local bytes from
+    # the runtime, registers and spills from ptxas (when this run built it)
+    resources, ptxas = kernel_resources(), ptxas_instances(reports)
+
+    def instance_resources(names, policy):
+        return {f"{n}<{policy}>": resources[f"{n}<{policy}>"]
+                | ptxas.get(f"{n}<{policy}>", {}) for n in names}
+
+    for name, policy in (("line_attention", 0), ("window_attention", 1)):
+        rec = kernels[name]
+        rec["ms_vs_library"] = rec["ms"] / rec["library_ms"]
+        rec["resources"] = instance_resources(("attn_fwd_kernel",), policy)
 
     ff_sets = [(randn(M, D), randn(D, K, scale=D ** -0.5),
                 randn(D, K, scale=D ** -0.5), randn(K, D, scale=K ** -0.5),
@@ -681,13 +750,27 @@ def main() -> int:
             errs, f"rtol=atol={BF16_TOL} (bf16 gradients)",
             f"one axial_row layer: text call ({B},{H},{TT},{Dh}) + image "
             f"call ({B},{H},{G * G},{Dh}) with a {TT}-token prefix, bf16, "
-            "strided (B,T,H,d) views; two launches per call (dq pass, "
-            "dk/dv pass)")
+            "strided (B,T,H,d) views; per wrapper call one launch each of "
+            "the dq pass and the dk/dv pass, and with a prefix one of the "
+            "prefix dk/dv pass (4-block clusters)")
         recs["line_attention_bwd"]["ms_axial_col"] = cuda_ms(
             lambda *a: line_bwd_layer(*a, col=True),
             [(q, k, v, do, line_fwd(q, k, v, True))
              for q, k, v, do, _ in sets])[0]
         del lib_sets
+
+        def passes(name, fn, args, policy):
+            """The record's pass split (one traced call), its time over
+            SDPA's and its kernels' resources."""
+            rec = recs[name]
+            split = pass_ms(torch, fn, args, BWD_PASSES)
+            rec.update(ms_dq_pass=split[BWD_PASSES[0]],
+                       ms_dkdv_pass=split[BWD_PASSES[1]],
+                       ms_dkdv_prefix_pass=split[BWD_PASSES[2]],
+                       ms_vs_library=rec["ms"] / rec["library_ms"],
+                       resources=instance_resources(BWD_PASSES, policy))
+
+        passes("line_attention_bwd", line_bwd_layer, sets[0], 0)
 
         def win_fwd(q, k, v):
             (_, kt, vt), (qi, ki, vi) = split(q, k, v)
@@ -717,7 +800,9 @@ def main() -> int:
             10 * Dh * B * H * win_pairs, BF16_FLOP_PER_S, errs,
             f"rtol=atol={BF16_TOL} (bf16 gradients)",
             f"conv_like hw={hw}: image call ({B},{H},{G * G},{Dh}) with a "
-            f"{TT}-token prefix, bf16; two launches per call")
+            f"{TT}-token prefix, bf16; three kernel launches per call "
+            "(dq pass, dk/dv pass, prefix dk/dv pass)")
+        passes("window_attention_bwd", win_bwd, sets[0], 1)
         return recs
 
     def autograd_retained(out, leaves, do):

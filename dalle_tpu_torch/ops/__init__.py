@@ -7,8 +7,8 @@ wrapper adds one where it launches and nowhere else, so a run can show
 which kernels its path went through. It counts calls, not CUDA launches:
 one ``geglu_ff`` call launches two kernels (the gate GEMM and the output
 GEMM) and adds one; so do the backward wrappers (the LayerNorm backward's
-row pass and partial sum, the attention backward's dq pass and dk/dv
-pass). A forward kernel run again by a rematerialised block in backward
+row pass and partial sum; the attention backward's dq pass, dk/dv pass
+and, with a prefix, the prefix's dk/dv pass). A forward kernel run again by a rematerialised block in backward
 counts again.
 
 Each forward/backward pair is also a ``torch.autograd.Function``

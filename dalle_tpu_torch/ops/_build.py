@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` on its own into a shared
 library with a plain C interface, ``build/dalle_tpu_torch/<name>-<hash>.so``
-at the repository root (the hash is of the source, so an edited kernel is
-rebuilt), and loaded with ``ctypes``. ``build_all`` starts one ``nvcc`` per
+at the repository root (the hash is of the source and of every
+``csrc/*.cuh`` header, so an edited kernel or header is rebuilt), and
+loaded with ``ctypes``. ``build_all`` starts one ``nvcc`` per
 source at once and waits for all of them.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 -std=c++17``; no
@@ -38,10 +39,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+def _target(name: str, csrc: Path = CSRC) -> Path:
+    """The library of ``<csrc>/<name>.cu``, named by a hash of the source
+    and of the headers beside it (which any source may include)."""
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def sources() -> List[str]:

@@ -13,8 +13,9 @@ Replaces the TPU kernels of ``dalle_tpu/ops/pallas/attention_kernels.py``:
 - :func:`line_attention_bwd` / :func:`window_attention_bwd`:
   ``_line_attention_bwd`` / ``_window_attention_bwd`` -- ``(dq, dk, dv,
   dkp, dvp)`` from the forward's output and logsumexp
-  (``csrc/attention_bwd.cu``, a query-major dq pass and a key-major dk/dv
-  pass, no atomics).
+  (``csrc/attention_bwd.cu``, a query-major dq pass, a key-major dk/dv
+  pass over the main keys and, with a prefix, the prefix's dk/dv in
+  4-block clusters; no atomics).
 
 The forwards return ``(out, lse)``: ``out`` (B, H, T, d) in q's dtype and
 the row logsumexp ``lse`` (B, H, 1, T) f32 in raster token order (for
@@ -253,6 +254,35 @@ def _lib(name: str, args_type):
         err.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+BWD_PASSES = ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
+              "attn_bwd_dkdv_prefix_kernel")
+
+
+def kernel_resources() -> dict:
+    """Registers, static and dynamic shared memory (bytes a block) and local
+    (spill) bytes a thread of every attention kernel instance, keyed like
+    ``attn_fwd_kernel<0>`` (the template's policy number), as the CUDA
+    runtime reports them. Builds and loads both libraries; needs a GPU."""
+    keys = ("registers", "smem_static", "smem_dynamic", "local_bytes")
+    fwd = _lib("attention_fwd", _AttnArgs).attention_fwd_resources
+    bwd = _lib("attention_bwd", _AttnBwdArgs).attention_bwd_resources
+    fwd.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    bwd.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fwd.restype = bwd.restype = ctypes.c_int
+    out = {}
+    for policy in (POLICY_LINE, POLICY_CONV, POLICY_FULL):
+        calls = [("attn_fwd_kernel", lambda buf: fwd(policy, buf))] + [
+            (name, lambda buf, i=i: bwd(policy, i, buf))
+            for i, name in enumerate(BWD_PASSES)]
+        for name, call in calls:
+            buf = (ctypes.c_int * 4)()
+            if call(buf) != 0:
+                raise RuntimeError(f"{name}<{policy}>: cudaFuncGetAttributes "
+                                   "failed")
+            out[f"{name}<{policy}>"] = dict(zip(keys, buf))
+    return out
 
 
 def _run(name: str, args_type, args, counter: str, device) -> None:

@@ -184,6 +184,73 @@ def test_cuda_attention_bwd_kernels(cuda_device, kind):
                                        **BF16)
 
 
+# The flagship's lengths: image grid 32 (four query tiles a line of raster
+# rows, sixteen in all) with the 256-token text prefix (the prefix dk/dv
+# pass's clusters each walk four query tiles), a ragged 40-token prefix,
+# and text-causal at 256 (four query tiles, a causal walk of one to four).
+FLAGSHIP_CASES = [("axial_row", 256), ("axial_col", 256), ("conv_like", 256),
+                  ("full", 256), ("axial_row", 40), ("axial_col", 40),
+                  ("conv_like", 40), ("full", 40), ("text", 256)]
+
+
+def _flagship_case(kind, prefix, device, seed):
+    """(q, k, v, dout, kp, vp, extra, fwd, bwd, plain_fwd, plain_bwd) at
+    b=1, h=2: strided (B, T, H, d) views as the model makes them."""
+    b, h, grid = 1, 2, 32
+    t = prefix if kind == "text" else grid * grid
+    q, k, v, dout = (_bf16((b, t, h, 64), seed + i, device).transpose(1, 2)
+                     for i in range(4))
+    kp = vp = None
+    if kind != "text":
+        kp, vp = (_bf16((b, prefix, h, 64), seed + 4 + i, device)
+                  .transpose(1, 2) for i in range(2))
+    if kind == "text":
+        extra = (t, 0, False)
+    elif kind.startswith("axial"):
+        extra = (grid, grid, kind == "axial_col")
+    else:
+        extra = (grid, 5 if kind == "conv_like" else None)
+    if len(extra) == 3:
+        fns = (line_attention, line_attention_bwd, line_attention_plain,
+               line_attention_bwd_plain)
+    else:
+        fns = (window_attention, window_attention_bwd, window_attention_plain,
+               window_attention_bwd_plain)
+    return (q, k, v, dout, kp, vp, extra) + fns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,prefix", FLAGSHIP_CASES)
+def test_cuda_attention_kernels_flagship_lengths(cuda_device, kind, prefix):
+    q, k, v, _, kp, vp, extra, fwd, _, plain, _ = _flagship_case(
+        kind, prefix, cuda_device, 30)
+    reset_launches()
+    out, lse = fwd(q, k, v, kp, vp, *extra)
+    assert sum(LAUNCHES.values()) == 1
+    out_p, lse_p = plain(q, k, v, kp, vp, *extra)
+    torch.testing.assert_close(out.float(), out_p.float(), **BF16)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,prefix", FLAGSHIP_CASES)
+def test_cuda_attention_bwd_kernels_flagship_lengths(cuda_device, kind,
+                                                     prefix):
+    q, k, v, dout, kp, vp, extra, fwd, bwd, _, plain = _flagship_case(
+        kind, prefix, cuda_device, 40)
+    out, lse = fwd(q, k, v, kp, vp, *extra)
+    reset_launches()
+    got = _same_twice(bwd, q, k, v, kp, vp, out, lse, dout, *extra)
+    assert sum(LAUNCHES.values()) == 2
+    want = plain(q, k, v, kp, vp, out, lse, dout, *extra)
+    for name, a, w in zip(("dq", "dk", "dv", "dkp", "dvp"), got, want):
+        assert (a is None) == (w is None), name
+        if a is not None:
+            assert a.shape == w.shape, name
+            torch.testing.assert_close(a.float(), w.float(), msg=name,
+                                       **BF16)
+
+
 def _quant_input(n, seed, device):
     """Mixed magnitudes, zeros, -0.0, and values on exact midpoints and
     half steps of power-of-two scales (ties)."""
