@@ -16,8 +16,11 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    the least time the card could take (bytes over 3.35 TB/s or operations
    over the bf16 tensor-core peak of 989 TFLOP/s, whichever is larger);
    the attention records also carry their time over SDPA's
-   (``ms_vs_library``) and each kernel instance's registers, shared memory
-   and spills (``resources``: the runtime's attributes and ``ptxas``);
+   (``ms_vs_library``), the GEGLU records cuBLAS's time for the same
+   products without the epilogues (``cublas_ms``, ``ms_vs_cublas``), and
+   both each kernel instance's registers, shared memory and spills
+   (``resources``: the runtime's attributes and ``ptxas``); the GEGLU
+   forward runs twice on the same inputs (bitwise-equal outputs);
 3. the flagship forward loss at B=4 through ``dalle_tpu_torch.entry`` with
    seeded random weights, with every kernel's launch count from that run
    (129 LayerNorm / 127 line / 1 window / 15 GEGLU) and its peak memory;
@@ -29,7 +32,8 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    the same times, bound and library yardstick (autograd of the PyTorch
    call, timed eagerly); the attention backwards also split one call's
    device time by pass from one ``torch.profiler`` trace (``ms_dq_pass``,
-   ``ms_dkdv_pass``, ``ms_dkdv_prefix_pass``);
+   ``ms_dkdv_pass``, ``ms_dkdv_prefix_pass``), and one trace splits the
+   GEGLU forward between its gate and output GEMMs (``geglu_ff_split``);
 7. six flagship training steps through ``dalle_tpu_torch.entry.train_entry``
    (micro-batch 4, accumulation 2, fp32 LAMB, one fixed batch): finite and
    falling loss, the exact launch counts of the eight wrappers (forward,
@@ -117,11 +121,13 @@ KERNEL_CLASSES = (
     ("attn_bwd_", "attention kernels, backward (dq pass, dk/dv pass, "
                   "prefix dk/dv pass)"),
     ("geglu_bwd_kernel", "GEGLU backward kernel"),
-    ("gemm_kernel", "GEGLU forward kernels"),
+    ("geglu_fwd_kernel", "GEGLU forward kernels"),
     ("_ln_bwd", "LayerNorm backward kernels (row pass, partial sum)"),
     ("_ln_fwd", "LayerNorm forward kernel"),
 )
 CUBLAS_MARKS = ("nvjet", "xmma", "gemm", "cutlass")
+# the GEGLU forward's two kernels, by their names in a profiler trace
+GEGLU_FWD_PASSES = ("geglu_fwd_kernel<1>", "geglu_fwd_kernel<0>")
 
 
 def kernel_class(key: str) -> str:
@@ -136,16 +142,21 @@ def kernel_class(key: str) -> str:
 def ptxas_instances(reports) -> dict:
     """Registers and spill bytes of every kernel instance that ``nvcc
     -Xptxas -v`` reported while building, keyed like ``attn_fwd_kernel<0>``
-    (the template's policy number)."""
-    out, cur = {}, None
+    (the template's integer argument), ``geglu_bwd_kernel`` (no template)
+    or the plain name of an ``extern "C"`` kernel."""
+    out = {}
     for log in reports.values():
+        cur = None
         for ln in log.splitlines():
-            m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", ln)
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
             if m:
-                n = int(m.group(1))
-                name, rest = m.group(2)[:n], m.group(2)[n:]
-                targs = re.match(r"ILi(\d+)E", rest)
-                cur = f"{name}<{targs.group(1)}>" if targs else name
+                cur = m.group(1)
+                mangled = re.match(r"_Z(\d+)(\w+)", cur)
+                if mangled:
+                    n = int(mangled.group(1))
+                    name, rest = mangled.group(2)[:n], mangled.group(2)[n:]
+                    targs = re.match(r"ILi(\d+)E", rest)
+                    cur = f"{name}<{targs.group(1)}>" if targs else name
                 out[cur] = {}
                 continue
             if cur is None:
@@ -255,6 +266,8 @@ def main() -> int:
                                                window_attention_plain)
     from dalle_tpu_torch.ops.geglu import (geglu_ff, geglu_ff_bwd,
                                            geglu_ff_bwd_plain, geglu_ff_plain)
+    from dalle_tpu_torch.ops.geglu import \
+        kernel_resources as geglu_resources
     from dalle_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
                                                 layer_norm_bwd_plain,
                                                 layer_norm_plain)
@@ -339,6 +352,23 @@ def main() -> int:
                                  f"version: max |diff| {err.max().item()} "
                                  f"(tolerance {tol} + {tol}*|plain|)")
         return err.max().item()
+
+    def release_memory():
+        """Return cached blocks, the cuBLAS workspaces of the timing
+        streams included (each stream that ran cuBLAS keeps one), so that
+        the next phase's peak memory counts only its own."""
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+
+    def twice(name, kernel_fn, *args):
+        """The kernel's outputs; a second run must give the same bits."""
+        first, second = kernel_fn(*args), kernel_fn(*args)
+        for a, b in zip(first, second):
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"{name}: two runs on the same inputs "
+                                     "gave different bits")
+        return first
 
     def times(kernel, plain, library, sets, iters=20):
         out = {}
@@ -472,12 +502,18 @@ def main() -> int:
         rec = kernels[name]
         rec["ms_vs_library"] = rec["ms"] / rec["library_ms"]
         rec["resources"] = instance_resources(("attn_fwd_kernel",), policy)
+    ff_resources = geglu_resources()
+
+    def geglu_kernel_resources(names):
+        return {n: ff_resources[n] | ptxas.get(n, {}) for n in names}
 
     ff_sets = [(randn(M, D), randn(D, K, scale=D ** -0.5),
                 randn(D, K, scale=D ** -0.5), randn(K, D, scale=K ** -0.5),
                 randn(K, scale=0.1), randn(K, scale=0.1), randn(D, scale=0.1))
                for _ in range(2)]
-    ff_err = compare("geglu_ff", geglu_ff(*ff_sets[0]),
+    ff_err = compare("geglu_ff", twice("geglu_ff",
+                                       lambda *a: (geglu_ff(*a),),
+                                       *ff_sets[0])[0],
                      geglu_ff_plain(*ff_sets[0]), BF16_TOL)
     ff_bytes = (2 * M * D + 3 * D * K + 2 * K + D) * 2
     bms, by = bound(ff_bytes, 6 * M * D * K)
@@ -486,18 +522,30 @@ def main() -> int:
         source="dalle_tpu_torch/csrc/geglu_fwd.cu",
         replaces="dalle_tpu/ops/pallas/geglu_kernels.py:126",
         max_abs_err=ff_err, tolerance=f"rtol=atol={BF16_TOL} (bf16 output)",
+        bitwise_reproducible=True,
         **times(geglu_ff, geglu_ff_plain, None, ff_sets, iters=10),
         bound_ms=bms, bound_by=by,
         shape=f"x ({M}, {D}), Wi/Wg ({D}, {K}), Wo ({K}, {D}) bf16; "
-              "two launches per call (gate GEMM, output GEMM)")
+              "two launches per call (gate GEMM, output GEMM)",
+        resources=geglu_kernel_resources(GEGLU_FWD_PASSES))
+    # the yardstick: cuBLAS on the same two products, the epilogues (bias,
+    # gelu, product) left out; never called by the port
+    hg_sets = [(x, torch.cat([wi, wg], dim=1), randn(M, K), wo)
+               for x, wi, wg, wo, *_ in ff_sets]
+    rec = kernels["geglu_ff"]
+    rec["cublas_ms"] = cuda_ms(
+        lambda x, w, h, wo: (torch.matmul(x, w), torch.matmul(h, wo)),
+        hg_sets, 10)[0]
+    rec["cublas"] = "torch.matmul: x.[Wi|Wg], then an (M, K) bf16 hg.Wo"
+    rec["ms_vs_cublas"] = rec["ms"] / rec["cublas_ms"]
+    del hg_sets
     for rec in kernels.values():
         emit(phase="kernel_check", **rec)
 
     # -- 3. the flagship forward through the entry point ------------------
     # the checks' buffers go first, so that the peak is the forward's own
     del ln_sets, att_sets, ff_sets, got, want
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    release_memory()
     torch.cuda.reset_peak_memory_stats()
     mem_base = torch.cuda.memory_allocated()
     fn, (model, _, _) = entry(device="cuda", batch=B, seed=SEED)
@@ -601,15 +649,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6. the backward kernels against their plain backwards ------------
-    def twice(name, kernel_fn, *args):
-        """The kernel's outputs; a second run must give the same bits."""
-        first, second = kernel_fn(*args), kernel_fn(*args)
-        for a, b in zip(first, second):
-            if a is not None and not torch.equal(a, b):
-                raise AssertionError(f"{name}: two runs on the same inputs "
-                                     "gave different bits")
-        return first
-
     def library_ms(fn, arg_sets, iters=20):
         """Eager time of the library yardstick (autograd through a kept
         graph: no CUDA graph capture)."""
@@ -681,6 +720,23 @@ def main() -> int:
             f"rtol=atol={BF16_TOL} (bf16 outputs)",
             f"x, dO ({M}, {D}), Wi/Wg ({D}, {K}), Wo ({K}, {D}) bf16 -> "
             f"dh|dg ({M}, {2 * K}), hg ({M}, {K}) bf16", iters=10)
+        rec = recs["geglu_ff_bwd"]
+        rec["cublas_ms"] = cuda_ms(
+            lambda x, w, do, wo: (torch.matmul(x, w),
+                                  torch.matmul(do, wo.t())),
+            [(st[0], torch.cat([st[1], st[2]], dim=1), st[6], st[3])
+             for st in sets], 10)[0]
+        rec["cublas"] = "torch.matmul: x.[Wi|Wg] and dO.Wo^T"
+        rec["ms_vs_cublas"] = rec["ms"] / rec["cublas_ms"]
+        rec["resources"] = geglu_kernel_resources(("geglu_bwd_kernel",))
+        # the forward's split between its two kernels (traced here, after
+        # the forward's timings, which no profiler trace precedes)
+        x, wi, wg, wo, bi, bg, _ = sets[0]
+        ff_split = pass_ms(torch, geglu_ff, (x, wi, wg, wo, bi, bg,
+                                             randn(D, scale=0.1)),
+                           GEGLU_FWD_PASSES)
+        emit(phase="geglu_ff_split", ms_gate_pass=ff_split[
+            GEGLU_FWD_PASSES[0]], ms_out_pass=ff_split[GEGLU_FWD_PASSES[1]])
         del sets, got, want
 
         # attention: q/k/v/dO as the model makes them, (B, T, H, d) views
@@ -812,8 +868,7 @@ def main() -> int:
     for rec in bwd_kernels.values():
         emit(phase="kernel_check", **rec)
     kernels.update(bwd_kernels)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    release_memory()
 
     # -- 7. flagship training steps through the entry point ---------------
     torch.cuda.reset_peak_memory_stats()
@@ -974,8 +1029,7 @@ def main() -> int:
     for name in ("quantize_blockwise", "wire_quantize_u8",
                  "wire_quantize_u4"):
         emit(phase="kernel_check", **kernels[name])
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    release_memory()
 
     # -- 8b. flagship training steps with the 8-bit LAMB -------------------
     torch.cuda.reset_peak_memory_stats()

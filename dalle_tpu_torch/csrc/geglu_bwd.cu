@@ -20,197 +20,226 @@
 // What bounds it on the card: 3 products of 2.M.d.K = 129 GFLOP at the
 // flagship (M = 5120, d = 1024, K = 4096) against 126 MB of bf16 outputs and
 // ~40 MB of operands, above the ~295 FLOP/byte ridge, so the floor is the
-// bf16 tensor-core rate. The design is the forward's (geglu_fwd.cu): WMMA
-// bf16 16x16x16 with f32 accumulators, 64 x 64 output tiles per block of
-// 4 warps (each warp a 32 x 32 tile of all three products), a two-stage
-// cp.async pipeline of depth-32 shared-memory stages holding the x and dO
-// rows and the Wi, Wg and Wo tiles, and the elementwise epilogue through
-// shared memory. Wo^T is read as a column-major operand from Wo's rows, so
-// no transpose is materialised.
+// bf16 tensor-core rate. The design is the forward's (geglu_fwd.cu,
+// gemm_sm90.cuh): a persistent kernel walking 128 x 64 output tiles
+// m-fast (x and dO, 20 MB, stay in L2 while the weight columns stream);
+// one producer thread fills a ring of 3 TMA stages of depth 64 (the x and
+// dO rows, Wi and Wg MN-major, Wo's rows n0.. as Wo^T K-major, so no
+// transpose is materialised); two consumer warpgroups of 64 rows each run
+// the three wgmma m64n64k16 products per k16 step into three register
+// accumulators (96 registers a thread) and form the gelu' epilogue straight
+// from them into swizzled shared-memory tiles of dh, dg and hg, written by
+// TMA stores while the next tile's products run. A 56 KB stage over a
+// 128 x 64 tile reads much from L2: the blocks run in clusters of two
+// along N, each loading half of the x and dO rows and multicasting it to
+// both, so a block reads 40 KB a stage. Single blocks, clusters of four
+// and a 128 x 128 tile (192 accumulator registers, 2 stages) were slower
+// at the flagship shape on an H100.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BKD = 32;
-constexpr int LDA = BKD + 8;   // bf16 pitch of the x / dO / Wo^T tiles
-constexpr int LDBT = BN + 8;   // bf16 pitch of the Wi / Wg tiles
-constexpr int LDC = BN + 4;    // f32 pitch of the epilogue tiles
-constexpr int THREADS = 128;
-constexpr int A_ELEMS = BM * LDA;     // one (64 rows x 32 depth) tile
-constexpr int B_ELEMS = BKD * LDBT;   // one (32 depth x 64 cols) tile
-constexpr int WT_ELEMS = BN * LDA;    // Wo rows n0..n0+63, depth 32
-constexpr int STAGE = 2 * A_ELEMS + 2 * B_ELEMS + WT_ELEMS;
-constexpr int MAIN_BYTES = 2 * STAGE * (int)sizeof(bf16);
-constexpr int EPI_BYTES = 3 * BM * LDC * (int)sizeof(float);
-constexpr int SMEM_BYTES = MAIN_BYTES > EPI_BYTES ? MAIN_BYTES : EPI_BYTES;
+constexpr int BM = 128, BN = 64, BK = 64;
+constexpr int THREADS = 384;          // consumer warpgroups 0-1, producer 2
+constexpr int TILE_X = BM * BK * 2;   // x or dO: 128 rows x 64 deep, 16 KB
+constexpr int BOX = 64 * 64 * 2;      // Wi, Wg, Wo^T; one output box, 8 KB
+constexpr int STAGE = 2 * TILE_X + 3 * BOX;
+constexpr int STAGES = 3;
+constexpr int RING = STAGES * STAGE;
+constexpr int TILE_C = 3 * BOX;       // a warpgroup's dh, dg, hg, staged
+// the ring, the two warpgroups' output tiles, 1 KB for aligning them, the
+// full and empty barriers
+constexpr int SMEM = RING + 2 * TILE_C + 1024 + 2 * STAGES * 8;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int CLUSTER = 2;              // blocks sharing x and dO, along N
+constexpr int PART_X = TILE_X / CLUSTER;  // the rows of them a block loads
 
 constexpr float GELU_C = 0.044715f;
 constexpr float GELU_3C = (float)(3.0 * 0.044715);  // 3.0 * _GELU_C
 constexpr float SQRT_2_OVER_PI = 0.7978845608028654f;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  int bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
 }  // namespace
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
-__global__ void __launch_bounds__(THREADS)
-geglu_bwd_kernel(const bf16* __restrict__ X, const bf16* __restrict__ Wi,
-                 const bf16* __restrict__ Wg, const bf16* __restrict__ Wo,
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
+geglu_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_do,
+                 const __grid_constant__ CUtensorMap map_wi,
+                 const __grid_constant__ CUtensorMap map_wg,
+                 const __grid_constant__ CUtensorMap map_wo,
+                 const __grid_constant__ CUtensorMap map_dh,
+                 const __grid_constant__ CUtensorMap map_dg,
+                 const __grid_constant__ CUtensorMap map_hg,
                  const bf16* __restrict__ bi, const bf16* __restrict__ bg,
-                 const bf16* __restrict__ dO, bf16* __restrict__ dHdG,
-                 bf16* __restrict__ HG, int M, int D, int K) {
-  extern __shared__ __align__(128) unsigned char pool[];
-  bf16* stages = reinterpret_cast<bf16*>(pool);
+                 int M, int D, int K) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = (sm90::smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t out = base + RING;
+  const uint32_t full = out + 2 * TILE_C;
+  const uint32_t empty = full + STAGES * 8;
+  // The blocks of a cluster walk the same (m0, column group) tiles, the
+  // block of rank r taking column tile CLUSTER g + r; each loads its part
+  // of the x and dO rows and multicasts it to all of them. A stage is
+  // refilled once the consumers of every block have released it. Where the
+  // column tiles do not fill the last group, a block past K still loads
+  // its part for the others and stores nothing.
+  const uint32_t rank = sm90::cluster_rank();
+  const int mt = (M + BM - 1) / BM;
+  const int tiles = mt * ((K / BN + CLUSTER - 1) / CLUSTER), nk = D / BK;
+  const int first = blockIdx.x / CLUSTER, step = gridDim.x / CLUSTER;
+  const int wg = threadIdx.x / 128;
 
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 2, wn = warp % 2;  // 2 x 2 warps of 32 x 32
-
-  auto load_stage = [&](int kt, int st) {
-    bf16* sX = stages + st * STAGE;
-    bf16* sD = sX + A_ELEMS;
-    bf16* sWi = sD + A_ELEMS;
-    bf16* sWg = sWi + B_ELEMS;
-    bf16* sWt = sWg + B_ELEMS;
-    const int k0 = kt * BKD;
-    for (int c = threadIdx.x; c < BM * (BKD / 8); c += THREADS) {
-      const int r = c / (BKD / 8), col = (c % (BKD / 8)) * 8;
-      const bool ok = m0 + r < M;
-      const long long off = (long long)(m0 + r) * D + k0 + col;
-      cp_async16(sX + r * LDA + col, ok ? X + off : X, ok);
-      cp_async16(sD + r * LDA + col, ok ? dO + off : dO, ok);
-      // Wo^T tile: row n0 + r of Wo, depth columns k0..k0+31
-      cp_async16(sWt + r * LDA + col,
-                 Wo + (long long)(n0 + r) * D + k0 + col, true);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::bar_init(full + 8 * s, 1);
+      sm90::bar_init(empty + 8 * s, CLUSTER * CONSUMER_WARPS);
     }
-    for (int c = threadIdx.x; c < BKD * (BN / 8); c += THREADS) {
-      const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-      const long long off = (long long)(k0 + r) * K + n0 + col;
-      cp_async16(sWi + r * LDBT + col, Wi + off, true);
-      cp_async16(sWg + r * LDBT + col, Wg + off, true);
-    }
-  };
-
-  Acc accH[2][2], accG[2][2], accD[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(accH[i][j], 0.f);
-      wmma::fill_fragment(accG[i][j], 0.f);
-      wmma::fill_fragment(accD[i][j], 0.f);
-    }
-
-  const int nk = D / BKD;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_stage(kt + 1, (kt + 1) & 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16* sX = stages + (kt & 1) * STAGE;
-    const bf16* sD = sX + A_ELEMS;
-    const bf16* sWi = sD + A_ELEMS;
-    const bf16* sWg = sWi + B_ELEMS;
-    const bf16* sWt = sWg + B_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BKD / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          fx[2], fd[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(fx[i], sX + (wm * 32 + i * 16) * LDA + kk * 16,
-                               LDA);
-        wmma::load_matrix_sync(fd[i], sD + (wm * 32 + i * 16) * LDA + kk * 16,
-                               LDA);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = wn * 32 + j * 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sWi + kk * 16 * LDBT + col, LDBT);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::mma_sync(accH[i][j], fx[i], fb, accH[i][j]);
-        wmma::load_matrix_sync(fb, sWg + kk * 16 * LDBT + col, LDBT);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::mma_sync(accG[i][j], fx[i], fb, accG[i][j]);
-        // Wo^T as a column-major (depth x cols) operand: element (k, n)
-        // sits at sWt[n * LDA + k]
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> ft;
-        wmma::load_matrix_sync(ft, sWt + col * LDA + kk * 16, LDA);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::mma_sync(accD[i][j], fd[i], ft, accD[i][j]);
-      }
-    }
-    __syncthreads();
+    sm90::bar_init_fence();
   }
+  sm90::cluster_sync();
 
-  // epilogue through shared memory (the stage buffers are free now)
-  float* sH = reinterpret_cast<float*>(pool);
-  float* sG = sH + BM * LDC;
-  float* sDH = sG + BM * LDC;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int off = (wm * 32 + i * 16) * LDC + wn * 32 + j * 16;
-      wmma::store_matrix_sync(sH + off, accH[i][j], LDC, wmma::mem_row_major);
-      wmma::store_matrix_sync(sG + off, accG[i][j], LDC, wmma::mem_row_major);
-      wmma::store_matrix_sync(sDH + off, accD[i][j], LDC,
-                              wmma::mem_row_major);
+  if (wg == 2) {
+    // ---- producer: one thread starts every TMA load -------------------
+    sm90::regs_dec<40>();
+    if (threadIdx.x == 256) {
+      sm90::prefetch_map(&map_x);
+      sm90::prefetch_map(&map_do);
+      sm90::prefetch_map(&map_wi);
+      sm90::prefetch_map(&map_wg);
+      sm90::prefetch_map(&map_wo);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = first; t < tiles; t += step) {
+        const int m0 = (t % mt) * BM, n0 = ((t / mt) * CLUSTER + rank) * BN;
+        const int part = m0 + BM / CLUSTER * rank;
+        const uint16_t all = (1 << CLUSTER) - 1;
+        for (int kb = 0; kb < nk; ++kb) {
+          sm90::bar_wait(empty + 8 * s, phase ^ 1);
+          const uint32_t bar = full + 8 * s, st = base + s * STAGE;
+          const uint32_t w = st + 2 * TILE_X;
+          sm90::bar_expect_tx(bar, STAGE);
+          sm90::tma_load_multicast(st + rank * PART_X, &map_x, bar, kb * BK,
+                                   part, all);
+          sm90::tma_load_multicast(st + TILE_X + rank * PART_X, &map_do, bar,
+                                   kb * BK, part, all);
+          sm90::tma_load(w, &map_wi, bar, n0, kb * BK);
+          sm90::tma_load(w + BOX, &map_wg, bar, n0, kb * BK);
+          // Wo rows n0 .. n0 + 63, depth kb * 64 ..: Wo^T, K-major
+          sm90::tma_load(w + 2 * BOX, &map_wo, bar, kb * BK, n0);
+          if (++s == STAGES) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      // stay until every block's consumers have released every stage: their
+      // last arrivals land on this block's barriers
+      for (int i = 0; i < STAGES; ++i) {
+        sm90::bar_wait(empty + 8 * s, phase ^ 1);
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
     }
-  __syncthreads();
-  for (int p = threadIdx.x; p < BM * BN / 2; p += THREADS) {
-    const int r = p / (BN / 2), c = (p % (BN / 2)) * 2;
-    if (m0 + r >= M) continue;
-    float dh[2], dg[2], hg[2];
+  } else {
+    // ---- consumers: warpgroup wg computes rows 64 wg .. 64 wg + 63 -----
+    sm90::regs_inc<232>();
+    const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+    const int row = warp * 16 + lane / 4;   // and row + 8, in the warpgroup
+    const uint32_t my_out = out + wg * TILE_C;
+    float accH[32], accG[32], accD[32];
+    __nv_bfloat162 b_i[8], b_g[8];
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = first; t < tiles; t += step) {
+      const int m0 = (t % mt) * BM, n0 = ((t / mt) * CLUSTER + rank) * BN;
+      // this thread's bias pairs, read before the main loop hides their
+      // latency (clamped in a tile past K, which stores nothing)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      // the formulas of geglu_kernels._gelu / _gelu_grad, same order
-      const float h = sH[r * LDC + c + e] + __bfloat162float(bi[n0 + c + e]);
-      const float g = sG[r * LDC + c + e] + __bfloat162float(bg[n0 + c + e]);
-      const float dhg = sDH[r * LDC + c + e];
-      const float u = SQRT_2_OVER_PI * (g + GELU_C * g * g * g);
-      const float t = tanhf(u);
-      const float a = 0.5f * g * (1.0f + t);
-      const float du = SQRT_2_OVER_PI * (1.0f + GELU_3C * g * g);
-      const float da = 0.5f * (1.0f + t) + 0.5f * g * (1.0f - t * t) * du;
-      dh[e] = dhg * a;
-      dg[e] = dhg * h * da;
-      hg[e] = h * a;
+      for (int i = 0; i < 8; ++i) {
+        const int col = min(n0, K - BN) + 8 * i + 2 * (lane % 4);
+        b_i[i] = *reinterpret_cast<const __nv_bfloat162*>(bi + col);
+        b_g[i] = *reinterpret_cast<const __nv_bfloat162*>(bg + col);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) accH[i] = accG[i] = accD[i] = 0.f;
+      sm90::fence_regs(accH);
+      sm90::fence_regs(accG);
+      sm90::fence_regs(accD);
+      for (int kb = 0; kb < nk; ++kb) {
+        sm90::bar_wait(full + 8 * s, phase);
+        const uint32_t st = base + s * STAGE;
+        const uint32_t w = st + 2 * TILE_X;
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < BK / 16; ++k) {
+          const uint64_t dx = sm90::desc_k(st + wg * (64 * 128), k);
+          const uint64_t dd = sm90::desc_k(st + TILE_X + wg * (64 * 128), k);
+          sm90::wgmma<1>(accH, dx, sm90::desc_mn(w, k));
+          sm90::wgmma<1>(accG, dx, sm90::desc_mn(w + BOX, k));
+          sm90::wgmma<0>(accD, dd, sm90::desc_k(w + 2 * BOX, k));
+        }
+        sm90::wgmma_commit();
+        // the stage is read: release it to both blocks' producers
+        sm90::wgmma_wait<0>();
+        if (lane == 0)
+          for (int r = 0; r < CLUSTER; ++r)
+            sm90::bar_arrive_at(empty + 8 * s, r);
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+      sm90::fence_regs(accH);
+      sm90::fence_regs(accG);
+      sm90::fence_regs(accD);
+
+      // epilogue from the registers into the warpgroup's staged dh, dg
+      // and hg boxes (once their previous stores have read them), then
+      // three TMA stores that run on while the next tile's products start
+      if (tw == 0) sm90::store_wait<1>();
+      sm90::wg_sync(1 + wg);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 8 * i + 2 * (lane % 4);
+        const float2 fi = __bfloat1622float2(b_i[i]);
+        const float2 fg = __bfloat1622float2(b_g[i]);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float dh[2], dg[2], hg[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // the formulas of geglu_kernels._gelu / _gelu_grad, same order
+            const int j = 4 * i + 2 * half + e;
+            const float h = accH[j] + (e ? fi.y : fi.x);
+            const float g = accG[j] + (e ? fg.y : fg.x);
+            const float dhg = accD[j];
+            const float u = SQRT_2_OVER_PI * (g + GELU_C * g * g * g);
+            const float t = tanhf(u);
+            const float a = 0.5f * g * (1.0f + t);
+            const float du = SQRT_2_OVER_PI * (1.0f + GELU_3C * g * g);
+            const float da = 0.5f * (1.0f + t) + 0.5f * g * (1.0f - t * t) * du;
+            dh[e] = dhg * a;
+            dg[e] = dhg * h * da;
+            hg[e] = h * a;
+          }
+          const int r = row + 8 * half;
+          sm90::stage_pair(my_out, r, col, dh[0], dh[1]);
+          sm90::stage_pair(my_out + BOX, r, col, dg[0], dg[1]);
+          sm90::stage_pair(my_out + 2 * BOX, r, col, hg[0], hg[1]);
+        }
+      }
+      sm90::fence_async_smem();
+      sm90::wg_sync(1 + wg);
+      if (tw == 0 && m0 + 64 * wg < M && n0 < K) {
+        sm90::tma_store(&map_dh, my_out, n0, m0 + 64 * wg);
+        sm90::tma_store(&map_dg, my_out + BOX, n0, m0 + 64 * wg);
+        sm90::tma_store(&map_hg, my_out + 2 * BOX, n0, m0 + 64 * wg);
+        sm90::store_commit();
+      }
     }
-    const long long row = (long long)(m0 + r);
-    *reinterpret_cast<__nv_bfloat162*>(dHdG + row * 2 * K + n0 + c) =
-        __float22bfloat162_rn(make_float2(dh[0], dh[1]));
-    *reinterpret_cast<__nv_bfloat162*>(dHdG + row * 2 * K + K + n0 + c) =
-        __float22bfloat162_rn(make_float2(dg[0], dg[1]));
-    *reinterpret_cast<__nv_bfloat162*>(HG + row * K + n0 + c) =
-        __float22bfloat162_rn(make_float2(hg[0], hg[1]));
+    if (tw == 0) sm90::store_wait<0>();
   }
 }
 
@@ -219,20 +248,49 @@ extern "C" int geglu_bwd_tensors(const void* x, const void* wi,
                                  const void* bi, const void* bg,
                                  const void* dout, void* dhdg, void* hg,
                                  int M, int D, int K, void* stream) {
-  if (K % BN || D % BKD) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      geglu_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(K / BN, (M + BM - 1) / BM);
-  geglu_bwd_kernel<<<grid, THREADS, SMEM_BYTES,
+  if (K % BN || D % BK) return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  // dh and dg: the two (M, K) halves of the (M, 2K) buffer
+  bf16* dh = static_cast<bf16*>(dhdg);
+  CUtensorMap mx, mdo, mwi, mwg, mwo, mdh, mdg, mhg;
+  int err = sm90::make_map(&mx, x, M, D, BM / CLUSTER);
+  if (!err) err = sm90::make_map(&mdo, dout, M, D, BM / CLUSTER);
+  if (!err) err = sm90::make_map(&mwi, wi, D, K, BK);
+  if (!err) err = sm90::make_map(&mwg, wg, D, K, BK);
+  if (!err) err = sm90::make_map(&mwo, wo, K, D, BN);
+  if (!err) err = sm90::make_map(&mdh, dh, M, K, 64, 2 * K);
+  if (!err) err = sm90::make_map(&mdg, dh + K, M, K, 64, 2 * K);
+  if (!err) err = sm90::make_map(&mhg, hg, M, K, 64);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      geglu_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // one cluster for each group of tiles, at most as many as fit at once
+  static int clusters = 0;
+  if (clusters == 0) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CLUSTER * 1024);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = SMEM;
+    e = cudaOccupancyMaxActiveClusters(&clusters, (void*)geglu_bwd_kernel,
+                                       &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int tiles =
+      ((M + BM - 1) / BM) * ((K / BN + CLUSTER - 1) / CLUSTER);
+  const int grid = CLUSTER * (clusters < tiles ? clusters : tiles);
+  geglu_bwd_kernel<<<grid, THREADS, SMEM,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wi),
-      static_cast<const bf16*>(wg), static_cast<const bf16*>(wo),
-      static_cast<const bf16*>(bi), static_cast<const bf16*>(bg),
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dhdg),
-      static_cast<bf16*>(hg), M, D, K);
+      mx, mdo, mwi, mwg, mwo, mdh, mdg, mhg, static_cast<const bf16*>(bi),
+      static_cast<const bf16*>(bg), M, D, K);
   return (int)cudaGetLastError();
+}
+
+// out[4]: registers, static and dynamic shared memory (bytes a block),
+// local bytes a thread of the kernel.
+extern "C" int geglu_bwd_resources(int* out) {
+  return sm90::resources((const void*)geglu_bwd_kernel, SMEM, out);
 }
 
 extern "C" const char* geglu_bwd_error(int err) {

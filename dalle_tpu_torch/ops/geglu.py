@@ -13,6 +13,12 @@ Replaces the TPU kernels of ``dalle_tpu/ops/pallas/geglu_kernels.py``:
   activation dtype, ``dh = dhg * gelu(g)``, ``dg = dhg * h * gelu'(g)`` and
   ``hg = h * gelu(g)`` (``csrc/geglu_bwd.cu``, one triple-GEMM kernel).
 
+Both sources are persistent, warp-specialised Hopper GEMMs built from
+``csrc/gemm_sm90.cuh``: TMA loads into a shared-memory ring, ``wgmma``
+products with register accumulators, and the epilogues straight from
+those registers. The C entry points build their TMA tensor maps from the
+pointers and shapes on every call (no cache).
+
 :class:`GEGLUFn` is the ``custom_vjp`` of ``geglu_kernels.geglu_ff``: it
 saves ``x`` and the weights, and its backward runs the tensors kernel and
 then the contractions the JAX package leaves to XLA (``dx``, ``dWi``,
@@ -72,11 +78,14 @@ def geglu_ff_bwd_plain(x, wi, wg, wo, bi, bg, dout):
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_IP = ctypes.POINTER(_I)
 # argument types of each library's entry points (pointers, ints, stream)
 _SIGNATURES = {
     "geglu_fwd": {"geglu_gate_fwd": [_P] * 6 + [_I] * 3 + [_P],
-                  "geglu_out_fwd": [_P] * 4 + [_I] * 3 + [_P]},
-    "geglu_bwd": {"geglu_bwd_tensors": [_P] * 9 + [_I] * 3 + [_P]},
+                  "geglu_out_fwd": [_P] * 4 + [_I] * 3 + [_P],
+                  "geglu_fwd_resources": [_I, _IP]},
+    "geglu_bwd": {"geglu_bwd_tensors": [_P] * 9 + [_I] * 3 + [_P],
+                  "geglu_bwd_resources": [_IP]},
 }
 
 
@@ -91,6 +100,26 @@ def _lib(name: str):
         err.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def kernel_resources() -> dict:
+    """Registers, static and dynamic shared memory (bytes a block) and local
+    (spill) bytes a thread of the three GEGLU kernels, keyed like
+    ``geglu_fwd_kernel<1>`` (1: the gate GEMM, 0: the output GEMM) and
+    ``geglu_bwd_kernel``, as the CUDA runtime reports them. Builds and loads
+    both libraries; needs a GPU."""
+    keys = ("registers", "smem_static", "smem_dynamic", "local_bytes")
+    fwd = _lib("geglu_fwd").geglu_fwd_resources
+    bwd = _lib("geglu_bwd").geglu_bwd_resources
+    calls = [(f"geglu_fwd_kernel<{gate}>", lambda buf, g=gate: fwd(g, buf))
+             for gate in (1, 0)] + [("geglu_bwd_kernel", bwd)]
+    out = {}
+    for name, call in calls:
+        buf = (_I * 4)()
+        if call(buf) != 0:
+            raise RuntimeError(f"{name}: cudaFuncGetAttributes failed")
+        out[name] = dict(zip(keys, buf))
+    return out
 
 
 def _check(lib, name: str, err: int, what: str) -> None:

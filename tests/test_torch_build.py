@@ -22,7 +22,8 @@ def test_target_is_the_checkout_name_for_the_same_files(tmp_path):
     csrc = _copy(tmp_path)
     assert _names(csrc) == {n: _build._target(n).name
                             for n in _build.sources()}
-    assert {p.name for p in csrc.glob("*.cuh")} >= {"attention_common.cuh"}
+    assert {p.name for p in csrc.glob("*.cuh")} >= {"attention_common.cuh",
+                                                    "gemm_sm90.cuh"}
 
 
 def test_editing_a_header_changes_every_target(tmp_path):
@@ -42,3 +43,13 @@ def test_editing_a_source_changes_its_target_only(tmp_path):
     src.write_text(src.read_text() + "\n// edited\n")
     after = _names(csrc)
     assert {n for n in before if after[n] != before[n]} == {"attention_fwd"}
+
+
+def test_editing_the_gemm_header_rebuilds_both_geglu_sources(tmp_path):
+    csrc = _copy(tmp_path)
+    before = _names(csrc)
+    header = csrc / "gemm_sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = _names(csrc)
+    assert after["geglu_fwd"] != before["geglu_fwd"]
+    assert after["geglu_bwd"] != before["geglu_bwd"]

@@ -13,8 +13,8 @@ output 2^-6, since its hg intermediate is rounded to bf16 in both before a
 4096-term sum); the f32 logsumexp 1e-5; the LayerNorm backward's f32
 parameter sums 1e-4 (sums over 512 rows in another order). Every backward
 kernel also runs twice on the same inputs and must give identical bits (no
-atomics, fixed reduction orders). The three quantizers' codes and scales
-must equal their plain versions' exactly.
+atomics, fixed reduction orders), and so must the GEGLU forward. The three
+quantizers' codes and scales must equal their plain versions' exactly.
 """
 
 import pytest
@@ -80,6 +80,48 @@ def test_cuda_geglu_kernel(cuda_device):
     got = geglu_ff(*ops)
     torch.testing.assert_close(got.float(), geglu_ff_plain(*ops).float(),
                                rtol=2 ** -6, atol=2 ** -6)
+
+
+# The flagship's shape and the edges of the GEGLU kernels' tiles: M not a
+# multiple of the 128-row tile, K a multiple of 64 but not of the forward's
+# 128-column tile (and an odd number of the backward's 64-column tiles),
+# d = 64 (one k-block of depth 64), and a single row with one column tile.
+GEGLU_SHAPES = [(5120, 1024, 4096), (1000, 1024, 4096), (384, 256, 320),
+                (200, 64, 256), (1, 64, 64), (64, 128, 192)]
+
+
+def _geglu_operands(m, d, k, device, seed):
+    """x, Wi, Wg, Wo, bi, bg, bo and a cotangent dO, scaled as the model's
+    initialisation scales them (weights by 1/sqrt(fan-in))."""
+    shapes = [((m, d), 1.0), ((d, k), d ** -0.5), ((d, k), d ** -0.5),
+              ((k, d), k ** -0.5), ((k,), 0.1), ((k,), 0.1), ((d,), 0.1),
+              ((m, d), 1.0)]
+    return [_bf16(s, seed + i, device, sc) for i, (s, sc) in enumerate(shapes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,k", GEGLU_SHAPES)
+def test_cuda_geglu_kernel_shapes(cuda_device, m, d, k):
+    *ops, _ = _geglu_operands(m, d, k, cuda_device, 50)
+    reset_launches()
+    got, again = geglu_ff(*ops), geglu_ff(*ops)
+    assert LAUNCHES["geglu_ff"] == 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), geglu_ff_plain(*ops).float(),
+                               rtol=2 ** -6, atol=2 ** -6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,k", GEGLU_SHAPES)
+def test_cuda_geglu_bwd_kernel_shapes(cuda_device, m, d, k):
+    x, wi, wg, wo, bi, bg, _, dout = _geglu_operands(m, d, k, cuda_device, 60)
+    reset_launches()
+    got = _same_twice(geglu_ff_bwd, x, wi, wg, wo, bi, bg, dout)
+    assert LAUNCHES["geglu_ff_bwd"] == 2
+    want = geglu_ff_bwd_plain(x, wi, wg, wo, bi, bg, dout)
+    for name, a, w in zip(("dh|dg", "hg"), got, want):
+        assert a.shape == w.shape, name
+        torch.testing.assert_close(a.float(), w.float(), msg=name, **BF16)
 
 
 @pytest.mark.cuda
