@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship inference and training paths, the
-8-bit LAMB and a swarm round's device codec on one NVIDIA GPU.
+8-bit LAMB, a swarm round's device codec and the generic kernel route on
+one NVIDIA GPU.
 
     python3 chip_smoke.py [--out RECORDS.json] [--profile TABLE.txt]
 
@@ -9,7 +10,7 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
 
 1. the card (``nvidia-smi`` name and power limit) and the build of the
    CUDA kernels from ``dalle_tpu_torch/csrc`` (one ``nvcc`` per source, all
-   started together; the Triton LayerNorm kernels compile at first call);
+   started together; the Triton LayerNorm forward compiles at first call);
 2. each of the four forward kernels against its plain PyTorch version on
    the card, at the flagship shapes in bf16, with kernel, plain and library
    times (CUDA events, inputs rotated through more than the 50 MB L2) and
@@ -24,6 +25,8 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
 3. the flagship forward loss at B=4 through ``dalle_tpu_torch.entry`` with
    seeded random weights, with every kernel's launch count from that run
    (129 LayerNorm / 127 line / 1 window / 15 GEGLU) and its peak memory;
+   every flagship phase (2-9) must run no generic-route kernel
+   (``ops.GENERIC_LAUNCHES`` stays 0);
 4. teacher-forced cached decode of one sequence against the forward's
    logits on the card;
 5. ``generate_images`` for 2 captions x 2 images (temperature 1, top-k 64);
@@ -52,7 +55,19 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    ``encode_part``; every wire chunk byte-identical to the host codec's,
    the device decodes, the fused accumulation of three senders and one
    error-feedback round bitwise equal to the host arithmetic;
-10. the ``kernels`` line (all eleven kernels).
+10. the generic route (the kernels for f32 operands and the head dims and
+   widths the fast kernels do not take): every generic attention instance
+   (dtype x head_dim) against its plain version, forward and backward twice
+   bitwise, then each of the six generic wrappers timed at the flagship's
+   widths in f32 (``flagship_model_config(dtype="float32")``'s shapes) with
+   bound and library yardstick, and the GEGLU instances in bf16 at widths
+   that are multiples of 8 only; then the tiny model
+   (``tiny_model_config`` with every attention type, fused LayerNorm and
+   GEGLU, f32, head_dim 16) through its forward and one ``grad_step`` on
+   the card against the same weights on the CPU (loss, logits, every
+   gradient within ``TINY_TOL``), counting the generic launches of that run;
+11. the ``kernels`` line (the eleven ported kernels and the six generic
+   instances).
 
 With ``--profile``, one flagship forward and one training micro-batch are
 traced with ``torch.profiler`` and split by kernel class.
@@ -75,6 +90,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor cores
 F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
 BF16_TOL = 2 ** -6             # rtol = atol for bf16 outputs (see phase 2)
+F32_TOL = 1e-4                 # rtol = atol for f32 outputs of the generic
+                               # kernels at flagship widths: sums of up to
+                               # 4096 products in another order than the
+                               # plain version's cuBLAS/PyTorch reductions
+TINY_TOL = 2e-4                # the tiny model on the card vs the CPU (the
+                               # tolerance the CPU tests hold it to JAX with)
 LSE_TOL = 1e-4                 # f32 logsumexp
 SUM_TOL = 1e-4                 # f32 sums over 5120 rows (LN dscale/dbias)
 ARGMAX_AGREE = 0.9             # cached decode vs forward, share of positions
@@ -117,12 +138,13 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
 
 
 KERNEL_CLASSES = (
+    ("_generic", "generic attention and GEGLU instances"),
     ("attn_fwd_kernel", "attention kernel, forward"),
     ("attn_bwd_", "attention kernels, backward (dq pass, dk/dv pass, "
                   "prefix dk/dv pass)"),
     ("geglu_bwd_kernel", "GEGLU backward kernel"),
     ("geglu_fwd_kernel", "GEGLU forward kernels"),
-    ("_ln_bwd", "LayerNorm backward kernels (row pass, partial sum)"),
+    ("ln_bwd_", "LayerNorm backward kernels (row pass, partial sum)"),
     ("_ln_fwd", "LayerNorm forward kernel"),
 )
 CUBLAS_MARKS = ("nvjet", "xmma", "gemm", "cutlass")
@@ -243,19 +265,28 @@ def main() -> int:
               "runs only on an NVIDIA GPU", file=sys.stderr)
         return 2
 
+    import copy
+
     import numpy as np
     import torch.nn.functional as F
 
     from dalle_tpu_torch import resolve_device
-    from dalle_tpu_torch.config import OptimizerConfig, flagship_model_config
+    from dalle_tpu_torch.config import (OptimizerConfig,
+                                        flagship_model_config,
+                                        tiny_model_config)
     from dalle_tpu_torch.entry import entry, train_entry
     from dalle_tpu_torch.models.attention import zoo_attention_mask
+    from dalle_tpu_torch.models.dalle import init_params
     from dalle_tpu_torch.models.decode import (SamplingConfig, decode_step,
                                                decode_tables,
                                                generate_images, init_cache)
     from dalle_tpu_torch.models.transformer import wrapper_calls
-    from dalle_tpu_torch.ops import LAUNCHES, _build, reset_launches
-    from dalle_tpu_torch.ops.attention import (BWD_PASSES, kernel_resources,
+    from dalle_tpu_torch.ops import (GENERIC_LAUNCHES, LAUNCHES, _build,
+                                     reset_launches)
+    from dalle_tpu_torch.ops.attention import (BWD_PASSES,
+                                               GENERIC_HEAD_DIMS,
+                                               attention_route,
+                                               kernel_resources,
                                                line_attention,
                                                line_attention_bwd,
                                                line_attention_bwd_plain,
@@ -360,6 +391,13 @@ def main() -> int:
         torch.cuda.synchronize()
         torch._C._cuda_clearCublasWorkspaces()
         torch.cuda.empty_cache()
+
+    def assert_no_generic(where):
+        """The flagship runs only the fast kernels: no call since the last
+        reset took the generic route."""
+        if any(GENERIC_LAUNCHES.values()):
+            raise AssertionError(f"{where}: generic-route launches "
+                                 f"{dict(GENERIC_LAUNCHES)} on the flagship")
 
     def twice(name, kernel_fn, *args):
         """The kernel's outputs; a second run must give the same bits."""
@@ -555,6 +593,7 @@ def main() -> int:
     image = torch.from_numpy(rng.integers(
         0, cfg.vocab_image, (B, cfg.image_seq_len))).to(dev)
     torch.cuda.synchronize()
+    assert_no_generic("phase 2, the forward kernel checks")
     reset_launches()
     loss = fn(model, text, image)
     torch.cuda.synchronize()
@@ -673,6 +712,45 @@ def main() -> int:
                           if lib_fn is not None else None)
         return rec
 
+    # one axial layer's and one window call's forward and backward, as the
+    # model makes them (any dtype)
+    def line_fwd(q, k, v, col):
+        (qt, kt, vt), (qi, ki, vi) = split(q, k, v)
+        return (line_attention(qt, kt, vt, None, None, TT, 0, False),
+                line_attention(qi, ki, vi, kt, vt, G, G, col))
+
+    def line_bwd_layer(q, k, v, do, fo, col=False, fn=line_attention_bwd):
+        """One axial layer's backward: the text call and the image call
+        (whose prefix gradients autograd adds to the text k/v)."""
+        (qt, kt, vt), (qi, ki, vi) = split(q, k, v)
+        (ot, lt), (oi, li) = fo
+        gt = fn(qt, kt, vt, None, None, ot, lt, do[:, :, :TT], TT, 0, False)
+        gi = fn(qi, ki, vi, kt, vt, oi, li, do[:, :, TT:], G, G, col)
+        return gt[:3] + gi
+
+    def win_fwd(q, k, v):
+        (_, kt, vt), (qi, ki, vi) = split(q, k, v)
+        return window_attention(qi, ki, vi, kt, vt, G, hw)
+
+    def win_bwd(q, k, v, do, fo, fn=window_attention_bwd):
+        (_, kt, vt), (qi, ki, vi) = split(q, k, v)
+        return fn(qi, ki, vi, kt, vt, *fo, do[:, :, TT:], G, hw)
+
+    def sdpa_graph(q, k, v, do, mask, image_queries=False):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        qq = leaves[0][:, :, TT:] if image_queries else leaves[0]
+        out = F.scaled_dot_product_attention(qq, leaves[1], leaves[2],
+                                             attn_mask=mask)
+        return out, leaves, do[:, :, TT:] if image_queries else do
+
+    def att_bytes(t, s, es=2):
+        """Bytes of one attention backward call over t queries with an
+        s-token prefix, es-byte operands: q, k, v, O, dO and the f32 lse
+        read, dq, dk, dv written; the prefix read and its gradients
+        written."""
+        return (5 * B * H * t * Dh * es + B * H * t * 4
+                + 3 * B * H * t * Dh * es + 2 * B * H * s * Dh * es)
+
     def check_backward_kernels():
         recs = {}
         # LayerNorm backward: scale in bf16, as the hoisted cast gives it
@@ -693,13 +771,13 @@ def main() -> int:
 
         lib_sets = [ln_graph(*st) for st in sets]
         recs["layer_norm_bwd"] = backward_record(
-            "layer_norm_bwd", "triton", "dalle_tpu_torch/ops/layer_norm.py",
+            "layer_norm_bwd", "cuda", "dalle_tpu_torch/csrc/layer_norm_bwd.cu",
             "dalle_tpu/ops/pallas/ln_kernels.py:94", layer_norm_bwd,
             layer_norm_bwd_plain, sets, autograd_retained, lib_sets,
             3 * M * D * 2 + D * 2 + 2 * D * 4, 16 * M * D, F32_FLOP_PER_S,
             errs, f"rtol=atol={BF16_TOL} (bf16 dx), {SUM_TOL} (f32 sums)",
             f"x, dy ({M}, {D}) bf16, scale ({D},) bf16; two launches per "
-            "call (row pass, partial sum)")
+            "call (the persistent row pass, the partial sum over blocks)")
         del sets, lib_sets, got, want
 
         # GEGLU backward tensors
@@ -745,22 +823,6 @@ def main() -> int:
                            for _ in range(4))
             return q, k, v, do
 
-        def line_fwd(q, k, v, col):
-            (qt, kt, vt), (qi, ki, vi) = split(q, k, v)
-            return (line_attention(qt, kt, vt, None, None, TT, 0, False),
-                    line_attention(qi, ki, vi, kt, vt, G, G, col))
-
-        def line_bwd_layer(q, k, v, do, fo, col=False,
-                           fn=line_attention_bwd):
-            """One axial layer's backward: the text call and the image
-            call (whose prefix gradients autograd adds to the text k/v)."""
-            (qt, kt, vt), (qi, ki, vi) = split(q, k, v)
-            (ot, lt), (oi, li) = fo
-            gt = fn(qt, kt, vt, None, None, ot, lt, do[:, :, :TT], TT, 0,
-                    False)
-            gi = fn(qi, ki, vi, kt, vt, oi, li, do[:, :, TT:], G, G, col)
-            return gt[:3] + gi
-
         sets = []
         for _ in range(3):
             q, k, v, do = att_set()
@@ -779,19 +841,7 @@ def main() -> int:
                                          "dk_i", "dv_i", "dkp", "dvp"),
                                         got, want)]
 
-        def sdpa_graph(q, k, v, do, mask, image_queries=False):
-            leaves = [x.detach().clone().requires_grad_(True)
-                      for x in (q, k, v)]
-            qq = leaves[0][:, :, TT:] if image_queries else leaves[0]
-            out = F.scaled_dot_product_attention(qq, leaves[1], leaves[2],
-                                                 attn_mask=mask)
-            return out, leaves, do[:, :, TT:] if image_queries else do
-
         lib_sets = [sdpa_graph(*st[:4], row_mask) for st in sets]
-        att_bytes = lambda t, s: (5 * B * H * t * Dh * 2  # noqa: E731
-                                  + B * H * t * 4
-                                  + 3 * B * H * t * Dh * 2
-                                  + 2 * B * H * s * Dh * 2)
         # the image call reads the text k/v (counted with the text call)
         # and writes their prefix gradients
         recs["line_attention_bwd"] = backward_record(
@@ -828,14 +878,6 @@ def main() -> int:
 
         passes("line_attention_bwd", line_bwd_layer, sets[0], 0)
 
-        def win_fwd(q, k, v):
-            (_, kt, vt), (qi, ki, vi) = split(q, k, v)
-            return window_attention(qi, ki, vi, kt, vt, G, hw)
-
-        def win_bwd(q, k, v, do, fo, fn=window_attention_bwd):
-            (_, kt, vt), (qi, ki, vi) = split(q, k, v)
-            return fn(qi, ki, vi, kt, vt, *fo, do[:, :, TT:], G, hw)
-
         sets = [(q, k, v, do, win_fwd(q, k, v)) for q, k, v, do, _ in sets]
         got = twice("window_attention_bwd", win_bwd, *sets[0])
         want = win_bwd(*sets[0], fn=window_attention_bwd_plain)
@@ -864,6 +906,276 @@ def main() -> int:
     def autograd_retained(out, leaves, do):
         return torch.autograd.grad(out, leaves, do, retain_graph=True)
 
+    def check_generic_route():
+        """Phase 10: every generic attention instance against its plain
+        version; the six generic wrappers at the flagship's widths in f32,
+        timed; the GEGLU instances in bf16 at widths that are multiples of
+        8 only; then the tiny model's forward and ``grad_step`` on the card
+        against the CPU, whose generic launches the records report."""
+        f32 = torch.float32
+        tolerance = {f32: F32_TOL, bf: BF16_TOL}
+        attn_src = "dalle_tpu_torch/csrc/attention_generic.cu"
+        ff_src = "dalle_tpu_torch/csrc/geglu_generic.cu"
+
+        def rand(dtype, *shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=dev)
+                    * scale).to(dtype)
+
+        # (a) each (dtype, head_dim) instance: a text call, an axial_col
+        # call with a prefix and a conv window call, forward and backward
+        bq, hq, gq, tq = 2, 2, 8, 32
+        instances = []
+        for dtype in (f32, bf):
+            for hd in GENERIC_HEAD_DIMS:
+                if attention_route(dtype, hd) != "generic":
+                    continue
+                q, k, v, do = (rand(dtype, bq, tq + gq * gq, hq, hd)
+                               .transpose(1, 2) for _ in range(4))
+                t_ops = [x[:, :, :tq] for x in (q, k, v, do)]
+                i_ops = [x[:, :, tq:] for x in (q, k, v, do)]
+                calls = (
+                    ("line text", line_attention, line_attention_bwd,
+                     line_attention_plain, line_attention_bwd_plain,
+                     (*t_ops[:3], None, None), t_ops[3], (tq, 0, False)),
+                    ("line axial_col", line_attention, line_attention_bwd,
+                     line_attention_plain, line_attention_bwd_plain,
+                     (*i_ops[:3], *t_ops[1:3]), i_ops[3], (gq, gq, True)),
+                    ("window conv_like", window_attention,
+                     window_attention_bwd, window_attention_plain,
+                     window_attention_bwd_plain, (*i_ops[:3], *t_ops[1:3]),
+                     i_ops[3], (gq, 1)))
+                errs = []
+                for what, fwd, bwd, pfwd, pbwd, ops, dout, extra in calls:
+                    what = f"generic {what} {dtype} head_dim {hd}"
+                    out, lse = fwd(*ops, *extra)
+                    want = pfwd(*ops, *extra)
+                    errs.append(compare(f"{what} out", out, want[0],
+                                        tolerance[dtype]))
+                    compare(f"{what} lse", lse, want[1], LSE_TOL)
+                    got = twice(f"{what} backward", bwd, *ops, out, lse,
+                                dout, *extra)
+                    want = pbwd(*ops, out, lse, dout, *extra)
+                    errs += [compare(f"{what} {n}", a, w, tolerance[dtype])
+                             for n, a, w in zip(("dq", "dk", "dv", "dkp",
+                                                 "dvp"), got, want)
+                             if a is not None]
+                instances.append(dict(dtype=str(dtype), head_dim=hd,
+                                      max_abs_err=max(errs)))
+        emit(phase="generic_attention_instances", instances=instances,
+             shape=f"B={bq}, H={hq}, text {tq}, grid {gq}; text call, "
+                   "axial_col call with the text prefix, conv_like hw=1 "
+                   "call with the text prefix; backward twice, bitwise")
+
+        # (b) the six wrappers at the flagship's widths in f32, timed
+        recs = {}
+        sets = []
+        for _ in range(2):
+            q, k, v, do = (rand(f32, B, T, H, Dh).transpose(1, 2)
+                           for _ in range(4))
+            sets.append((q, k, v, do))
+        shape_f32 = (f"f32 at the flagship's widths: text ({B},{H},{TT},"
+                     f"{Dh}) + image ({B},{H},{G * G},{Dh}) with a "
+                     f"{TT}-token prefix, strided (B,T,H,d) views")
+        fwd_bytes = lambda t, s: (4 * B * H * t * Dh * 4  # noqa: E731
+                                  + 2 * B * H * s * Dh * 4 + B * H * t * 4)
+
+        def fwd_record(name, replaces, fn, plain, lib, nbytes, pairs_,
+                       errs, shape):
+            bms, by = bound(nbytes, 4 * Dh * B * H * pairs_, F32_FLOP_PER_S)
+            return dict(name=name, route="cuda", source=attn_src,
+                        replaces=replaces, max_abs_err=max(errs),
+                        tolerance=f"rtol=atol={F32_TOL} (f32 out), "
+                                  f"{LSE_TOL} (f32 lse)",
+                        **times(fn, plain, lib, [st[:3] for st in sets],
+                                iters=10),
+                        bound_ms=bms, bound_by=by, shape=shape)
+
+        q, k, v, do = sets[0]
+        got = line_layer(q, k, v)
+        want = line_layer(q, k, v, fn=line_attention_plain)
+        errs = [compare("generic line_attention out", got[i], want[i],
+                        F32_TOL) for i in (0, 2)]
+        for i in (1, 3):
+            compare("generic line_attention lse", got[i], want[i], LSE_TOL)
+        recs["line_attention_generic"] = fwd_record(
+            "line_attention_generic",
+            "dalle_tpu/ops/pallas/attention_kernels.py:227", line_layer,
+            lambda *a: line_layer(*a, fn=line_attention_plain), sdpa_layer,
+            fwd_bytes(TT, 0) + fwd_bytes(G * G, 0), text_pairs + row_pairs,
+            errs, "one axial_row layer, " + shape_f32)
+        got, want = (window_call(q, k, v),
+                     window_call(q, k, v, fn=window_attention_plain))
+        errs = [compare("generic window_attention out", got[0], want[0],
+                        F32_TOL)]
+        compare("generic window_attention lse", got[1], want[1], LSE_TOL)
+        recs["window_attention_generic"] = fwd_record(
+            "window_attention_generic",
+            "dalle_tpu/ops/pallas/attention_kernels.py:518", window_call,
+            lambda *a: window_call(*a, fn=window_attention_plain),
+            sdpa_window, fwd_bytes(G * G, TT), win_pairs, errs,
+            f"conv_like hw={hw}, image queries, " + shape_f32)
+
+        bsets = [(q, k, v, do, line_fwd(q, k, v, False))
+                 for q, k, v, do in sets]
+        got = twice("generic line_attention_bwd", line_bwd_layer, *bsets[0])
+        want = line_bwd_layer(*bsets[0], fn=line_attention_bwd_plain)
+        errs = [compare(f"generic line_attention_bwd {i}", a, w, F32_TOL)
+                for i, (a, w) in enumerate(zip(got, want))]
+        lib_sets = [sdpa_graph(*st[:4], row_mask) for st in bsets]
+        recs["line_attention_bwd_generic"] = backward_record(
+            "line_attention_bwd_generic", "cuda", attn_src,
+            "dalle_tpu/ops/pallas/attention_kernels.py:259", line_bwd_layer,
+            lambda *a: line_bwd_layer(*a, fn=line_attention_bwd_plain),
+            bsets, autograd_retained, lib_sets,
+            att_bytes(TT, 0, 4) + att_bytes(G * G, TT, 4),
+            10 * Dh * B * H * (text_pairs + row_pairs), F32_FLOP_PER_S, errs,
+            f"rtol=atol={F32_TOL} (f32 gradients)",
+            "one axial_row layer, " + shape_f32 + "; per wrapper call a dq "
+            "pass, a dk/dv pass and with a prefix a prefix dk/dv pass",
+            iters=10)
+        del lib_sets
+        bsets = [(q, k, v, do, win_fwd(q, k, v)) for q, k, v, do in sets]
+        got = twice("generic window_attention_bwd", win_bwd, *bsets[0])
+        want = win_bwd(*bsets[0], fn=window_attention_bwd_plain)
+        errs = [compare(f"generic window_attention_bwd {i}", a, w, F32_TOL)
+                for i, (a, w) in enumerate(zip(got, want))]
+        lib_sets = [sdpa_graph(*st[:4], conv_rows, image_queries=True)
+                    for st in bsets]
+        recs["window_attention_bwd_generic"] = backward_record(
+            "window_attention_bwd_generic", "cuda", attn_src,
+            "dalle_tpu/ops/pallas/attention_kernels.py:548", win_bwd,
+            lambda *a: win_bwd(*a, fn=window_attention_bwd_plain), bsets,
+            autograd_retained, lib_sets,
+            att_bytes(G * G, TT, 4) + 2 * B * H * TT * Dh * 4,
+            10 * Dh * B * H * win_pairs, F32_FLOP_PER_S, errs,
+            f"rtol=atol={F32_TOL} (f32 gradients)",
+            f"conv_like hw={hw}, image queries, " + shape_f32, iters=10)
+        del lib_sets, bsets, sets
+
+        ff = [(rand(f32, M, D), rand(f32, D, K, scale=D ** -0.5),
+               rand(f32, D, K, scale=D ** -0.5),
+               rand(f32, K, D, scale=K ** -0.5), rand(f32, K, scale=0.1),
+               rand(f32, K, scale=0.1), rand(f32, D, scale=0.1),
+               rand(f32, M, D)) for _ in range(2)]
+        ff_shape = (f"x, dO ({M}, {D}), Wi/Wg ({D}, {K}), Wo ({K}, {D}) "
+                    "f32 (the flagship's widths)")
+        fwd_sets = [st[:7] for st in ff]
+        err = compare("generic geglu_ff", twice(
+            "generic geglu_ff", lambda *a: (geglu_ff(*a),),
+            *fwd_sets[0])[0], geglu_ff_plain(*fwd_sets[0]), F32_TOL)
+        bms, by = bound((2 * M * D + 3 * D * K + 2 * K + D) * 4,
+                        6 * M * D * K, F32_FLOP_PER_S)
+        recs["geglu_ff_generic"] = dict(
+            name="geglu_ff_generic", route="cuda", source=ff_src,
+            replaces="dalle_tpu/ops/pallas/geglu_kernels.py:126",
+            max_abs_err=err, tolerance=f"rtol=atol={F32_TOL} (f32 output)",
+            bitwise_reproducible=True,
+            **times(geglu_ff, geglu_ff_plain, None, fwd_sets, iters=5),
+            bound_ms=bms, bound_by=by,
+            shape=ff_shape + "; two launches per call (gate, output)")
+        bwd_sets = [st[:6] + st[7:] for st in ff]
+        got = twice("generic geglu_ff_bwd", geglu_ff_bwd, *bwd_sets[0])
+        want = geglu_ff_bwd_plain(*bwd_sets[0])
+        errs = [compare(f"generic geglu_ff_bwd {n}", a, w, F32_TOL)
+                for n, a, w in zip(("dh|dg", "hg"), got, want)]
+        recs["geglu_ff_bwd_generic"] = backward_record(
+            "geglu_ff_bwd_generic", "cuda", ff_src,
+            "dalle_tpu/ops/pallas/geglu_kernels.py:153", geglu_ff_bwd,
+            geglu_ff_bwd_plain, bwd_sets, None, None,
+            (2 * M * D + 3 * D * K + 2 * K + 3 * M * K) * 4,
+            3 * 2 * M * D * K, F32_FLOP_PER_S, errs,
+            f"rtol=atol={F32_TOL} (f32 outputs)", ff_shape, iters=5)
+        # the yardstick: cuBLAS's f32 products alone (TF32 off)
+        recs["geglu_ff_generic"]["cublas_ms"] = cuda_ms(
+            lambda x, w, h, wo: (torch.matmul(x, w), torch.matmul(h, wo)),
+            [(st[0], torch.cat([st[1], st[2]], dim=1), rand(f32, M, K),
+              st[3]) for st in ff], 5)[0]
+        recs["geglu_ff_bwd_generic"]["cublas_ms"] = cuda_ms(
+            lambda x, w, do, wo: (torch.matmul(x, w),
+                                  torch.matmul(do, wo.t())),
+            [(st[0], torch.cat([st[1], st[2]], dim=1), st[7], st[3])
+             for st in ff], 5)[0]
+        del ff, fwd_sets, bwd_sets, got, want
+        for rec in recs.values():
+            rec["tf32"] = torch.backends.cuda.matmul.allow_tf32
+            emit(phase="kernel_check", **rec)
+
+        # (c) the bf16 GEGLU instances at widths that are multiples of 8
+        mb_, db_, kb_ = 1000, 200, 808
+        ops = [rand(bf, *sh, scale=sc) for sh, sc in (
+            ((mb_, db_), 1.0), ((db_, kb_), db_ ** -0.5),
+            ((db_, kb_), db_ ** -0.5), ((kb_, db_), kb_ ** -0.5),
+            ((kb_,), 0.1), ((kb_,), 0.1), ((db_,), 0.1), ((mb_, db_), 1.0))]
+        errs = [compare("generic geglu_ff bf16", twice(
+            "generic geglu_ff bf16", lambda *a: (geglu_ff(*a),),
+            *ops[:7])[0], geglu_ff_plain(*ops[:7]), BF16_TOL)]
+        got = twice("generic geglu_ff_bwd bf16", geglu_ff_bwd,
+                    *ops[:6], ops[7])
+        errs += [compare(f"generic geglu_ff_bwd bf16 {n}", a, w, BF16_TOL)
+                 for n, a, w in zip(("dh|dg", "hg"), got, geglu_ff_bwd_plain(
+                     *ops[:6], ops[7]))]
+        emit(phase="generic_geglu_bf16", shape=f"M={mb_}, d={db_}, K={kb_}"
+             " bf16", max_abs_err=max(errs), tolerance=f"rtol=atol="
+             f"{BF16_TOL}", bitwise_reproducible=True)
+        del ops, got
+
+        # (d) the tiny model: forward and one grad_step on the card against
+        # the CPU; the generic launches of this run are the records'
+        tiny = dict(attn_types=("axial_row", "axial_col", "conv_like",
+                                "full"), conv_kernel=3, ln_fusion=True,
+                    ff_fusion="all")
+        tcfg = tiny_model_config(**tiny)
+        cpu_model = init_params(tcfg, torch.Generator().manual_seed(SEED))
+        trng = np.random.default_rng(SEED)
+        with torch.no_grad():   # nonzero biases and scales: a dropped term
+            for pname, prm in cpu_model.named_parameters():   # shows
+                if pname.endswith(("bias", "scale")):
+                    prm.add_(torch.from_numpy(0.05 * trng.standard_normal(
+                        prm.shape)).to(prm.dtype))
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        tbatch = {"text": torch.from_numpy(trng.integers(
+                      1, tcfg.vocab_text, (2, tcfg.text_seq_len))),
+                  "image": torch.from_numpy(trng.integers(
+                      0, tcfg.vocab_image, (2, tcfg.image_seq_len)))}
+        with torch.no_grad():
+            loss_c, _, logits_c = cpu_model(tbatch["text"], tbatch["image"],
+                                            return_logits=True)
+        gloss_c, _, grads_c = grad_step(cpu_model, tbatch)
+        dbatch = {key: val.to(dev) for key, val in tbatch.items()}
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss_g, _, logits_g = card_model(dbatch["text"], dbatch["image"],
+                                             return_logits=True)
+        gloss_g, _, grads_g = grad_step(card_model, dbatch)
+        torch.cuda.synchronize()
+        tiny_s = time.perf_counter() - t0
+        generic = dict(GENERIC_LAUNCHES)
+        launches = dict(LAUNCHES)
+        idle = sorted(key for key, n in generic.items() if n == 0)
+        if idle:
+            raise AssertionError(f"tiny model: generic kernels {idle} were "
+                                 f"not launched ({generic})")
+        errs = {"loss": compare("tiny forward loss", loss_g.cpu(), loss_c,
+                                TINY_TOL),
+                "logits": compare("tiny forward logits", logits_g.cpu(),
+                                  logits_c, TINY_TOL),
+                "grad_step loss": compare("tiny grad_step loss",
+                                          gloss_g.cpu(), gloss_c, TINY_TOL)}
+        errs["gradients"] = max(compare(f"tiny gradient {key}",
+                                        grads_g[key].cpu(), g, TINY_TOL)
+                                for key, g in grads_c.items())
+        emit(phase="generic_tiny_model", config=tiny,
+             widths=dict(dim=tcfg.dim, depth=tcfg.depth, heads=tcfg.heads,
+                         head_dim=tcfg.head_dim, dtype=tcfg.dtype),
+             loss_card=float(loss_g), loss_cpu=float(loss_c),
+             max_abs_err=errs, tolerance=f"rtol=atol={TINY_TOL}",
+             generic_launches=generic, launches=launches, seconds=tiny_s)
+        for name, rec in recs.items():
+            rec["launches"] = generic[name[:-len("_generic")]]
+        return recs
+
     bwd_kernels = check_backward_kernels()
     for rec in bwd_kernels.values():
         emit(phase="kernel_check", **rec)
@@ -882,6 +1194,7 @@ def main() -> int:
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         if i == 0:
+            assert_no_generic("the phases before this training run")
             reset_launches()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
@@ -1034,6 +1347,7 @@ def main() -> int:
     # -- 8b. flagship training steps with the 8-bit LAMB -------------------
     torch.cuda.reset_peak_memory_stats()
     mem_base = torch.cuda.memory_allocated()
+    assert_no_generic("phases 7-8a (fp32 training, quantizer checks)")
     reset_launches()
     step, (state, batch) = train_entry(device="cuda", micro=MICRO,
                                        accum=ACCUM, seed=SEED, state_bits=8)
@@ -1050,6 +1364,7 @@ def main() -> int:
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         if i == 0:
+            assert_no_generic("the phases before this training run")
             reset_launches()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
@@ -1120,6 +1435,7 @@ def main() -> int:
                      chunk_elems=CHUNK_ELEMS, flatten_s=flatten_s)
     for codec, name in ((U8, "wire_quantize_u8"), (U4, "wire_quantize_u4")):
         torch.cuda.synchronize()
+        assert_no_generic("phases 8b-9 (8-bit training, the codec)")
         reset_launches()
         t0 = time.perf_counter()
         encs = [device_codec.encode_part(flat, lo, hi, codec)
@@ -1205,7 +1521,12 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # -- 10. kernels line and the end ------------------------------------
+    # -- 10. the generic route ---------------------------------------------
+    assert_no_generic("phases 8b-9 (8-bit training, the codec)")
+    kernels.update(check_generic_route())
+    release_memory()
+
+    # -- 11. kernels line and the end ------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_line = {"kernels": [{k: rec[k] for k in keys}

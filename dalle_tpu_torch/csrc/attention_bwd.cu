@@ -86,32 +86,6 @@ static_assert(2 * BT * D * sizeof(float) <= 4 * TILE * sizeof(bf16),
 
 }  // namespace
 
-struct AttnBwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* kp;   // prefix keys (B, H, S, d) or null
-  const void* vp;
-  const void* o;    // forward output (B, H, T, d)
-  const void* dout;
-  const float* lse; // (B, H, 1, T) f32, contiguous, raster token order
-  float* dd;        // (B, H, T) f32 scratch, raster order: rowsum(dO . O)
-  void* dq;
-  void* dk;
-  void* dv;
-  void* dkp;        // (B, H, S, d) or null
-  void* dvp;
-  long long q_s[3], k_s[3], v_s[3], kp_s[3], vp_s[3], o_s[3], do_s[3];
-  long long dq_s[3], dk_s[3], dv_s[3], dkp_s[3], dvp_s[3];   // b, h, t
-  int B, H, T, S;
-  int policy;
-  int n;          // tokens per line (POLICY_LINE)
-  int grid;       // raster side (axial_col lines, conv windows)
-  int hw;         // conv half window (POLICY_CONV)
-  int transpose;  // POLICY_LINE: lines are raster columns
-  float scale;
-};
-
 template <typename T>
 __device__ __forceinline__ T* at(const void* p, const long long* s, int b,
                                  int h) {

@@ -1,11 +1,18 @@
-// Shared pieces of attention_fwd.cu and attention_bwd.cu: tile geometry,
-// the mask arithmetic of the three policies, cp.async loads into XOR-swizzled
-// shared-memory tiles, ldmatrix fragment loads and the bf16 mma.sync.
+// Shared pieces of attention_fwd.cu, attention_bwd.cu and
+// attention_generic.cu, in two sections.
 //
-// Tiles are 64 rows of d = 64 bf16 (128 bytes a row, eight 16-byte chunks).
-// Chunk c of row r sits at chunk c ^ (r & 7), so the eight row addresses of
-// an ldmatrix (eight rows, one chunk column) fall in eight different bank
-// groups and a cp.async of a whole row still writes 128 contiguous bytes.
+// The first assumes no tile shape, dtype or head dim: the argument structs
+// of the C entry points, the three key-range policies and their mask
+// arithmetic (Geo, raster_of, pos_of, step, allowed). attention_generic.cu
+// uses only this section.
+//
+// The second serves the fast kernels: tile geometry, cp.async loads into
+// XOR-swizzled shared-memory tiles, ldmatrix fragment loads and the bf16
+// mma.sync. Tiles are 64 rows of d = 64 bf16 (128 bytes a row, eight
+// 16-byte chunks). Chunk c of row r sits at chunk c ^ (r & 7), so the eight
+// row addresses of an ldmatrix (eight rows, one chunk column) fall in eight
+// different bank groups and a cp.async of a whole row still writes 128
+// contiguous bytes.
 //
 // Fragments follow mma.sync.m16n8k16 (bf16 in, f32 accumulate). For a lane
 // with g = lane / 4 and t = lane % 4, an accumulator c[4] of an n8 tile holds
@@ -25,20 +32,64 @@
 
 typedef __nv_bfloat16 bf16;
 
+// Arguments of the forward entry points (attention_fwd, attention_generic_fwd;
+// mirrored by ops/attention.py). Every tensor is (B, H, T, d) with element
+// strides for b, h, t and unit stride along d.
+struct AttnArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* kp;  // prefix keys (B, H, S, d) or null
+  const void* vp;
+  void* out;       // (B, H, T, d), q's dtype
+  float* lse;      // (B, H, 1, T) f32, contiguous, raster token order
+  long long q_s[3], k_s[3], v_s[3], kp_s[3], vp_s[3], o_s[3];  // b, h, t
+  int B, H, T, S;
+  int policy;
+  int n;          // tokens per line (POLICY_LINE)
+  int grid;       // raster side (axial_col lines, conv windows)
+  int hw;         // conv half window (POLICY_CONV)
+  int transpose;  // POLICY_LINE: lines are raster columns
+  float scale;
+};
+
+// Arguments of the backward entry points (attention_bwd,
+// attention_generic_bwd).
+struct AttnBwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* kp;   // prefix keys (B, H, S, d) or null
+  const void* vp;
+  const void* o;    // forward output (B, H, T, d)
+  const void* dout;
+  const float* lse; // (B, H, 1, T) f32, contiguous, raster token order
+  float* dd;        // (B, H, T) f32 scratch, raster order: rowsum(dO . O)
+  void* dq;
+  void* dk;
+  void* dv;
+  void* dkp;        // (B, H, S, d) or null
+  void* dvp;
+  long long q_s[3], k_s[3], v_s[3], kp_s[3], vp_s[3], o_s[3], do_s[3];
+  long long dq_s[3], dk_s[3], dv_s[3], dkp_s[3], dvp_s[3];   // b, h, t
+  int B, H, T, S;
+  int policy;
+  int n;          // tokens per line (POLICY_LINE)
+  int grid;       // raster side (axial_col lines, conv windows)
+  int hw;         // conv half window (POLICY_CONV)
+  int transpose;  // POLICY_LINE: lines are raster columns
+  float scale;
+};
+
 namespace attn {
 
-constexpr int D = 64;                 // head dim
-constexpr int BT = 64;                // rows of a tile (queries or keys)
-constexpr int THREADS = 128;          // 4 warps, 16 rows each
-constexpr int TILE = BT * D;          // bf16 elements of a tile
+// ---------------------------------------------------------------------------
+// policies and masks (any tile, dtype and head dim)
+// ---------------------------------------------------------------------------
+
 constexpr float NEG_FILL = -1e9f;     // masked scores (the TPU kernels' fill)
 
 enum { POLICY_LINE = 0, POLICY_CONV = 1, POLICY_FULL = 2 };
-
-// Element offset of (row, 16-byte chunk) in a swizzled [64][64] bf16 tile.
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * D + ((chunk ^ (row & 7)) << 3);
-}
 
 // The key-range geometry the masks need (from the argument structs).
 struct Geo {
@@ -98,6 +149,20 @@ __device__ __forceinline__ bool allowed(const Geo& g, const Pos& q,
     return dr <= g.hw && dr >= -g.hw && dc <= g.hw && dc >= -g.hw;
   }
   return true;
+}
+
+// ---------------------------------------------------------------------------
+// 64 x 64 bf16 tiles (the fast kernels)
+// ---------------------------------------------------------------------------
+
+constexpr int D = 64;                 // head dim
+constexpr int BT = 64;                // rows of a tile (queries or keys)
+constexpr int THREADS = 128;          // 4 warps, 16 rows each
+constexpr int TILE = BT * D;          // bf16 elements of a tile
+
+// Element offset of (row, 16-byte chunk) in a swizzled [64][64] bf16 tile.
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * D + ((chunk ^ (row & 7)) << 3);
 }
 
 // ---------------------------------------------------------------------------

@@ -52,24 +52,6 @@ constexpr size_t SMEM_BYTES = 5 * TILE * sizeof(bf16);  // Q, 2 x K, 2 x V
 
 }  // namespace
 
-struct AttnArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* kp;  // prefix keys (B, H, S, d) or null
-  const void* vp;
-  void* out;       // (B, H, T, d) bf16
-  float* lse;      // (B, H, 1, T) f32, contiguous, raster token order
-  long long q_s[3], k_s[3], v_s[3], kp_s[3], vp_s[3], o_s[3];  // b, h, t
-  int B, H, T, S;
-  int policy;
-  int n;          // tokens per line (POLICY_LINE)
-  int grid;       // raster side (axial_col lines, conv windows)
-  int hw;         // conv half window (POLICY_CONV)
-  int transpose;  // POLICY_LINE: lines are raster columns
-  float scale;
-};
-
 template <int POLICY>
 __global__ void __launch_bounds__(THREADS)
 attn_fwd_kernel(AttnArgs a) {

@@ -17,6 +17,13 @@ Replaces the TPU kernels of ``dalle_tpu/ops/pallas/attention_kernels.py``:
   pass over the main keys and, with a prefix, the prefix's dk/dv in
   4-block clusters; no atomics).
 
+On the card every call takes one of two routes, picked by
+:func:`attention_route` from q's dtype and head_dim before any launch: the
+fast kernels (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``: bf16
+with head_dim 64, the flagship's) or the generic instances
+(``csrc/attention_generic.cu``: bf16 or f32 with head_dim 16, 32, 64 or
+128, as the TPU kernels take any). Anything outside both raises.
+
 The forwards return ``(out, lse)``: ``out`` (B, H, T, d) in q's dtype and
 the row logsumexp ``lse`` (B, H, 1, T) f32 in raster token order (for
 axial_col the TPU kernel keeps its statistics in column-major order; the
@@ -51,11 +58,30 @@ from typing import Optional, Tuple
 
 import torch
 
-from dalle_tpu_torch.ops import LAUNCHES, _build
+from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, _build
 
 NEG_INF = -1e9
 POLICY_LINE, POLICY_CONV, POLICY_FULL = 0, 1, 2
-HEAD_DIM = 64  # the kernel's compiled head dim
+FAST_HEAD_DIM = 64                     # the fast kernels' compiled head dim
+GENERIC_HEAD_DIMS = (16, 32, 64, 128)  # csrc/attention_generic.cu's instances
+# operand dtypes of the generic instances (DTYPE_* of attention_generic.cu)
+GENERIC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The route of CUDA operands of ``dtype`` and ``head_dim``: ``"fast"``
+    (``csrc/attention_fwd.cu``/``attention_bwd.cu``: bf16 with head_dim
+    64) or ``"generic"`` (``csrc/attention_generic.cu``: bf16 or f32 with
+    head_dim 16, 32, 64 or 128). Raises ``ValueError`` naming the missing
+    instance for anything else."""
+    if dtype == torch.bfloat16 and head_dim == FAST_HEAD_DIM:
+        return "fast"
+    if dtype in GENERIC_DTYPES and head_dim in GENERIC_HEAD_DIMS:
+        return "generic"
+    raise ValueError(
+        f"attention: no kernel instance for {dtype} with head_dim "
+        f"{head_dim} (fast: bfloat16 with head_dim {FAST_HEAD_DIM}; generic: "
+        f"bfloat16 or float32 with head_dim in {GENERIC_HEAD_DIMS})")
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +241,7 @@ def window_attention_bwd_plain(q, k, v, kp, vp, out, lse, dout, grid: int,
 # ---------------------------------------------------------------------------
 
 class _AttnArgs(ctypes.Structure):
-    """Mirror of ``struct AttnArgs`` in ``csrc/attention_fwd.cu``."""
+    """Mirror of ``struct AttnArgs`` in ``csrc/attention_common.cuh``."""
 
     _fields_ = ([(name, ctypes.c_void_p)
                  for name in ("q", "k", "v", "kp", "vp", "out", "lse")]
@@ -228,7 +254,7 @@ class _AttnArgs(ctypes.Structure):
 
 
 class _AttnBwdArgs(ctypes.Structure):
-    """Mirror of ``struct AttnBwdArgs`` in ``csrc/attention_bwd.cu``."""
+    """Mirror of ``struct AttnBwdArgs`` in ``csrc/attention_common.cuh``."""
 
     _fields_ = ([(name, ctypes.c_void_p)
                  for name in ("q", "k", "v", "kp", "vp", "o", "dout", "lse",
@@ -243,14 +269,27 @@ class _AttnBwdArgs(ctypes.Structure):
                 + [("scale", ctypes.c_float)])
 
 
-def _lib(name: str, args_type):
+_P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+# argument types of each library's entry points
+_SIGNATURES = {
+    "attention_fwd": {"attention_fwd": [ctypes.POINTER(_AttnArgs), _P],
+                      "attention_fwd_resources": [_I, _IP]},
+    "attention_bwd": {"attention_bwd": [ctypes.POINTER(_AttnBwdArgs), _P],
+                      "attention_bwd_resources": [_I, _I, _IP]},
+    "attention_generic": {
+        "attention_generic_fwd": [ctypes.POINTER(_AttnArgs), _I, _I, _P],
+        "attention_generic_bwd": [ctypes.POINTER(_AttnBwdArgs), _I, _I, _P]},
+}
+
+
+def _lib(name: str):
     lib = _build.load(name)
     if not getattr(lib, "_typed", False):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(args_type), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
         err = getattr(lib, f"{name}_error")
-        err.argtypes = [ctypes.c_int]
+        err.argtypes = [_I]
         err.restype = ctypes.c_char_p
         lib._typed = True
     return lib
@@ -262,15 +301,12 @@ BWD_PASSES = ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
 
 def kernel_resources() -> dict:
     """Registers, static and dynamic shared memory (bytes a block) and local
-    (spill) bytes a thread of every attention kernel instance, keyed like
-    ``attn_fwd_kernel<0>`` (the template's policy number), as the CUDA
+    (spill) bytes a thread of every fast attention kernel instance, keyed
+    like ``attn_fwd_kernel<0>`` (the template's policy number), as the CUDA
     runtime reports them. Builds and loads both libraries; needs a GPU."""
     keys = ("registers", "smem_static", "smem_dynamic", "local_bytes")
-    fwd = _lib("attention_fwd", _AttnArgs).attention_fwd_resources
-    bwd = _lib("attention_bwd", _AttnBwdArgs).attention_bwd_resources
-    fwd.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    bwd.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fwd.restype = bwd.restype = ctypes.c_int
+    fwd = _lib("attention_fwd").attention_fwd_resources
+    bwd = _lib("attention_bwd").attention_bwd_resources
     out = {}
     for policy in (POLICY_LINE, POLICY_CONV, POLICY_FULL):
         calls = [("attn_fwd_kernel", lambda buf: fwd(policy, buf))] + [
@@ -285,51 +321,65 @@ def kernel_resources() -> dict:
     return out
 
 
-def _run(name: str, args_type, args, counter: str, device) -> None:
-    lib = _lib(name, args_type)
-    err = getattr(lib, name)(ctypes.byref(args),
-                             torch.cuda.current_stream(device).cuda_stream)
+def _run(direction: str, route: str, args, q, counter: str) -> None:
+    """Launches the ``direction`` ("fwd" or "bwd") entry point of ``route``
+    on the current stream, raises if the launch failed, and counts it."""
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "fast":
+        name = f"attention_{direction}"
+        lib = _lib(name)
+        err = getattr(lib, name)(ctypes.byref(args), stream)
+    else:
+        name = "attention_generic"
+        lib = _lib(name)
+        err = getattr(lib, f"{name}_{direction}")(
+            ctypes.byref(args), GENERIC_DTYPES[q.dtype], q.shape[-1], stream)
     if err != 0:
         msg = getattr(lib, f"{name}_error")(err).decode()
         raise RuntimeError(f"{counter}: launch failed: {msg}")
     LAUNCHES[counter] += 1
+    if route == "generic":
+        GENERIC_LAUNCHES[counter] += 1
 
 
 def _kernel_ready(x: torch.Tensor) -> bool:
-    """Whether ``x`` (B, H, T, d) has the strides the kernels take."""
+    """Whether ``x`` (B, H, T, d) has the strides the fast kernels take
+    (16-byte rows; the generic ones take any with unit stride along d)."""
     return (x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0)
 
 
-def _check_operand(name: str, x: torch.Tensor, shape, device) -> None:
+def _check_operand(name: str, x: torch.Tensor, shape, like: torch.Tensor,
+                   route: str) -> None:
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(x.shape)}")
-    if x.dtype != torch.bfloat16 or x.device != device:
-        raise ValueError(f"{name}: expected bf16 on {device}, got "
-                         f"{x.dtype} on {x.device}")
-    if not _kernel_ready(x):
+    if x.dtype != like.dtype or x.device != like.device:
+        raise ValueError(f"{name}: expected {like.dtype} on {like.device}, "
+                         f"got {x.dtype} on {x.device}")
+    if route == "fast" and not _kernel_ready(x):
         raise ValueError(f"{name}: rows must be 16-byte aligned with unit "
                          f"stride along d (strides {x.stride()})")
+    if x.stride(-1) != 1:
+        raise ValueError(f"{name}: needs unit stride along d (strides "
+                         f"{x.stride()})")
 
 
-def _check_operands(counter: str, q, k, v, kp, vp) -> int:
-    """Checks q/k/v (and the prefix) for the kernels; returns S (0 without
-    a prefix)."""
+def _check_operands(counter: str, q, k, v, kp, vp):
+    """Checks q/k/v (and the prefix) for the route their dtype and head_dim
+    take; returns ``(S, route)``, S = 0 without a prefix."""
     b, h, t, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"{counter}: the kernel takes head_dim "
-                         f"{HEAD_DIM}, got {d}")
+    route = attention_route(q.dtype, d)
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(f"{counter} {name}", x, (b, h, t, d), q.device)
+        _check_operand(f"{counter} {name}", x, (b, h, t, d), q, route)
     if (kp is None) != (vp is None):
         raise ValueError(f"{counter}: kp and vp come together")
     if kp is None:
-        return 0
+        return 0, route
     s = kp.shape[2]
     for name, x in (("kp", kp), ("vp", vp)):
-        _check_operand(f"{counter} {name}", x, (b, h, s, d), q.device)
-    return s
+        _check_operand(f"{counter} {name}", x, (b, h, s, d), q, route)
+    return s, route
 
 
 def _strides(x):
@@ -351,7 +401,7 @@ def _bthd(b, t, h, d, like):
 def _launch(counter: str, q, k, v, kp, vp, policy: int, n: int, grid: int,
             hw: int, transpose: bool):
     b, h, t, d = q.shape
-    s = _check_operands(counter, q, k, v, kp, vp)
+    s, route = _check_operands(counter, q, k, v, kp, vp)
     out = _bthd(b, t, h, d, q)
     lse = torch.empty((b, h, 1, t), dtype=torch.float32, device=q.device)
     args = _AttnArgs(
@@ -361,16 +411,16 @@ def _launch(counter: str, q, k, v, kp, vp, policy: int, n: int, grid: int,
         kp_s=_strides(kp), vp_s=_strides(vp), o_s=_strides(out), B=b, H=h,
         T=t, S=s, policy=policy, n=n, grid=grid, hw=hw,
         transpose=int(transpose), scale=d ** -0.5)
-    _run("attention_fwd", _AttnArgs, args, counter, q.device)
+    _run("fwd", route, args, q, counter)
     return out, lse
 
 
 def _launch_bwd(counter: str, q, k, v, kp, vp, out, lse, dout, policy: int,
                 n: int, grid: int, hw: int, transpose: bool):
     b, h, t, d = q.shape
-    s = _check_operands(counter, q, k, v, kp, vp)
+    s, route = _check_operands(counter, q, k, v, kp, vp)
     for name, x in (("out", out), ("dout", dout)):
-        _check_operand(f"{counter} {name}", x, (b, h, t, d), q.device)
+        _check_operand(f"{counter} {name}", x, (b, h, t, d), q, route)
     if (tuple(lse.shape) != (b, h, 1, t) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"{counter}: lse must be a contiguous f32 "
@@ -391,7 +441,7 @@ def _launch_bwd(counter: str, q, k, v, kp, vp, out, lse, dout, policy: int,
         dv_s=_strides(dv), dkp_s=_strides(dkp), dvp_s=_strides(dvp),
         B=b, H=h, T=t, S=s, policy=policy, n=n, grid=grid, hw=hw,
         transpose=int(transpose), scale=d ** -0.5)
-    _run("attention_bwd", _AttnBwdArgs, args, counter, q.device)
+    _run("bwd", route, args, q, counter)
     return dq, dk, dv, dkp, dvp
 
 
@@ -423,7 +473,8 @@ def line_attention(q, kl, vl, kp, vp, n: int, grid_side: int,
     q/kl/vl: (B, H, T, d) line tokens in raster order; kp/vp: optional
     (B, H, S, d) prefix; ``n`` tokens per line; ``transpose`` makes raster
     columns the lines (axial_col, ``n == grid_side``). CPU tensors take the
-    plain version; CUDA tensors launch ``csrc/attention_fwd.cu``."""
+    plain version; CUDA tensors launch the forward kernel of
+    :func:`attention_route`'s route."""
     _check_lines("line_attention", q.shape[2], n, grid_side, transpose)
     if _plain("line_attention", q):
         return line_attention_plain(q, kl, vl, kp, vp, n, grid_side,
@@ -437,7 +488,8 @@ def line_attention_bwd(q, kl, vl, kp, vp, out, lse, dout, n: int,
     """``(dq, dkl, dvl, dkp, dvp)`` of :func:`line_attention` for the
     cotangent ``dout`` (B, H, T, d), from its ``out`` and ``lse``; the
     prefix pair is None without a prefix. CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/attention_bwd.cu``."""
+    version; CUDA tensors launch the backward kernels of
+    :func:`attention_route`'s route."""
     _check_lines("line_attention_bwd", q.shape[2], n, grid_side, transpose)
     if _plain("line_attention_bwd", q):
         return line_attention_bwd_plain(q, kl, vl, kp, vp, out, lse, dout,
@@ -464,7 +516,7 @@ def window_attention_bwd(q, k, v, kp, vp, out, lse, dout, grid: int,
                          hw: Optional[int]):
     """``(dq, dk, dv, dkp, dvp)`` of :func:`window_attention` for the
     cotangent ``dout``. CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/attention_bwd.cu``."""
+    launch the backward kernels of :func:`attention_route`'s route."""
     t = q.shape[2]
     if t != grid * grid:
         raise ValueError(f"window_attention_bwd: T={t} != "

@@ -13,7 +13,14 @@ Replaces the TPU kernels of ``dalle_tpu/ops/pallas/geglu_kernels.py``:
   activation dtype, ``dh = dhg * gelu(g)``, ``dg = dhg * h * gelu'(g)`` and
   ``hg = h * gelu(g)`` (``csrc/geglu_bwd.cu``, one triple-GEMM kernel).
 
-Both sources are persistent, warp-specialised Hopper GEMMs built from
+On the card every call takes one of two routes, picked by
+:func:`geglu_route` from the operands' dtype and widths before any launch:
+the fast kernels above (bf16, d and K multiples of 64) or the generic
+instances of ``csrc/geglu_generic.cu`` (bf16 or f32, d and K multiples of
+8: one SIMT tiled-GEMM template with the gate, output and backward
+epilogues). Anything outside both raises.
+
+Both fast sources are persistent, warp-specialised Hopper GEMMs built from
 ``csrc/gemm_sm90.cuh``: TMA loads into a shared-memory ring, ``wgmma``
 products with register accumulators, and the epilogues straight from
 those registers. The C entry points build their TMA tensor maps from the
@@ -35,7 +42,7 @@ import ctypes
 
 import torch
 
-from dalle_tpu_torch.ops import LAUNCHES, _build
+from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, _build
 
 GELU_C = 0.044715
 SQRT_2_OVER_PI = 0.7978845608028654
@@ -77,6 +84,29 @@ def geglu_ff_bwd_plain(x, wi, wg, wo, bi, bg, dout):
     return torch.cat([dh, dg], dim=1), (h * a).to(x.dtype)
 
 
+FAST_ALIGN = 64     # d and K of the fast kernels: multiples of this
+GENERIC_ALIGN = 8   # d and K of the generic instances: multiples of this
+# operand dtypes of the generic instances (DTYPE_* of geglu_generic.cu)
+GENERIC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def geglu_route(dtype: torch.dtype, d: int, k: int) -> str:
+    """The route of CUDA operands of ``dtype`` with model width ``d`` and
+    FF width ``k``: ``"fast"`` (``csrc/geglu_fwd.cu``/``geglu_bwd.cu``:
+    bf16, d and K multiples of 64) or ``"generic"``
+    (``csrc/geglu_generic.cu``: bf16 or f32, d and K multiples of 8).
+    Raises ``ValueError`` naming the missing instance for anything else."""
+    if dtype == torch.bfloat16 and not (d % FAST_ALIGN or k % FAST_ALIGN):
+        return "fast"
+    if dtype in GENERIC_DTYPES and not (d % GENERIC_ALIGN
+                                         or k % GENERIC_ALIGN):
+        return "generic"
+    raise ValueError(
+        f"geglu: no kernel instance for {dtype} with d={d}, K={k} (fast: "
+        f"bfloat16 with d and K multiples of {FAST_ALIGN}; generic: "
+        f"bfloat16 or float32 with d and K multiples of {GENERIC_ALIGN})")
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _IP = ctypes.POINTER(_I)
 # argument types of each library's entry points (pointers, ints, stream)
@@ -86,6 +116,8 @@ _SIGNATURES = {
                   "geglu_fwd_resources": [_I, _IP]},
     "geglu_bwd": {"geglu_bwd_tensors": [_P] * 9 + [_I] * 3 + [_P],
                   "geglu_bwd_resources": [_IP]},
+    "geglu_generic": {"geglu_generic_fwd": [_P] * 9 + [_I] * 4 + [_P],
+                      "geglu_generic_bwd": [_P] * 9 + [_I] * 4 + [_P]},
 }
 
 
@@ -128,44 +160,63 @@ def _check(lib, name: str, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: launch failed: {msg}")
 
 
-def _check_operands(what: str, device, shapes) -> None:
+def _check_operands(what: str, x, shapes) -> str:
+    """Checks the operands against ``x`` and returns their route."""
+    m, d = x.shape
+    k = shapes["wi"][1][1]
+    route = geglu_route(x.dtype, d, k)
     for name, (t, shape) in shapes.items():
-        if (tuple(t.shape) != shape or t.dtype != torch.bfloat16
-                or t.device != device or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError(f"{what}: {name} must be a contiguous, "
-                             f"16-byte aligned bf16 {shape} tensor on "
-                             f"{device}, got {t.dtype} {tuple(t.shape)}")
+        if (tuple(t.shape) != shape or t.dtype != x.dtype
+                or t.device != x.device or not t.is_contiguous()
+                or (route == "fast" and t.data_ptr() % 16)):
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"{'16-byte aligned ' if route == 'fast' else ''}"
+                             f"{x.dtype} {shape} tensor on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return route
+
+
+def _generic(what: str, fn: str, x, ptrs, m: int, d: int, k: int) -> None:
+    """Launches the generic entry point ``fn`` and counts the call."""
+    lib = _lib("geglu_generic")
+    _check(lib, "geglu_generic", getattr(lib, fn)(
+        *ptrs, m, d, k, GENERIC_DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream), fn)
+    GENERIC_LAUNCHES[what] += 1
 
 
 def geglu_ff(x, wi, wg, wo, bi, bg, bo) -> torch.Tensor:
     """x (M, d); wi/wg (d, K); wo (K, d); bi/bg (K,); bo (d,). Returns
     (M, d) in x's dtype. CPU tensors take the plain version; CUDA tensors
-    launch the two kernels (bf16, contiguous, d % 64 == 0, K % 64 == 0)."""
+    (contiguous, of x's dtype) launch the two kernels of
+    :func:`geglu_route`'s route."""
     if x.device.type == "cpu":
         return geglu_ff_plain(x, wi, wg, wo, bi, bg, bo)
     if x.device.type != "cuda":
         raise ValueError(f"geglu_ff: unsupported device {x.device}")
     m, d = x.shape
     k = wi.shape[1]
-    _check_operands("geglu_ff", x.device, {
+    route = _check_operands("geglu_ff", x, {
         "x": (x, (m, d)), "wi": (wi, (d, k)), "wg": (wg, (d, k)),
         "wo": (wo, (k, d)), "bi": (bi, (k,)), "bg": (bg, (k,)),
         "bo": (bo, (d,))})
-    if d % 64 or k % 64:
-        raise ValueError(f"geglu_ff: d={d} and K={k} must be multiples of 64")
-    lib = _lib("geglu_fwd")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     hg = torch.empty((m, k), dtype=x.dtype, device=x.device)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
-    _check(lib, "geglu_fwd",
-           lib.geglu_gate_fwd(x.data_ptr(), wi.data_ptr(), wg.data_ptr(),
-                              bi.data_ptr(), bg.data_ptr(), hg.data_ptr(),
-                              m, d, k, stream), "geglu_gate_fwd")
-    _check(lib, "geglu_fwd",
-           lib.geglu_out_fwd(hg.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-                             out.data_ptr(), m, k, d, stream),
-           "geglu_out_fwd")
+    if route == "generic":
+        _generic("geglu_ff", "geglu_generic_fwd", x,
+                 [t.data_ptr() for t in (x, wi, wg, wo, bi, bg, bo, hg, out)],
+                 m, d, k)
+    else:
+        lib = _lib("geglu_fwd")
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check(lib, "geglu_fwd",
+               lib.geglu_gate_fwd(x.data_ptr(), wi.data_ptr(), wg.data_ptr(),
+                                  bi.data_ptr(), bg.data_ptr(), hg.data_ptr(),
+                                  m, d, k, stream), "geglu_gate_fwd")
+        _check(lib, "geglu_fwd",
+               lib.geglu_out_fwd(hg.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+                                 out.data_ptr(), m, k, d, stream),
+               "geglu_out_fwd")
     LAUNCHES["geglu_ff"] += 1
     return out
 
@@ -173,31 +224,28 @@ def geglu_ff(x, wi, wg, wo, bi, bg, bo) -> torch.Tensor:
 def geglu_ff_bwd(x, wi, wg, wo, bi, bg, dout):
     """The backward tensors of :func:`geglu_ff` for the cotangent ``dout``
     (M, d): ``(dhdg, hg)`` as :func:`geglu_ff_bwd_plain` returns them. CPU
-    tensors take the plain version; CUDA tensors launch
-    ``csrc/geglu_bwd.cu`` (bf16, contiguous, d % 64 == 0, K % 64 == 0)."""
+    tensors take the plain version; CUDA tensors (contiguous, of x's dtype)
+    launch the backward kernel of :func:`geglu_route`'s route."""
     if x.device.type == "cpu":
         return geglu_ff_bwd_plain(x, wi, wg, wo, bi, bg, dout)
     if x.device.type != "cuda":
         raise ValueError(f"geglu_ff_bwd: unsupported device {x.device}")
     m, d = x.shape
     k = wi.shape[1]
-    _check_operands("geglu_ff_bwd", x.device, {
+    route = _check_operands("geglu_ff_bwd", x, {
         "x": (x, (m, d)), "wi": (wi, (d, k)), "wg": (wg, (d, k)),
         "wo": (wo, (k, d)), "bi": (bi, (k,)), "bg": (bg, (k,)),
         "dout": (dout, (m, d))})
-    if d % 64 or k % 64:
-        raise ValueError(f"geglu_ff_bwd: d={d} and K={k} must be multiples "
-                         "of 64")
-    lib = _lib("geglu_bwd")
     dhdg = torch.empty((m, 2 * k), dtype=x.dtype, device=x.device)
     hg = torch.empty((m, k), dtype=x.dtype, device=x.device)
-    _check(lib, "geglu_bwd",
-           lib.geglu_bwd_tensors(
-               x.data_ptr(), wi.data_ptr(), wg.data_ptr(), wo.data_ptr(),
-               bi.data_ptr(), bg.data_ptr(), dout.data_ptr(),
-               dhdg.data_ptr(), hg.data_ptr(), m, d, k,
-               torch.cuda.current_stream(x.device).cuda_stream),
-           "geglu_bwd_tensors")
+    ptrs = [t.data_ptr() for t in (x, wi, wg, wo, bi, bg, dout, dhdg, hg)]
+    if route == "generic":
+        _generic("geglu_ff_bwd", "geglu_generic_bwd", x, ptrs, m, d, k)
+    else:
+        lib = _lib("geglu_bwd")
+        _check(lib, "geglu_bwd", lib.geglu_bwd_tensors(
+            *ptrs, m, d, k, torch.cuda.current_stream(x.device).cuda_stream),
+            "geglu_bwd_tensors")
     LAUNCHES["geglu_ff_bwd"] += 1
     return dhdg, hg
 

@@ -1,4 +1,5 @@
-"""LayerNorm forward and backward: Triton kernels and their plain versions.
+"""LayerNorm forward and backward: a Triton forward, a CUDA backward, and
+their plain versions.
 
 Replaces the TPU kernels of ``dalle_tpu/ops/pallas/ln_kernels.py``:
 ``_fwd_call`` (``_ln_fwd_kernel``) and ``_bwd_call`` (``_ln_bwd_kernel``
@@ -14,27 +15,32 @@ On the card both directions are bound by memory bandwidth (at the
 flagship, B=4: 5120 rows of 1024 bf16, about 21 MB each way), with a
 handful of f32 operations per element and no tensor-core work.
 
-- Forward: one program holds one whole row in registers, forms both
-  statistics from that one read and writes the row.
-- Backward: one pass over ``x`` and ``dy``. A program walks ``ROWS_BWD``
-  rows, writes each row's ``dx`` and keeps the ``dscale``/``dbias``
-  partials of its rows in f32 registers, then writes them as one row of a
-  (programs, d) f32 buffer. A second kernel sums that buffer over programs
-  in a fixed order, one block of 32 columns per program, in (64, 32)
-  tiles: no atomics, so the result is bitwise the same on every run.
+- Forward (Triton): one program holds one whole row in registers, forms
+  both statistics from that one read and writes the row.
+- Backward (``csrc/layer_norm_bwd.cu``): one warp a row with shuffle
+  reductions, a persistent grid whose warps walk rows held in registers
+  (the next row loading while this one computes), the ``dscale``/``dbias``
+  partials summed per block in a fixed order and then over blocks by a
+  second kernel: no atomics, so the result is bitwise the same on every
+  run. The source says why this design. Its
+  domain: bf16 or f32 ``x``/``dy`` with 16-byte aligned rows and d a
+  multiple of 8 up to ``BWD_MAX_D``; anything else raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from dalle_tpu_torch.ops import LAUNCHES
+from dalle_tpu_torch.ops import LAUNCHES, _build
 
-ROWS_BWD = 16       # rows per program of the backward row pass
-SUM_BLOCK = 32      # columns per program of the partial sum
-SUM_CHUNK = 64      # partial rows per tile of the partial sum
+BWD_MAX_D = 8192    # widest row of the backward kernel (MAX_D in its source)
+# x dtypes of the backward kernel (DTYPE_* of layer_norm_bwd.cu)
+BWD_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _KERNELS = None
+_GRIDS = {}         # (device, dtype, M, d) -> blocks of the backward row pass
 
 
 def _stats(xf: torch.Tensor, eps: float):
@@ -69,7 +75,7 @@ def layer_norm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
     return dx, (dyf * xhat).sum(dim=0), dyf.sum(dim=0)
 
 
-def _build():
+def _build_fwd():
     global _KERNELS
     if _KERNELS is not None:
         return _KERNELS
@@ -94,60 +100,7 @@ def _build():
         tl.store(y_ptr + row * stride_y + cols,
                  y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    @triton.jit
-    def _ln_bwd(x_ptr, g_ptr, dy_ptr, dx_ptr, pg_ptr, pb_ptr, stride_x,
-                stride_dy, stride_dx, m, d, eps, ROWS: tl.constexpr,
-                BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        mask = cols < d
-        g = tl.load(g_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        acc_g = tl.zeros([BLOCK], dtype=tl.float32)
-        acc_b = tl.zeros([BLOCK], dtype=tl.float32)
-        for r in range(ROWS):
-            row = pid * ROWS + r
-            ok = mask & (row < m)
-            # rows past m and columns past d load zeros: their dy is 0, so
-            # they add nothing to the partials
-            x = tl.load(x_ptr + row * stride_x + cols, mask=ok,
-                        other=0.0).to(tl.float32)
-            dy = tl.load(dy_ptr + row * stride_dy + cols, mask=ok,
-                         other=0.0).to(tl.float32)
-            mean = tl.sum(x, axis=0) / d
-            msq = tl.sum(x * x, axis=0) / d
-            var = tl.maximum(msq - mean * mean, 0.0)
-            rstd = 1.0 / tl.sqrt_rn(var + eps)
-            xhat = (x - mean) * rstd
-            dyg = dy * g
-            c1 = tl.sum(dyg * xhat, axis=0) / d
-            c2 = tl.sum(dyg, axis=0) / d
-            dx = rstd * (dyg - xhat * c1 - c2)
-            tl.store(dx_ptr + row * stride_dx + cols,
-                     dx.to(dx_ptr.dtype.element_ty), mask=ok)
-            acc_g += dy * xhat
-            acc_b += dy
-        tl.store(pg_ptr + pid * d + cols, acc_g, mask=mask)
-        tl.store(pb_ptr + pid * d + cols, acc_b, mask=mask)
-
-    @triton.jit
-    def _ln_bwd_sum(pg_ptr, pb_ptr, dg_ptr, db_ptr, n, d,
-                    BLOCK: tl.constexpr, CHUNK: tl.constexpr):
-        cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        rows = tl.arange(0, CHUNK)
-        acc_g = tl.zeros([BLOCK], dtype=tl.float32)
-        acc_b = tl.zeros([BLOCK], dtype=tl.float32)
-        # (CHUNK, BLOCK) tiles in a fixed order, each summed by a fixed
-        # tree: bitwise reproducible
-        for i in range(0, n, CHUNK):
-            r = i + rows
-            mask = (r < n)[:, None] & (cols < d)[None, :]
-            offs = r[:, None] * d + cols[None, :]
-            acc_g += tl.sum(tl.load(pg_ptr + offs, mask=mask, other=0.0), 0)
-            acc_b += tl.sum(tl.load(pb_ptr + offs, mask=mask, other=0.0), 0)
-        tl.store(dg_ptr + cols, acc_g, mask=cols < d)
-        tl.store(db_ptr + cols, acc_b, mask=cols < d)
-
-    _KERNELS = (_ln_fwd, _ln_bwd, _ln_bwd_sum, triton)
+    _KERNELS = (_ln_fwd, triton)
     return _KERNELS
 
 
@@ -181,7 +134,7 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     m, d = x.shape
     for name, p in (("scale", scale), ("bias", bias)):
         _check_param("layer_norm", name, p, d, x.device)
-    kernel, _, _, triton = _build()
+    kernel, triton = _build_fwd()
     y = torch.empty((m, d), dtype=x.dtype, device=x.device)
     block = triton.next_power_of_2(d)
     kernel[(m,)](x, scale, bias, y, x.stride(0), y.stride(0), d, eps,
@@ -190,11 +143,52 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+class _LnBwdArgs(ctypes.Structure):
+    """Mirror of ``struct LnBwdArgs`` in ``csrc/layer_norm_bwd.cu``."""
+
+    _fields_ = ([(name, ctypes.c_void_p)
+                 for name in ("x", "dy", "scale", "dx", "parts", "sums")]
+                + [("x_s", ctypes.c_longlong), ("dy_s", ctypes.c_longlong)]
+                + [(name, ctypes.c_int) for name in ("M", "d", "scale_bf16")]
+                + [("eps", ctypes.c_float)])
+
+
+def _bwd_lib():
+    lib = _build.load("layer_norm_bwd")
+    if not getattr(lib, "_typed", False):
+        lib.layer_norm_bwd_grid.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int)]
+        lib.layer_norm_bwd.argtypes = [ctypes.POINTER(_LnBwdArgs),
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
+        lib.layer_norm_bwd_grid.restype = lib.layer_norm_bwd.restype = \
+            ctypes.c_int
+        lib.layer_norm_bwd_error.argtypes = [ctypes.c_int]
+        lib.layer_norm_bwd_error.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check_bwd(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.layer_norm_bwd_error(err).decode()
+        raise RuntimeError(f"{what}: launch failed: {msg}")
+
+
+def _rows_ready(t: torch.Tensor) -> bool:
+    """Whether the rows of ``t`` (M, d) start on 16-byte boundaries, as the
+    backward kernel's 16-byte copies need."""
+    return (t.stride(1) == 1 and (t.stride(0) * t.element_size()) % 16 == 0
+            and t.data_ptr() % 16 == 0)
+
+
 def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                    eps: float = 1e-6):
     """``(dx, dscale, dbias)`` of :func:`layer_norm` for the cotangent
     ``dy`` (M, d): dx in x's dtype, the parameter sums in f32. CPU tensors
-    take the plain version; CUDA tensors launch the two Triton kernels."""
+    take the plain version; CUDA tensors launch ``csrc/layer_norm_bwd.cu``
+    (its row pass and its partial sum)."""
     if x.device.type == "cpu":
         return layer_norm_bwd_plain(x, scale, dy, eps)
     if x.device.type != "cuda":
@@ -202,25 +196,41 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     _check_rows("layer_norm_bwd x", x)
     _check_rows("layer_norm_bwd dy", dy)
     m, d = x.shape
-    if dy.shape != x.shape or dy.device != x.device:
-        raise ValueError(f"layer_norm_bwd: dy {tuple(dy.shape)} on "
-                         f"{dy.device} does not match x {tuple(x.shape)}")
+    if (dy.shape != x.shape or dy.device != x.device
+            or dy.dtype != x.dtype):
+        raise ValueError(f"layer_norm_bwd: dy {dy.dtype} {tuple(dy.shape)} "
+                         f"on {dy.device} does not match x {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if d % 8 or d > BWD_MAX_D:
+        raise ValueError(f"layer_norm_bwd: d={d} is not a multiple of 8 up "
+                         f"to {BWD_MAX_D}")
+    for name, t in (("x", x), ("dy", dy)):
+        if not _rows_ready(t):
+            raise ValueError(f"layer_norm_bwd: {name} rows must start on "
+                             f"16-byte boundaries (strides {t.stride()})")
     _check_param("layer_norm_bwd", "scale", scale, d, x.device)
-    _, kernel, reduce, triton = _build()
-    n = -(-m // ROWS_BWD)
+    lib = _bwd_lib()
+    key = (x.device, x.dtype, m, d)
+    grid = _GRIDS.get(key)
+    if grid is None:
+        out = ctypes.c_int()
+        _check_bwd(lib, lib.layer_norm_bwd_grid(BWD_DTYPES[x.dtype], m, d,
+                                                ctypes.byref(out)),
+                   "layer_norm_bwd_grid")
+        grid = _GRIDS[key] = out.value
     dx = torch.empty((m, d), dtype=x.dtype, device=x.device)
-    parts = torch.empty((2, n, d), dtype=torch.float32, device=x.device)
-    dscale = torch.empty(d, dtype=torch.float32, device=x.device)
-    dbias = torch.empty(d, dtype=torch.float32, device=x.device)
-    block = triton.next_power_of_2(d)
-    kernel[(n,)](x, scale, dy, dx, parts[0], parts[1], x.stride(0),
-                 dy.stride(0), dx.stride(0), m, d, eps, ROWS=ROWS_BWD,
-                 BLOCK=block, num_warps=4 if block <= 2048 else 8)
-    reduce[(-(-d // SUM_BLOCK),)](parts[0], parts[1], dscale, dbias, n, d,
-                                  BLOCK=SUM_BLOCK, CHUNK=SUM_CHUNK,
-                                  num_warps=4)
+    parts = torch.empty((2, grid, d), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, d), dtype=torch.float32, device=x.device)
+    args = _LnBwdArgs(
+        x=x.data_ptr(), dy=dy.data_ptr(), scale=scale.data_ptr(),
+        dx=dx.data_ptr(), parts=parts.data_ptr(), sums=sums.data_ptr(),
+        x_s=x.stride(0), dy_s=dy.stride(0), M=m, d=d,
+        scale_bf16=int(scale.dtype == torch.bfloat16), eps=eps)
+    _check_bwd(lib, lib.layer_norm_bwd(
+        ctypes.byref(args), BWD_DTYPES[x.dtype], grid,
+        torch.cuda.current_stream(x.device).cuda_stream), "layer_norm_bwd")
     LAUNCHES["layer_norm_bwd"] += 1
-    return dx, dscale, dbias
+    return dx, sums[0], sums[1]
 
 
 class LayerNormFn(torch.autograd.Function):
@@ -240,5 +250,11 @@ class LayerNormFn(torch.autograd.Function):
         x, scale = ctx.saved_tensors
         if dy.stride(-1) != 1:
             dy = dy.contiguous()
+        if x.is_cuda:
+            # rows as the kernel's 16-byte copies take them (a copy of a
+            # view whose rows start elsewhere)
+            x, dy = (t if _rows_ready(t)
+                     else t.clone(memory_format=torch.contiguous_format)
+                     for t in (x, dy))
         dx, dscale, dbias = layer_norm_bwd(x, scale, dy, ctx.eps)
         return dx, dscale.to(scale.dtype), dbias.to(ctx.bias_dtype), None

@@ -15,13 +15,26 @@ parameter sums 1e-4 (sums over 512 rows in another order). Every backward
 kernel also runs twice on the same inputs and must give identical bits (no
 atomics, fixed reduction orders), and so must the GEGLU forward. The three
 quantizers' codes and scales must equal their plain versions' exactly.
+
+The generic attention and GEGLU instances (the route of f32 operands and of
+head dims and widths the fast kernels do not take) are held to the same
+bf16 tolerances, and in f32 to 1e-5 (the same f32 math summed in another
+order; f32 products on the card run in full f32, TF32 off). The tiny
+model's forward and one ``grad_step`` on the card, all through those
+instances, are held against the same parameters on the CPU (plain
+versions) at 2e-4, the tolerance the CPU tests hold the port to JAX with.
 """
 
+import copy
+
+import numpy as np
 import pytest
 import torch
 
-from dalle_tpu_torch.ops import LAUNCHES, reset_launches
-from dalle_tpu_torch.ops.attention import (line_attention,
+from dalle_tpu_torch.config import tiny_model_config
+from dalle_tpu_torch.models.dalle import init_params
+from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, reset_launches
+from dalle_tpu_torch.ops.attention import (attention_route, line_attention,
                                            line_attention_bwd,
                                            line_attention_bwd_plain,
                                            line_attention_plain,
@@ -30,7 +43,8 @@ from dalle_tpu_torch.ops.attention import (line_attention,
                                            window_attention_bwd_plain,
                                            window_attention_plain)
 from dalle_tpu_torch.ops.geglu import (geglu_ff, geglu_ff_bwd,
-                                       geglu_ff_bwd_plain, geglu_ff_plain)
+                                       geglu_ff_bwd_plain, geglu_ff_plain,
+                                       geglu_route)
 from dalle_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
                                             layer_norm_bwd_plain,
                                             layer_norm_plain)
@@ -40,8 +54,12 @@ from dalle_tpu_torch.ops.quant import (quantize_blockwise,
                                        wire_quantize_u4_plain,
                                        wire_quantize_u8,
                                        wire_quantize_u8_plain)
+from dalle_tpu_torch.training.steps import grad_step
 
 BF16 = dict(rtol=2 ** -7, atol=2 ** -7)
+F32 = dict(rtol=1e-5, atol=1e-5)
+TOL = {torch.bfloat16: BF16, torch.float32: F32}
+MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 @pytest.fixture
@@ -53,10 +71,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _bf16(shape, seed, device, scale=1.0):
+def _rand(shape, seed, device, dtype, scale=1.0):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    return (torch.randn(shape, generator=g) * scale).to(torch.bfloat16).to(
-        device)
+    return (torch.randn(shape, generator=g) * scale).to(dtype).to(device)
+
+
+def _bf16(shape, seed, device, scale=1.0):
+    return _rand(shape, seed, device, torch.bfloat16, scale)
 
 
 @pytest.mark.cuda
@@ -349,3 +370,196 @@ def test_cuda_wire_quantize_kernels(cuda_device, n):
         assert int(got4[0][-1]) >> 4 == 0       # the pad nibble
     with pytest.raises(ValueError, match="float32"):
         wire_quantize_u8(x.double())
+
+
+# -- generic instances ------------------------------------------------------
+
+# every generic (dtype, head_dim) instance: f32 at all four head dims, bf16
+# at the three the fast kernels do not take
+GENERIC_ATTENTION = [(torch.float32, 16), (torch.float32, 32),
+                     (torch.float32, 64), (torch.float32, 128),
+                     (torch.bfloat16, 16), (torch.bfloat16, 32),
+                     (torch.bfloat16, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,head_dim", GENERIC_ATTENTION,
+                         ids=lambda v: str(v).replace("torch.", ""))
+@pytest.mark.parametrize("kind", ["text", "axial_row", "axial_col",
+                                  "axial_row_noprefix", "conv_like", "full",
+                                  "conv_like_noprefix"])
+def test_cuda_attention_generic_kernels(cuda_device, dtype, head_dim, kind):
+    """Forward and backward of the generic instance against the plain
+    versions, strided (B, T, H, d) views as the model makes them; the
+    backward twice, bitwise equal."""
+    assert attention_route(dtype, head_dim) == "generic"
+    b, h, grid, text = 2, 3, 6, 20
+    t = text if kind == "text" else grid * grid
+    q, k, v, dout = (_rand((b, t, h, head_dim), 70 + i, cuda_device, dtype)
+                     .transpose(1, 2) for i in range(4))
+    kp = vp = None
+    if kind != "text" and not kind.endswith("noprefix"):
+        kp, vp = (_rand((b, text, h, head_dim), 80 + i, cuda_device, dtype)
+                  .transpose(1, 2) for i in range(2))
+    if kind == "text":
+        extra = (text, 0, False)
+    elif kind.startswith("axial"):
+        extra = (grid, grid, kind == "axial_col")
+    else:
+        extra = (grid, 1 if kind.startswith("conv_like") else None)
+    if len(extra) == 3:
+        fns = (line_attention, line_attention_bwd, line_attention_plain,
+               line_attention_bwd_plain)
+    else:
+        fns = (window_attention, window_attention_bwd, window_attention_plain,
+               window_attention_bwd_plain)
+    fwd, bwd, plain_fwd, plain_bwd = fns
+    reset_launches()
+    out, lse = fwd(q, k, v, kp, vp, *extra)
+    out_p, lse_p = plain_fwd(q, k, v, kp, vp, *extra)
+    torch.testing.assert_close(out.float(), out_p.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, lse_p, **F32)
+    got = _same_twice(bwd, q, k, v, kp, vp, out, lse, dout, *extra)
+    name = fwd.__name__
+    assert GENERIC_LAUNCHES[name] == LAUNCHES[name] == 1
+    assert GENERIC_LAUNCHES[f"{name}_bwd"] == LAUNCHES[f"{name}_bwd"] == 2
+    want = plain_bwd(q, k, v, kp, vp, out, lse, dout, *extra)
+    for grad, a, w in zip(("dq", "dk", "dv", "dkp", "dvp"), got, want):
+        assert (a is None) == (w is None), grad
+        if a is not None:
+            assert a.shape == w.shape and a.dtype == dtype, grad
+            torch.testing.assert_close(a.float(), w.float(), msg=grad,
+                                       **TOL[dtype])
+
+
+# widths the fast kernels take in f32 only through the generic route, and
+# multiples of 8 that are not of 64 (a ragged M too)
+GENERIC_GEGLU = [(torch.float32, 320, 256, 1024), (torch.float32, 64, 64, 256),
+                 (torch.float32, 200, 72, 136), (torch.bfloat16, 200, 72, 136),
+                 (torch.bfloat16, 1, 8, 16), (torch.float32, 1000, 1024, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m,d,k", GENERIC_GEGLU,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_cuda_geglu_generic_kernels(cuda_device, dtype, m, d, k):
+    assert geglu_route(dtype, d, k) == "generic"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    shapes = [((m, d), 1.0), ((d, k), d ** -0.5), ((d, k), d ** -0.5),
+              ((k, d), k ** -0.5), ((k,), 0.1), ((k,), 0.1), ((d,), 0.1),
+              ((m, d), 1.0)]
+    x, wi, wg, wo, bi, bg, bo, dout = (
+        _rand(sh, 90 + i, cuda_device, dtype, sc)
+        for i, (sh, sc) in enumerate(shapes))
+    reset_launches()
+    got, again = geglu_ff(x, wi, wg, wo, bi, bg, bo), \
+        geglu_ff(x, wi, wg, wo, bi, bg, bo)
+    assert torch.equal(got, again)
+    out_tol = dict(rtol=2 ** -6, atol=2 ** -6) if dtype == torch.bfloat16 \
+        else F32
+    torch.testing.assert_close(
+        got.float(), geglu_ff_plain(x, wi, wg, wo, bi, bg, bo).float(),
+        **out_tol)
+    grads = _same_twice(geglu_ff_bwd, x, wi, wg, wo, bi, bg, dout)
+    assert GENERIC_LAUNCHES["geglu_ff"] == LAUNCHES["geglu_ff"] == 2
+    assert GENERIC_LAUNCHES["geglu_ff_bwd"] == LAUNCHES["geglu_ff_bwd"] == 2
+    want = geglu_ff_bwd_plain(x, wi, wg, wo, bi, bg, dout)
+    for name, a, w in zip(("dh|dg", "hg"), grads, want):
+        assert a.shape == w.shape and a.dtype == dtype, name
+        torch.testing.assert_close(a.float(), w.float(), msg=name,
+                                   **TOL[dtype])
+
+
+# the flagship's shape, the tiny model's (f32, d = 64), the XL width (bf16,
+# d = 1792: partials in shared memory) with M not a multiple of the 8 warps
+# of a block, a ragged M at the flagship width, f32 above 1024 and the
+# domain's edges (d = 8 and d = 8192)
+LN_BWD_SHAPES = [(torch.bfloat16, 5120, 1024), (torch.float32, 128, 64),
+                 (torch.bfloat16, 1003, 1792), (torch.bfloat16, 517, 1024),
+                 (torch.float32, 333, 4096), (torch.float32, 77, 8),
+                 (torch.bfloat16, 45, 8192), (torch.float32, 9, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m,d", LN_BWD_SHAPES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32],
+                         ids=["scale_bf16", "scale_f32"])
+def test_cuda_layer_norm_bwd_shapes(cuda_device, dtype, m, d, scale_dtype):
+    x = _rand((m, d), 1, cuda_device, dtype, 2.0) + 0.3
+    dy = _rand((m, d), 2, cuda_device, dtype)
+    g = (_rand((d,), 3, cuda_device, torch.float32, 0.2) + 1.0).to(
+        scale_dtype)
+    reset_launches()
+    got = _same_twice(layer_norm_bwd, x, g, dy)
+    assert LAUNCHES["layer_norm_bwd"] == 2
+    want = layer_norm_bwd_plain(x, g, dy)
+    assert got[0].dtype == dtype
+    torch.testing.assert_close(got[0].float(), want[0].float(), **TOL[dtype])
+    for name, a, w in zip(("dscale", "dbias"), got[1:], want[1:]):
+        assert a.dtype == torch.float32, name
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def _tiny_pair(cuda_device, overrides):
+    """The same tiny model on the CPU and on the card: seeded weights, with
+    the biases and LayerNorm scales perturbed so that a dropped term
+    shows."""
+    cfg = tiny_model_config(**overrides)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith(("bias", "scale")):
+                p.add_(torch.from_numpy(
+                    0.05 * rng.standard_normal(p.shape)).to(p.dtype))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    text = torch.from_numpy(rng.integers(1, cfg.vocab_text,
+                                         (2, cfg.text_seq_len)))
+    image = torch.from_numpy(rng.integers(0, cfg.vocab_image,
+                                          (2, cfg.image_seq_len)))
+    return cfg, cpu, card, text, image
+
+
+TINY = {"tiny": dict(),
+        "tiny_zoo_fused": dict(attn_types=("axial_row", "axial_col",
+                                           "conv_like", "full"),
+                               conv_kernel=3, ln_fusion=True,
+                               ff_fusion="all")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TINY))
+def test_cuda_tiny_model_matches_cpu(cuda_device, name):
+    """``tiny_model_config()`` (f32, head_dim 16) on the card, through the
+    generic attention and GEGLU instances (and, fused, the LayerNorm
+    kernels), against the plain versions on the CPU: the forward's loss and
+    logits, then one ``grad_step``'s loss and every gradient."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu, card, text, image = _tiny_pair(cuda_device, TINY[name])
+    tc, ic = text.to(cuda_device), image.to(cuda_device)
+    with torch.no_grad():
+        loss_c, _, logits_c = cpu(text, image, return_logits=True)
+        reset_launches()
+        loss_g, _, logits_g = card(tc, ic, return_logits=True)
+    torch.testing.assert_close(loss_g.cpu(), loss_c, **MODEL_TOL)
+    torch.testing.assert_close(logits_g.cpu(), logits_c, **MODEL_TOL)
+    fwd_generic = dict(GENERIC_LAUNCHES)
+    assert fwd_generic["line_attention"] > 0
+    assert fwd_generic["window_attention"] > 0
+    assert fwd_generic["geglu_ff"] > 0
+    batch = {"text": text, "image": image}
+    loss_c, _, grads_c = grad_step(cpu, batch)
+    reset_launches()
+    loss_g, _, grads_g = grad_step(card, {k: v.to(cuda_device)
+                                          for k, v in batch.items()})
+    for key in GENERIC_LAUNCHES:
+        assert GENERIC_LAUNCHES[key] > 0, key
+        assert GENERIC_LAUNCHES[key] == LAUNCHES[key], key
+    if cfg.ln_fusion:
+        assert LAUNCHES["layer_norm"] > 0 and LAUNCHES["layer_norm_bwd"] > 0
+    torch.testing.assert_close(loss_g.cpu(), loss_c, **MODEL_TOL)
+    assert grads_g.keys() == grads_c.keys()
+    for key, g in grads_c.items():
+        torch.testing.assert_close(grads_g[key].cpu(), g, msg=key,
+                                   **MODEL_TOL)
