@@ -42,9 +42,14 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    falling loss, the exact launch counts of the eight wrappers (forward,
    remat replay, backward), step time, img/s and peak memory;
 8. the three quantizer kernels against their plain versions on the card,
-   codes and scales identical: ``quantize_blockwise`` on a tensor the size
-   of ``token_emb`` (signed and unsigned), the wire u8 and u4 kernels on one
-   quarter of the flat gradient (a 4-peer round's part), and ragged sizes;
+   codes and scales identical: ``quantize_blockwise`` on every float32 in
+   [-1, 1] (blocks led by a 1.0, so that the codebook lookup sees each bit
+   pattern itself) under both codebooks, on a tensor the size of
+   ``token_emb`` (signed and unsigned, twice: identical bytes), at block
+   sizes 1 to 65536, and timed at each size the 8-bit LAMB quantizes with
+   the sum over one step's launches beside its bound; the wire u8 and u4
+   kernels on one quarter of the flat gradient (a 4-peer round's part);
+   ragged sizes;
    then six flagship training steps with the 8-bit LAMB (same weights and
    batch as phase 7): steps 1-2 equal phase 7's, the loss falls and stays
    within ``LOSS_GAP`` of phase 7's, exact launch counts (two
@@ -310,6 +315,7 @@ def main() -> int:
                                            wire_quantize_u8,
                                            wire_quantize_u8_plain)
     from dalle_tpu_torch.optim import optimizer_state_bytes
+    from dalle_tpu_torch.time_quant import quantize_bytes
     from dalle_tpu_torch.swarm import compression, device_codec
     from dalle_tpu_torch.swarm.error_feedback import ErrorFeedback
     from dalle_tpu_torch.training.steps import grad_step
@@ -1221,7 +1227,8 @@ def main() -> int:
                 launches=train_launches,
                 step_s=sum(steady) / len(steady),
                 emb_numel=state.model.token_emb.numel(),
-                n_params=sum(p.numel() for p in state.model.parameters()))
+                n_params=sum(p.numel() for p in state.model.parameters()),
+                sizes=[p.numel() for p in state.model.parameters()])
     emit(phase="train", micro=MICRO, accum=ACCUM, steps=TRAIN_STEPS,
          optimizer="fp32 LAMB, OptimizerConfig(state_bits=32, "
                    "warmup_steps=2, total_steps=100)",
@@ -1292,26 +1299,96 @@ def main() -> int:
                     **times(kernel, plain, None, sets), bound_ms=bms,
                     bound_by=by, library=None, shape=shape)
 
+    def every_float(signed, per=4095, chunk_blocks=1 << 15):
+        """Every float32 bit pattern in [-1, 1] (both signs) through the
+        kernel against the plain version: blocks of per + 1 values whose
+        first is 1.0, so that x / absmax == x and the lookup sees each
+        pattern itself; in chunks of chunk_blocks blocks."""
+        top = int(np.float32(1.0).view(np.int32)) + 1
+        step = per * chunk_blocks
+        count = 0
+        for sign in (0, -(1 << 31)):
+            for start in range(0, top, step):
+                bits = torch.arange(start, min(start + step, top),
+                                    dtype=torch.int32, device=dev) | sign
+                vals = F.pad(bits.view(torch.float32),
+                             (0, -bits.numel() % per))
+                x = torch.cat([torch.ones(vals.numel() // per, 1,
+                                          device=dev), vals.view(-1, per)],
+                              dim=1).reshape(-1)
+                exact(f"quantize_blockwise every float32 in [-1, 1] "
+                      f"signed={signed}, {'negative' if sign else 'positive'}"
+                      f" bits from {start:#x}",
+                      qtuple(quantize_blockwise(x, per + 1, signed=signed)),
+                      quantize_blockwise_plain(x, per + 1, signed=signed))
+                count += bits.numel()
+                del bits, vals, x
+        return count
+
     n_emb = fp32["emb_numel"]
     quant = {}
+    t0 = time.perf_counter()
+    floats = {signed: every_float(signed) for signed in (True, False)}
+    sweep_s = time.perf_counter() - t0
+    # every instance: float4 groups of 1 to 512 threads (8192), scalar
+    # groups (4097: 512), two passes float4 (16384 up) and scalar (10001)
+    blocks_checked = (1, 100, 128, 1152, 4096, 4097, 8192, 10001, 16384,
+                      32768, 65536)
     for signed in (True, False):
         sets = [f32_set(n_emb, square=not signed) for _ in range(2)]
         exact(f"quantize_blockwise signed={signed}",
-              qtuple(quantize_blockwise(*sets[0], signed=signed)),
+              twice(f"quantize_blockwise signed={signed}",
+                    lambda x: qtuple(quantize_blockwise(x, signed=signed)),
+                    *sets[0]),
               quantize_blockwise_plain(*sets[0], signed=signed))
         x = ragged(3 * 4096 + 1000)
         x = x if signed else x.abs()
         exact("quantize_blockwise ragged", qtuple(quantize_blockwise(
             x, signed=signed)), quantize_blockwise_plain(x, signed=signed))
+        x = ragged(2 * 65536 + 1001)
+        x = x if signed else x.abs()
+        for block in blocks_checked:
+            exact(f"quantize_blockwise block={block}", qtuple(
+                quantize_blockwise(x, block, signed=signed)),
+                quantize_blockwise_plain(x, block, signed=signed))
         nb = -(-n_emb // 4096)
         quant[signed] = quant_record(
             "quantize_blockwise", "dalle_tpu/ops/pallas/quant_kernels.py:64",
             lambda x, s=signed: quantize_blockwise(x, signed=s),
             lambda x, s=signed: quantize_blockwise_plain(x, signed=s), sets,
-            4 * n_emb + nb * 4096 + 4 * nb + 256 * 4, 11 * n_emb,
+            quantize_bytes(n_emb), 11 * n_emb,
             f"token_emb-sized moment ({n_emb},) f32 -> ({nb}, 4096) u8 + "
             f"({nb}, 1) f32, {'signed' if signed else 'unsigned'} codebook")
-        del sets
+        del sets, x
+    # each size the 8-bit LAMB quantizes (flagship: 262,144 to 41,287,680),
+    # cold (inputs rotated through more than the L2), and the sum over one
+    # step's launches: a signed (m) and an unsigned (v) call per tensor
+    big = [n for n in fp32["sizes"] if n >= OptimizerConfig().min_8bit_size]
+    per_size = {}
+    for n in sorted(set(big)):
+        rec = dict(n=n, tensors=big.count(n))
+        n_sets = max(2, -(-80_000_000 // (5 * n)))
+        for signed, tag in ((True, "signed"), (False, "unsigned")):
+            sets = [f32_set(n, square=not signed) for _ in range(n_sets)]
+            exact(f"quantize_blockwise n={n}", qtuple(quantize_blockwise(
+                *sets[0], signed=signed)), quantize_blockwise_plain(
+                *sets[0], signed=signed))
+            rec[f"{tag}_us"] = cuda_ms(
+                lambda x, s=signed: quantize_blockwise(x, signed=s), sets,
+                max(20, n_sets))[0] * 1e3
+            rec[f"{tag}_bound_us"] = bound(quantize_bytes(n), 11 * n,
+                                           F32_FLOP_PER_S)[0] * 1e3
+            del sets
+        per_size[n] = rec
+    step_us = sum(per_size[n]["signed_us"] + per_size[n]["unsigned_us"]
+                  for n in big)
+    step_bound_us = sum(per_size[n]["signed_bound_us"]
+                        + per_size[n]["unsigned_bound_us"] for n in big)
+    emit(phase="quantize_blockwise_sizes", every_float32_checked=floats,
+         every_float32_s=sweep_s, blocks_checked=blocks_checked,
+         sizes=list(per_size.values()), step_launches=2 * len(big),
+         step_us=step_us, step_bound_us=step_bound_us,
+         step_share_of_bound=step_bound_us / step_us, card=smi)
     kernels["quantize_blockwise"] = quant[True]
     kernels["quantize_blockwise"]["unsigned_ms"] = quant[False]["ms"]
     kernels["quantize_blockwise"]["unsigned_plain_ms"] = \

@@ -4,11 +4,15 @@ versions (counterpart of ``dalle_tpu/ops/quant.py`` and the TPU kernels of
 ``dalle_tpu/ops/pallas/quant_kernels.py``).
 
 - :func:`quantize_blockwise` (``quantize_blockwise_pallas``): per block of
-  ``block_size`` values (4096 in the 8-bit LAMB) the absmax, and the index
-  of the nearest entry of a 256-entry dynamic-tree codebook (sign bit, unary
-  exponent, linear fraction; Dettmers et al. 2021) for ``x / absmax``, as the
-  number of the 255 float32 midpoints strictly below it: a value on a
-  midpoint takes the lower code. :func:`dequantize_blockwise` is a
+  ``block_size`` values (4096 in the 8-bit LAMB; any size >= 1, as the JAX
+  package's XLA path takes) the absmax, and the index of the nearest entry
+  of a 256-entry dynamic-tree codebook (sign bit, unary exponent, linear
+  fraction; Dettmers et al. 2021) for ``x / absmax``, as the number of the
+  255 float32 midpoints strictly below it: a value on a midpoint takes the
+  lower code. The kernel finds it with one lookup in :func:`bucket_table`
+  (a bucket of the value's float32 exponent and top mantissa bits, holding
+  at most one midpoint) and one compare; the plain version with
+  ``searchsorted``. :func:`dequantize_blockwise` is a
   256-entry gather, plain PyTorch (no kernel in the JAX package either; the
   TPU's select tree, a workaround for its slow gathers, is not ported).
 - :func:`wire_quantize_u8` (``wire_quantize_u8_pallas``): per 256 values
@@ -93,12 +97,60 @@ def codebook_midpoints(signed: bool = True) -> np.ndarray:
     return (0.5 * (cb[:-1] + cb[1:])).astype(np.float32)
 
 
+BUCKET_BITS = 6   # mantissa bits in a bucket's index
+BUCKET_SHIFT = 23 - BUCKET_BITS   # passed to the kernel with lo and nb
+
+
+@functools.lru_cache(maxsize=8)
+def bucket_table(signed: bool = True) -> Tuple[np.ndarray, int]:
+    """The ``quantize_blockwise`` kernel's codebook lookup, built from the
+    float32 midpoints: ``(table, lo)`` with ``table`` (2, nb, 2) uint32.
+
+    Bucket ``b`` of a value ``v`` is ``(bits(|v|) >> BUCKET_SHIFT) - lo``,
+    clamped to [0, nb - 1], where ``lo`` is the bucket of the smallest
+    nonzero |midpoint| and ``lo + nb - 1`` that of 1.0 (so that no |v| <= 1
+    needs the upper clamp). The sign bit of ``v`` picks the row: 0 for
+    ``v >= +0``, 1 for ``v <= -0``. Entry ``(mid, base)`` holds the float32
+    bits of the one midpoint of that sign inside the bucket (+inf where
+    there is none) and the count of midpoints below the bucket, so that
+    ``code = base + (mid < v)`` is ``#{k : mid_k < v}`` for every non-NaN
+    float32 (a NaN takes code 0 in the kernel): row 0's base counts the
+    midpoints below the bucket's low edge, row 1's those at or below minus
+    its high edge. Clamping is exact because no midpoint is 0 and none lies
+    nearer 0 than bucket ``lo`` or beyond 1: zeros, subnormals and tiny
+    magnitudes of either sign, -0.0 included, take the count of the
+    negative midpoints, and magnitudes past 1 take 255 (positive) or 0."""
+    mids = codebook_midpoints(signed)
+    assert (mids != 0).all() and (np.diff(mids) > 0).all()
+    assert (np.abs(mids) < 1).all()
+    shift = BUCKET_SHIFT
+    bucket = (np.abs(mids).view(np.uint32) >> shift).astype(np.int64)
+    lo = int(bucket.min())
+    nb = int(np.float32(1.0).view(np.uint32) >> shift) - lo + 1
+    edges = ((np.arange(nb + 1, dtype=np.int64) + lo) << shift).astype(
+        np.uint32).view(np.float32)            # bucket b is [edges[b], edges[b+1])
+    table = np.empty((2, nb, 2), np.uint32)
+    table[0, :, 1] = np.searchsorted(mids, edges[:-1], side="left")
+    table[1, :, 1] = np.searchsorted(mids, -edges[1:], side="right")
+    for row, sign in ((0, mids > 0), (1, mids < 0)):
+        held = bucket[sign] - lo
+        # the kernel compares a value with ONE midpoint of its bucket
+        assert np.bincount(held, minlength=nb).max() <= 1
+        mid = np.full(nb, np.inf, np.float32)
+        mid[held] = mids[sign]
+        table[row, :, 0] = mid.view(np.uint32)
+    # -0.0 (row 1, bucket 0) takes +0.0's code (row 0, bucket 0)
+    assert (table[1, 0, 1] + np.isfinite(table[1, 0, 0].view(np.float32))
+            == table[0, 0, 1] == np.searchsorted(mids, 0.0))
+    return table, lo
+
+
 _TABLES: Dict[Tuple[str, bool, torch.device], torch.Tensor] = {}
 
 
 def _table(kind: str, signed: bool, device: torch.device) -> torch.Tensor:
-    """The codebook, the midpoints, or the kernel's thresholds (midpoints
-    and a +inf pad, 256 entries) as an f32 tensor on ``device``, cached."""
+    """The codebook (f32), the midpoints (f32) or the kernel's bucket table
+    (:func:`bucket_table`, int32 bits) as a tensor on ``device``, cached."""
     key = (kind, signed, device)
     if key not in _TABLES:
         if kind == "codebook":
@@ -106,8 +158,7 @@ def _table(kind: str, signed: bool, device: torch.device) -> torch.Tensor:
         elif kind == "midpoints":
             arr = codebook_midpoints(signed)
         else:
-            arr = np.concatenate([codebook_midpoints(signed),
-                                  [np.inf]]).astype(np.float32)
+            arr = bucket_table(signed)[0].view(np.int32)
         _TABLES[key] = torch.from_numpy(arr.copy()).to(device)
     return _TABLES[key]
 
@@ -155,7 +206,8 @@ def quantize_blockwise_plain(x: torch.Tensor, block_size: int = DEFAULT_BLOCK,
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"quantize_blockwise": [_P, _L, _I, _P, _P, _P, _P],
+_SIGNATURES = {"quantize_blockwise": [_P, _L, _I, _P, _I, _I, _I, _P, _P,
+                                      _P],
                "wire_quantize_u8": [_P, _L, _P, _P, _P],
                "wire_quantize_u4": [_P, _L, _P, _P, _P]}
 
@@ -194,31 +246,30 @@ def _launch(what: str, err: int) -> None:
 
 def quantize_blockwise(x: torch.Tensor, block_size: int = DEFAULT_BLOCK,
                        signed: bool = True) -> Quantized:
-    """Block-quantize ``x`` (``dalle_tpu.ops.quant.quantize_blockwise``).
-    ``block_size`` must be a multiple of 128 (and at most 16384 on the
-    GPU). CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/quant.cu`` (f32, contiguous, 16-byte aligned)."""
-    if block_size % 128:
-        raise ValueError("block_size must be a multiple of 128")
+    """Block-quantize ``x`` (``dalle_tpu.ops.quant.quantize_blockwise``),
+    any ``block_size >= 1``. CPU tensors take the plain version; CUDA
+    tensors launch ``csrc/quant.cu`` (f32, contiguous, 16-byte aligned)."""
+    if block_size < 1:
+        raise ValueError(f"block_size must be at least 1, got {block_size}")
     shape = tuple(x.shape)
     if x.device.type == "cpu":
         codes, absmax = quantize_blockwise_plain(x, block_size, signed)
         return Quantized(codes, absmax, shape, signed)
     flat = _cuda_input("quantize_blockwise", x)
-    if block_size > 16 * 1024:
-        raise ValueError("quantize_blockwise: block_size above 16384 is not "
-                         "supported on the GPU")
+    if block_size > 2 ** 31 - 1:
+        raise ValueError(f"quantize_blockwise: block_size {block_size} "
+                         "exceeds the kernel's 32-bit block length")
     n = flat.numel()
     n_blocks = -(-n // block_size)
     codes = torch.empty((n_blocks, block_size), dtype=torch.uint8,
                         device=x.device)
     absmax = torch.empty((n_blocks, 1), dtype=torch.float32, device=x.device)
     if n:
-        lib = _lib()
-        _launch("quantize_blockwise", lib.quantize_blockwise(
-            flat.data_ptr(), n, block_size,
-            _table("thresholds", signed, x.device).data_ptr(),
-            codes.data_ptr(), absmax.data_ptr(),
+        table = _table("buckets", signed, x.device)
+        lo, nb = bucket_table(signed)[1], table.shape[1]
+        _launch("quantize_blockwise", _lib().quantize_blockwise(
+            flat.data_ptr(), n, block_size, table.data_ptr(), BUCKET_SHIFT,
+            lo, nb, codes.data_ptr(), absmax.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream))
         LAUNCHES["quantize_blockwise"] += 1
     return Quantized(codes, absmax, shape, signed)

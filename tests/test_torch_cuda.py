@@ -48,7 +48,8 @@ from dalle_tpu_torch.ops.geglu import (geglu_ff, geglu_ff_bwd,
 from dalle_tpu_torch.ops.layer_norm import (layer_norm, layer_norm_bwd,
                                             layer_norm_bwd_plain,
                                             layer_norm_plain)
-from dalle_tpu_torch.ops.quant import (quantize_blockwise,
+from dalle_tpu_torch.ops.quant import (codebook_midpoints,
+                                       quantize_blockwise,
                                        quantize_blockwise_plain,
                                        wire_quantize_u4,
                                        wire_quantize_u4_plain,
@@ -329,6 +330,15 @@ def _quant_input(n, seed, device):
     return x.to(device)
 
 
+# block sizes of every kernel instance: the register path with float4 loads
+# (block % 4 == 0; groups of 1 to 512 threads a block, 8192 the widest) and
+# with scalar loads (1, 100, 127; 4097 a 512-thread group), and the two-pass
+# kernel for blocks wider than one CTA's registers (above 8192) with float4
+# loads (16384, 32768, 65536) and scalar loads (10001)
+QUANT_BLOCKS = (4096, 128, 1152, 1, 100, 127, 4097, 8192, 10001, 16384,
+                32768, 65536)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [4096, 3 * 4096 + 1000, 129, 70001])
 @pytest.mark.parametrize("signed", [True, False])
@@ -336,7 +346,7 @@ def test_cuda_quantize_blockwise_kernel(cuda_device, n, signed):
     x = _quant_input(n, n, cuda_device)
     if not signed:
         x = x.abs()
-    for block in (4096, 128, 1152):
+    for block in QUANT_BLOCKS:
         reset_launches()
         q = quantize_blockwise(x, block, signed=signed)
         assert LAUNCHES["quantize_blockwise"] == 1
@@ -351,6 +361,39 @@ def test_cuda_quantize_blockwise_kernel(cuda_device, n, signed):
     assert torch.equal(q.absmax.isnan(), absmax.isnan())
     ok = ~absmax.isnan()
     assert torch.equal(q.absmax[ok], absmax[ok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signed", [True, False])
+def test_cuda_quantize_blockwise_lookup_edges(cuda_device, signed):
+    """Blocks whose first value is 1.0, so that ``x / absmax == x``: every
+    midpoint and its two float32 neighbours, +-0.0, subnormals, +-1, and
+    every 4096th float32 bit pattern in [-1, 1]; then +-inf and values past
+    1 beside a NaN (which leaves the block's scale at 1)."""
+    mids = torch.from_numpy(codebook_midpoints(signed))
+    tiny = torch.finfo(torch.float32).smallest_normal
+    sub = torch.tensor([0.0, -0.0, 1e-45, -1e-45, tiny / 3, -tiny / 3, tiny,
+                        -tiny, 1.0, -1.0])
+    one = int(torch.tensor(1.0).view(torch.int32))
+    bits = torch.arange(0, one + 1, 4096, dtype=torch.int32)
+    pats = bits.view(torch.float32)
+    vals = torch.cat([mids, torch.nextafter(mids, torch.tensor(2.0)),
+                      torch.nextafter(mids, torch.tensor(-2.0)), sub, pats,
+                      -pats])
+    per = 4095
+    vals = torch.cat([vals, torch.zeros(-vals.numel() % per)])
+    x = torch.cat([torch.ones(vals.numel() // per, 1), vals.view(-1, per)],
+                  dim=1).reshape(-1).to(cuda_device)
+    for block in (4096, 2048 + 1):
+        q = quantize_blockwise(x, block, signed=signed)
+        codes, absmax = quantize_blockwise_plain(x, block, signed)
+        assert torch.equal(q.codes, codes) and torch.equal(q.absmax, absmax)
+    y = torch.tensor([float("nan"), float("inf"), float("-inf"), 1.5, -1.5,
+                      0.5, -0.0, 3e38] * 16, device=cuda_device)
+    q = quantize_blockwise(y, 128, signed=signed)
+    codes, _ = quantize_blockwise_plain(y, 128, signed)
+    assert torch.equal(q.codes, codes)
+    assert q.codes[0, :3].tolist() == [0, 255, 0]
 
 
 @pytest.mark.cuda

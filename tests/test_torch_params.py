@@ -119,7 +119,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "dalle_tpu_torch.swarm.error_feedback",
                 "dalle_tpu_torch.training.steps",
                 "dalle_tpu_torch.data.synthetic",
-                "dalle_tpu_torch.time_layer_norm"):
+                "dalle_tpu_torch.time_layer_norm",
+                "dalle_tpu_torch.time_quant"):
         assert mod in mods, mod
     # chip_smoke.py imports inside main(): read every import it names
     tree = ast.parse((root / "chip_smoke.py").read_text())

@@ -149,11 +149,121 @@ def test_dequantize_equals_jax_and_block_checks():
         want = jquant.dequantize_blockwise(jq, use_tree=False)
         assert got.shape == x.shape
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(ValueError, match="multiple of 128"):
-        tquant.quantize_blockwise(torch.zeros(10), block_size=100)
+    with pytest.raises(ValueError, match="at least 1"):
+        tquant.quantize_blockwise(torch.zeros(10), block_size=0)
     empty = tquant.quantize_blockwise(torch.zeros(0))
     assert empty.codes.shape == (0, 4096) and empty.absmax.shape == (0, 1)
 
+
+
+# -- the kernel's bucketed codebook lookup -----------------------------------
+
+
+def _bucket_lookup(v, table, lo):
+    """The CUDA kernel's lookup (``code_of`` in csrc/quant.cu), in numpy:
+    the bucket of |v|'s bits clamped to the table, the row of v's sign bit,
+    base plus one compare with the real midpoint; NaN takes 0."""
+    nb = table.shape[1]
+    bits = v.view(np.uint32)
+    raw = (bits & 0x7FFFFFFF) >> tquant.BUCKET_SHIFT
+    b = np.clip(raw.astype(np.int64) - lo, 0, nb - 1)
+    entry = table[(bits >> 31).astype(np.int64), b]
+    code = entry[:, 1].astype(np.int64) + (entry[:, 0].view(np.float32) < v)
+    return np.where(np.isnan(v), 0, code)
+
+
+def _search(v, mids):
+    """The plain answer: midpoints strictly below v; NaN takes 0."""
+    return np.where(np.isnan(v), 0, np.searchsorted(mids, v, side="left"))
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_bucket_table_holds_one_midpoint_a_bucket(signed):
+    """Every midpoint sits in the bucket its entry names, and no bucket
+    holds more midpoints of one sign than the kernel compares (one)."""
+    table, lo = tquant.bucket_table(signed)
+    mids = tquant.codebook_midpoints(signed)
+    nb = table.shape[1]
+    assert table.shape == (2, nb, 2) and table.dtype == np.uint32
+    assert table.nbytes <= 48 * 1024          # the kernel's shared memory
+    held = table[:, :, 0].view(np.float32)
+    for row, sign in ((0, mids > 0), (1, mids < 0)):
+        stored = held[row][np.isfinite(held[row])]
+        np.testing.assert_array_equal(np.sort(stored), mids[sign])
+        bucket = (np.abs(mids[sign]).view(np.uint32)
+                  >> tquant.BUCKET_SHIFT).astype(np.int64) - lo
+        assert ((bucket >= 0) & (bucket < nb)).all()
+        assert np.bincount(bucket, minlength=1).max() <= 1
+        np.testing.assert_array_equal(held[row][bucket], mids[sign])
+    assert not (held == -np.inf).any()
+    assert nb == (1342 if signed else 1558)
+    # |v| <= 1 never needs the upper clamp: 1.0 is in the last bucket
+    top = np.float32(1.0).view(np.uint32) >> tquant.BUCKET_SHIFT
+    assert top - lo == nb - 1
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_bucket_lookup_equals_searchsorted(signed):
+    """The kernel's lookup, emulated from the table ``ops/quant.py``
+    builds, against ``searchsorted`` (left) on every 64th float32 bit
+    pattern in [-1, 1], every midpoint and its two neighbours, and the
+    edges: +-0.0, +-inf, NaN, subnormals, +-1 and magnitudes past 1 (a NaN
+    in a block leaves its scale at 1)."""
+    table, lo = tquant.bucket_table(signed)
+    mids = tquant.codebook_midpoints(signed)
+    one = int(np.float32(1.0).view(np.uint32))
+    for sign in (0, 0x80000000):
+        for start in range(0, one + 1, 1 << 25):
+            bits = np.arange(start, min(start + (1 << 25), one + 1), 64,
+                             dtype=np.uint32) | np.uint32(sign)
+            v = bits.view(np.float32)
+            np.testing.assert_array_equal(_bucket_lookup(v, table, lo),
+                                          _search(v, mids))
+    tiny = np.float32(np.finfo(np.float32).smallest_subnormal)
+    edges = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0, tiny,
+                      -tiny, tiny * 1000, -tiny * 1000,
+                      np.finfo(np.float32).tiny, -np.finfo(np.float32).tiny,
+                      1.5, -1.5, 3e38, -3e38], np.float32)
+    near = np.concatenate([mids, np.nextafter(mids, np.float32(np.inf)),
+                           np.nextafter(mids, np.float32(-np.inf)), edges])
+    got = _bucket_lookup(near, table, lo)
+    np.testing.assert_array_equal(got, _search(near, mids))
+    # on a midpoint: the lower code; just above: the next
+    k = np.arange(mids.size)
+    np.testing.assert_array_equal(got[:mids.size], k)
+    np.testing.assert_array_equal(got[mids.size:2 * mids.size], k + 1)
+    assert _bucket_lookup(np.array([np.nan], np.float32), table, lo)[0] == 0
+    zero_code = int(np.searchsorted(mids, 0.0))
+    np.testing.assert_array_equal(
+        _bucket_lookup(np.array([0.0, -0.0, tiny], np.float32), table, lo),
+        zero_code)
+    assert _bucket_lookup(np.array([np.inf, -np.inf], np.float32), table,
+                          lo).tolist() == [255, 0]
+
+
+@pytest.mark.parametrize("block", [1, 100, 127, 4097, 32768])
+@pytest.mark.parametrize("signed", [True, False])
+def test_quantize_blockwise_any_block_size_matches_jax(block, signed):
+    """Block sizes that are not multiples of 128 (the JAX package computes
+    them through its XLA path): codes and absmax equal, ragged tails
+    included."""
+    rng = np.random.default_rng(block)
+    n = 2 * 32768 + 1001
+    x = (rng.standard_normal(n) * rng.choice([1e-6, 1.0, 100.0], n)
+         ).astype(np.float32)
+    x[::11] = 0.0
+    if not signed:
+        x = np.abs(x)
+    got = tquant.quantize_blockwise(torch.from_numpy(x), block, signed=signed)
+    want = jquant.quantize_blockwise(jnp.asarray(x), block, signed=signed,
+                                     use_pallas=False)
+    assert got.codes.shape == (-(-n // block), block)
+    np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
+    np.testing.assert_array_equal(got.absmax.numpy(),
+                                  np.asarray(want.absmax))
+    np.testing.assert_array_equal(
+        tquant.dequantize_blockwise(got).numpy(),
+        np.asarray(jquant.dequantize_blockwise(want, use_tree=False)))
 
 # -- the 8-bit LAMB ----------------------------------------------------------
 
@@ -237,6 +347,37 @@ def test_lamb8bit_matches_jax_over_three_updates(clip):
                                    err_msg=name)
     assert optimizer_state_bytes(state) == jax_state_bytes(jstate)
 
+
+
+def test_lamb8bit_block_size_100_matches_jax():
+    """``block_size=100`` (not a multiple of 128): from both packages' own
+    init, one update on the same gradients gives identical moment codes
+    and absmax and the same parameters."""
+    jcfg, tcfg, params = _tiny()
+    opt = dict(OPT, block_size=100)
+    jtx = jax_lamb8bit(jconfig.OptimizerConfig(max_grad_norm=None, **opt))
+    tx = make_optimizer(tconfig.OptimizerConfig(max_grad_norm=None, **opt))
+    jstate = jtx.init(params)
+    model = params_from_jax(jax.tree.map(np.asarray, params), tcfg)
+    state = tx.init(model)
+    assert _assert_moments(state, jstate, tcfg, exact=True) > 4
+    assert {m.codes.shape[1] for m in state.mu.values()
+            if isinstance(m, tquant.Quantized)} == {100}
+    jgrads = _grads(params, 5, 0.1)
+    grads = {n: p.detach() for n, p in params_from_jax(
+        jgrads, tcfg).named_parameters()}
+    upd, jstate = jtx.update(jgrads, jstate, params)
+    params = optax.apply_updates(params, upd)
+    updates, state = tx.update(grads, state, model)
+    apply_updates(model, updates)
+    _assert_moments(state, jstate, tcfg, exact=True)
+    want = dict(params_from_jax(jax.tree.map(np.asarray, params),
+                                tcfg).named_parameters())
+    for name, p in model.named_parameters():
+        w = want[name].detach().numpy()
+        np.testing.assert_allclose(p.detach().numpy(), w, rtol=0,
+                                   atol=1e-6 * float(np.abs(w).max()),
+                                   err_msg=name)
 
 def test_lamb8bit_init_quantizes_from_min_8bit_size():
     """Tensors of at least ``min_8bit_size`` elements (the threshold
