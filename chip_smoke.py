@@ -29,7 +29,24 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    (``ops.GENERIC_LAUNCHES`` stays 0);
 4. teacher-forced cached decode of one sequence against the forward's
    logits on the card;
-5. ``generate_images`` for 2 captions x 2 images (temperature 1, top-k 64);
+5. ``generate_images`` for 2 captions x 2 seeds (temperature 1, top-k 64;
+   the fourth row greedy), one noise seed a row;
+   then the serving slice on the same model (no kernel runs there: the
+   counters must not move): a ``DecodeEngine`` (4 slots, 8-position
+   chunks, a 256 MiB prefix cache) whose chunk is one CUDA graph a visible
+   bucket, a ``PixelPipeline`` on its own stream with a full-size VQGAN
+   decoder and CLIP ViT-B/32 (random weights from the seed), behind a
+   ``ServingHTTPServer`` on 127.0.0.1: wave 1 posts the four requests of
+   the ``generate_images`` call (cold), wave 2 the same four in reverse
+   order (warm: each in another slot, every one a prefix hit); wave 2's
+   codes must equal wave 1's bitwise, every reply carries 1024 codes, a
+   (256, 256, 3) image and a finite CLIP score, and the probes answer 200;
+   then, at every bucket, one graph-replayed chunk equals the eager chunk
+   bitwise from the same live state; the VQGAN decode and one CLIP score
+   on the card within 1e-4 of the CPU; with the eager and replayed ms a
+   position, per-request TTFT and latency, img/s a wave, pixel ms an
+   image, KV and prefix-entry bytes, peak memory and the device-idle share
+   of one traced chunk replay;
 6. each of the four backward kernels against its plain backward on the
    card at the flagship shapes, run twice (bitwise-equal outputs), with
    the same times, bound and library yardstick (autograd of the PyTorch
@@ -219,11 +236,12 @@ def pass_ms(torch, fn, args, marks) -> dict:
     return out
 
 
-def profile_run(torch, fn, args, path: str, phase: str) -> None:
+def profile_run(torch, fn, args, path, phase: str) -> dict:
     """Trace one call of ``fn`` (a first traced call warms the tracer):
     device time by kernel, and the device's busy share of the host's wall
-    clock over the traced call. Kernel rows are the rows with device time
-    and no host time of their own."""
+    clock over the traced call (with ``path``, the table is appended
+    there). Kernel rows are the rows with device time and no host time of
+    their own."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU,
@@ -243,15 +261,247 @@ def profile_run(torch, fn, args, path: str, phase: str) -> None:
     for key, ms, _ in dev:
         cls = kernel_class(key)
         classes[cls] = classes.get(cls, 0.0) + ms
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "a") as f:
-        f.write(f"== {phase} ==\n")
-        f.write(events.table(sort_by="self_device_time_total",
-                             row_limit=80))
-        f.write("\n")
-    emit(phase=phase, wall_ms=wall_ms, device_busy_ms=busy,
-         device_idle_share=1.0 - busy / wall_ms, classes_ms=classes,
-         top=[dict(kernel=k[:90], ms=ms, calls=n) for k, ms, n in dev[:16]])
+    if path:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "a") as f:
+            f.write(f"== {phase} ==\n")
+            f.write(events.table(sort_by="self_device_time_total",
+                                 row_limit=80))
+            f.write("\n")
+    rec = dict(wall_ms=wall_ms, device_busy_ms=busy,
+               device_idle_share=1.0 - busy / wall_ms, classes_ms=classes,
+               top=[dict(kernel=k[:90], ms=ms, calls=n)
+                    for k, ms, n in dev[:16]])
+    emit(phase=phase, **rec)
+    return rec
+
+
+def serving_phase(torch, np, dev, smi, model, captions, seeds, knobs,
+                  gen_codes, release_memory) -> None:
+    """Phase 5b: the serving slice on the phase-3 model (see the module
+    docstring). Runs no kernel of the port; every check raises."""
+    import copy
+    import threading
+    import urllib.request
+
+    from dalle_tpu_torch.cli.run_server import pixel_fns
+    from dalle_tpu_torch.config import ServingConfig
+    from dalle_tpu_torch.models import clip as tclip
+    from dalle_tpu_torch.models import vqgan as tvqgan
+    from dalle_tpu_torch.models.decode import SamplingConfig
+    from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, reset_launches
+    from dalle_tpu_torch.serving.engine import DecodeEngine
+    from dalle_tpu_torch.serving.pixels import PixelPipeline
+    from dalle_tpu_torch.serving.prefix_cache import prefix_entry_bytes
+    from dalle_tpu_torch.serving.scheduler import kv_bytes_per_slot
+    from dalle_tpu_torch.serving.server import ServingHTTPServer
+
+    cfg = model.cfg
+    total, n_img = cfg.total_seq_len, cfg.image_seq_len
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    serving = ServingConfig(n_slots=4, steps_per_call=8, prefix_cache_mb=256)
+    pgen = torch.Generator(device=dev).manual_seed(SEED)
+    vqgan = tvqgan.init_params(tvqgan.VQGANConfig(), pgen)
+    clip = tclip.init_params(tclip.CLIPConfig(), pgen)
+    # CLIP takes token ids: start, 9 random ids, end (the largest id)
+    ctx, vocab = clip.cfg.context_length, clip.cfg.vocab_size
+    clip_tokens = torch.zeros((1, ctx), dtype=torch.long)
+    clip_tokens[0, 1:10] = torch.randint(1, vocab - 2, (9,), generator=torch
+                                         .Generator().manual_seed(SEED))
+    clip_tokens[0, 0], clip_tokens[0, 10] = vocab - 2, vocab - 1
+    clip_tokens = clip_tokens.to(dev)
+    pixel_fn, degraded_fn = pixel_fns(vqgan, clip, clip_tokens)
+    pipeline = PixelPipeline(pixel_fn, degraded_fn=degraded_fn,
+                             stream=torch.cuda.Stream(dev))
+    engine = DecodeEngine(model, cfg, serving,
+                          sampling=SamplingConfig(1.0, 64),
+                          pixel_pipeline=pipeline)
+    t0 = time.perf_counter()
+    engine.start()                      # captures one graph a bucket
+    capture_s = time.perf_counter() - t0
+    runner = engine.runner
+    if sorted(runner.graphs) != runner.bounds:
+        raise AssertionError(f"captured {sorted(runner.graphs)}, buckets "
+                             f"{runner.bounds}")
+    httpd = ServingHTTPServer(("127.0.0.1", 0), engine,
+                              request_timeout_s=600.0)
+    http = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    bodies = [dict(tokens=captions[i // 2].tolist(), seed=seeds[i],
+                   temperature=t, top_k=k, top_p=p)
+              for i, (t, k, p) in enumerate(knobs)]
+
+    def post(i, out):
+        req = urllib.request.Request(
+            url + "/generate", data=json.dumps(bodies[i]).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                out[i] = (resp.status, json.loads(resp.read()))
+        except Exception as e:  # noqa: BLE001 - reported by the wave
+            out[i] = (None, repr(e))
+
+    def wave(order):
+        """The four requests posted in ``order``, admitted at one chunk
+        boundary: the scheduler's live clamp is held at 0 until all four
+        are queued (so the slots decode in lockstep)."""
+        base = engine.stats()["submitted"]
+        engine.scheduler.max_live = 0
+        out, threads = [None] * 4, []
+        t0 = time.perf_counter()
+        for n, i in enumerate(order):
+            threads.append(threading.Thread(target=post, args=(i, out)))
+            threads[-1].start()
+            limit = time.monotonic() + 60
+            while engine.stats()["submitted"] < base + n + 1:
+                if time.monotonic() > limit:
+                    raise AssertionError(f"request {i} never queued: {out}")
+                time.sleep(0.002)
+        engine.scheduler.max_live = serving.n_slots
+        for th in threads:
+            th.join(600)
+        wall = time.perf_counter() - t0
+        rows = []
+        for i, (status, body) in enumerate(out):
+            if status != 200:
+                raise AssertionError(f"request {i}: {status} {body}")
+            row = body["results"][0]
+            codes = np.asarray(row["codes"])
+            if (codes.shape != (n_img,) or codes.min() < 0
+                    or codes.max() >= cfg.vocab_image):
+                raise AssertionError(f"request {i}: codes {codes.shape} "
+                                     f"{codes.min()}..{codes.max()}")
+            if row["image_shape"] != [256, 256, 3] or not math.isfinite(
+                    row["clip_score"]):
+                raise AssertionError(f"request {i}: image "
+                                     f"{row['image_shape']}, clip score "
+                                     f"{row['clip_score']}")
+            rows.append(row)
+        return rows, wall
+
+    cold, cold_s = wave([0, 1, 2, 3])
+    warm, warm_s = wave([3, 2, 1, 0])      # each lands in another slot
+    for i, (c, w) in enumerate(zip(cold, warm)):
+        if c["codes"] != w["codes"]:
+            first = int(np.argmax(np.asarray(c["codes"])
+                                  != np.asarray(w["codes"])))
+            raise AssertionError(f"request {i}: warm codes differ from "
+                                 f"cold from code {first}")
+    stats = engine.stats()
+    if (stats["prefix_hits"], stats["prefix_misses"]) != (4, 4) or not all(
+            w.get("prefix_hit") for w in warm):
+        raise AssertionError(f"prefix counters {stats['prefix_hits']} hits "
+                             f"/ {stats['prefix_misses']} misses, expected "
+                             "4 / 4")
+    probes = {}
+    for path in ("/healthz", "/readyz", "/metrics"):
+        with urllib.request.urlopen(url + path, timeout=30) as resp:
+            probes[path] = resp.status
+    if set(probes.values()) != {200}:
+        raise AssertionError(f"probes {probes}")
+    leading = []
+    for i, row in enumerate(cold):
+        same = np.asarray(row["codes"]) == gen_codes[i]
+        leading.append(int(n_img if same.all() else np.argmin(same)))
+
+    # one chunk at every bucket: graph replay == eager, bitwise, from four
+    # live slots just below the bound on the cache the waves left
+    torch.cuda.synchronize()
+    st = runner.state
+    eager_ms, graph_ms = [], []
+    for visible in runner.bounds:
+        pos = [max(0, visible - serving.steps_per_call - 3 * j)
+               for j in range(4)]
+        st.pos.copy_(torch.tensor(pos))
+        st.tokens.copy_(st.text[:, 0])
+        st.seeds.copy_(torch.tensor(seeds))
+        for name, k in zip(("temp", "top_k", "top_p"), zip(*knobs)):
+            getattr(st, name).copy_(torch.tensor(k))
+        differ = runner.replay_equals_eager(visible)
+        if differ:
+            raise AssertionError(f"bucket {visible}: graph replay and eager "
+                                 f"chunk differ in {differ}")
+        saved = st.pos.clone()
+        for run, out in ((runner.eager, eager_ms), (runner.run, graph_ms)):
+            st.pos.copy_(saved)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(visible)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3
+                       / serving.steps_per_call)
+    st.pos.copy_(saved)
+    trace = profile_run(torch, runner.run, (runner.bounds[-1],), None,
+                        "serving_chunk_trace")
+    st.pos.fill_(total)                    # every slot free again
+
+    # the pixel stage: ms an image, and the card against the CPU in f32
+    row = np.asarray(cold[0]["codes"], np.int32)
+    pixel_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pixel_fn(row)
+        torch.cuda.synchronize()
+        pixel_ms.append((time.perf_counter() - t0) * 1e3)
+    codes_t = torch.from_numpy(row[None]).long()
+    with torch.no_grad():
+        img_card = vqgan(codes_t.to(dev))
+        vq_cpu = copy.deepcopy(vqgan).cpu()
+        img_cpu = vq_cpu(codes_t)
+    u8 = tvqgan.decode_codes(vq_cpu, codes_t)
+    clip_in = tclip.resize_for_clip(u8, clip.cfg)
+    score_card = tclip.clip_scores(clip, clip_in.to(dev), clip_tokens)
+    score_cpu = tclip.clip_scores(copy.deepcopy(clip).cpu(), clip_in,
+                                  clip_tokens.cpu())
+    pix_err = {}
+    for name, got, want in (("vqgan", img_card.cpu(), img_cpu),
+                            ("clip", score_card.cpu(), score_cpu)):
+        err = (got - want).abs()
+        if not (bool(torch.isfinite(got).all())
+                and bool((err <= 1e-4 + 1e-4 * want.abs()).all())):
+            raise AssertionError(f"{name} on the card vs the CPU: max "
+                                 f"|diff| {err.max().item()}")
+        pix_err[name] = err.max().item()
+    if any(LAUNCHES.values()) or any(GENERIC_LAUNCHES.values()):
+        raise AssertionError(f"the serving slice launched port kernels: "
+                             f"{dict(LAUNCHES)} {dict(GENERIC_LAUNCHES)}")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in st.cache.values()) // serving.n_slots
+    if cache_bytes != kv_bytes_per_slot(cfg):
+        raise AssertionError(f"KV bytes a slot {cache_bytes} != "
+                             f"{kv_bytes_per_slot(cfg)}")
+    peak = torch.cuda.max_memory_allocated()
+    httpd.shutdown()
+    httpd.server_close()
+    engine.stop()
+    http.join(30)
+    emit(phase="serving", card=smi, n_slots=serving.n_slots,
+         steps_per_call=serving.steps_per_call, buckets=runner.bounds,
+         capture_s=capture_s, eager_ms_per_position=eager_ms,
+         graph_ms_per_position=graph_ms,
+         requests=[dict(wave=w, request=i, seed=seeds[i],
+                        sampling=dict(zip(SamplingConfig._fields, knobs[i])),
+                        ttft_s=r["ttft_s"], latency_s=r["latency_s"],
+                        queue_wait_s=r["queue_wait_s"],
+                        prefix_hit=r.get("prefix_hit"),
+                        clip_score=r["clip_score"])
+                   for w, rows in (("cold", cold), ("warm", warm))
+                   for i, r in enumerate(rows)],
+         wave_s=dict(cold=cold_s, warm=warm_s),
+         img_per_s=dict(cold=4 / cold_s, warm=4 / warm_s),
+         warm_equals_cold=True, prefix=engine.prefix_cache.stats(),
+         leading_codes_equal_generate_images=leading,
+         pixel_ms_per_image=pixel_ms, pixels_vs_cpu_max_abs_err=pix_err,
+         kv_bytes_per_slot=cache_bytes,
+         prefix_entry_bytes=prefix_entry_bytes(cfg),
+         peak_mem_gb=peak / 1e9, probes=probes,
+         chunk_trace=trace, launches=dict(LAUNCHES))
+    del engine, pipeline, vqgan, clip, vq_cpu
+    release_memory()
 
 
 def main() -> int:
@@ -672,12 +922,15 @@ def main() -> int:
     captions = torch.from_numpy(rng.integers(1, cfg.vocab_text,
                                              (2, TT))).to(dev)
     prompts = captions.repeat_interleave(2, dim=0)
-    sampling = SamplingConfig(temperature=1.0, top_k=64)
+    # two seeds a caption; rows 0-2 temperature 1 and top-k 64, row 3
+    # greedy: the four requests of the serving waves below
+    seeds = [1, 2, 1, 2]
+    knobs = [(1.0, 64, 1.0)] * 3 + [(0.0, 64, 1.0)]
+    sampling = SamplingConfig(*(torch.tensor(k, device=dev)
+                                for k in zip(*knobs)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    codes = generate_images(model, prompts,
-                            torch.Generator(device=dev).manual_seed(1),
-                            sampling)
+    codes = generate_images(model, prompts, seeds, sampling)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     if (tuple(codes.shape) != (4, cfg.image_seq_len)
@@ -685,9 +938,14 @@ def main() -> int:
         raise AssertionError(f"generated codes out of range: "
                              f"{tuple(codes.shape)}, {codes.min().item()}.."
                              f"{codes.max().item()}")
-    emit(phase="generate", images=4, captions=2, sampling=sampling._asdict(),
+    emit(phase="generate", images=4, captions=2, seeds=seeds,
+         sampling=[dict(zip(SamplingConfig._fields, k)) for k in knobs],
          seconds=gen_s, img_per_s=4 / gen_s,
+         ms_per_position=gen_s * 1e3 / T,
          distinct_codes=int(codes.unique().numel()))
+
+    serving_phase(torch, np, dev, smi, model, captions, seeds, knobs,
+                  codes.cpu().numpy(), release_memory)
 
     del model, fn, logits, got, cache, codes
     torch.cuda.synchronize()

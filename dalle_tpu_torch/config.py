@@ -206,3 +206,148 @@ class OptimizerConfig:
     state_bits: int = 8
     block_size: int = 4096
     min_8bit_size: int = 65536
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """Continuous-batching decode engine knobs (``serving/``): the JAX
+    package's ``ServingConfig``, field for field, with its defaults.
+
+    The reference has no serving path at all (its inference tool is a
+    one-shot CLI); these knobs size the slot-recycled KV-cache engine
+    that replaces whole-batch lockstep decode for online traffic.
+    """
+
+    # KV-cache slots = max concurrently decoding requests. The cache is
+    # allocated once at this batch size; a finished slot is recycled
+    # immediately from the request queue (image generation is fixed-
+    # length, so staggered admission gives staggered completion).
+    n_slots: int = 4
+    # Decode positions advanced per chunk call (one CUDA graph replay on
+    # the card). Admission, completion
+    # harvest and metrics sampling happen at call boundaries, so this is
+    # the scheduling granularity: smaller = finer admission latency,
+    # larger = less host-loop overhead per token.
+    steps_per_call: int = 8
+    # Cap on KV-cache bytes the engine may OCCUPY concurrently; caps
+    # admitted slots at floor(budget / bytes-per-slot) when set. The
+    # cache itself is statically allocated at n_slots (the captured
+    # graphs need static shapes) — the budget models co-tenancy
+    # pressure (HBM shared with a trainer or a second engine) by
+    # bounding live occupancy.
+    kv_budget_mb: Optional[int] = None
+    # Prefix-bucket count for the statically-truncated cache reads
+    # (models/decode.py resolve_buckets); None = the measured adaptive
+    # choice for n_slots. Each bucket captures one chunk graph.
+    decode_buckets: Optional[int] = None
+    # Cap on requests admitted per chunk boundary (None = all eligible).
+    # The pipelined loop scatters each admission batch as ONE
+    # dispatch; bounding the burst keeps a cold start against a deep
+    # queue from wedging one outsized scatter between chunks.
+    admit_burst: Optional[int] = None
+    # Fall back to the r8 host-synchronous loop: block on a device→host
+    # position pull after every chunk instead of scheduling from the
+    # deterministic host mirror. Exists as the A/B baseline for
+    # scripts/engine_loop_bench.py and as a debug escape hatch — the
+    # pulled values always equal the mirror, so this buys nothing but
+    # the stall it measures.
+    host_sync_loop: bool = False
+    # Queued (not yet admitted) requests beyond this are rejected at
+    # submit — backpressure instead of unbounded growth. The capacity
+    # is shared across priority lanes.
+    queue_capacity: int = 256
+    # Starvation bound for the low priority lane: after this many
+    # consecutive boundaries where the low lane had queued work but
+    # every grant went high, one admission is reserved for it. None =
+    # strict priority (the low lane may starve under sustained load).
+    low_lane_bypass: Optional[int] = 8
+    # Default per-request completion deadline (seconds from submit)
+    # when the request carries none; None = no deadline (never shed).
+    # A request whose predicted completion (queue depth x measured
+    # decode cadence) misses its deadline is SHED at submit, before
+    # any decode is spent.
+    default_deadline_s: Optional[float] = None
+    # Brownout hysteresis: degraded serving (front-end trims n_images
+    # to brownout_max_images, pixel stage skips CLIP rerank) engages
+    # once the queue sits at/above high_frac x queue_capacity for
+    # hold_s seconds, and disengages at low_frac x queue_capacity.
+    brownout_high_frac: float = 0.75
+    brownout_low_frac: float = 0.25
+    brownout_hold_s: float = 1.0
+    brownout_max_images: int = 1
+    # Prompt-prefix KV cache (serving/prefix_cache.py): pool the
+    # teacher-forced text-segment KV per distinct prompt on device and
+    # admit repeated prompts at pos = text_seq_len, skipping their
+    # whole text prefill (bit-exact to the cold path — the text KV is
+    # a pure function of the prompt; pinned by test). The value is the
+    # pool's byte budget in MB (fixed-size entries, LRU eviction); when
+    # kv_budget_mb is also set the pool is RESERVED out of it, so the
+    # engine's total KV footprint stays under the one existing budget.
+    # None (the default) disables the pool — admission byte-identical
+    # to the r12 path.
+    prefix_cache_mb: Optional[float] = None
+    # Serving fault plan (serving/chaos.py ServeFaultPlan: inline JSON
+    # or a file path). None = the bit-transparent clean path.
+    chaos_plan: Optional[str] = None
+    # How long a front-end waits on a request future before 504 (the
+    # timeout also CANCELS the request mid-decode — slots are
+    # reclaimed, not left decoding for a client that gave up).
+    request_timeout_s: float = 300.0
+    # stop(drain=True) bound: finish queued + in-flight work within this
+    # window, then the engine thread is joined regardless.
+    drain_timeout_s: float = 60.0
+    # Serving front-end bind address (stdlib HTTP server).
+    http_host: str = "127.0.0.1"
+    http_port: int = 8080
+    # Seconds between metrics JSONL snapshot rows (0 disables).
+    metrics_interval_s: float = 5.0
+    # Flight recorder (dalle_tpu/obs, OBSERVABILITY.md): append the
+    # engine's request-lifecycle spans (submit → admit → first_code →
+    # harvest → pixels → complete, trace id = the request id) plus
+    # chunk-cadence spans as JSONL. None (the default) records
+    # nothing; the engine loop pays one `is None` test.
+    trace_file: Optional[str] = None
+    trace_ring_kb: int = 256
+
+    def validate(self) -> None:
+        if self.n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1 (got {self.n_slots})")
+        if self.steps_per_call < 1:
+            raise ValueError(
+                f"steps_per_call must be >= 1 (got {self.steps_per_call})")
+        if self.queue_capacity < 1:
+            raise ValueError(
+                f"queue_capacity must be >= 1 (got {self.queue_capacity})")
+        if self.admit_burst is not None and self.admit_burst < 1:
+            raise ValueError(
+                f"admit_burst must be >= 1 or None (got {self.admit_burst})")
+        if self.low_lane_bypass is not None and self.low_lane_bypass < 1:
+            raise ValueError(
+                f"low_lane_bypass must be >= 1 or None "
+                f"(got {self.low_lane_bypass})")
+        if self.default_deadline_s is not None \
+                and not self.default_deadline_s > 0:
+            raise ValueError(
+                f"default_deadline_s must be > 0 or None "
+                f"(got {self.default_deadline_s})")
+        if not 0.0 < self.brownout_high_frac <= 1.0:
+            raise ValueError(
+                f"brownout_high_frac must be in (0, 1] "
+                f"(got {self.brownout_high_frac})")
+        if not 0.0 <= self.brownout_low_frac < self.brownout_high_frac:
+            raise ValueError(
+                "brownout_low_frac must satisfy 0 <= low < high_frac "
+                f"(got {self.brownout_low_frac})")
+        if self.brownout_hold_s < 0:
+            raise ValueError(
+                f"brownout_hold_s must be >= 0 "
+                f"(got {self.brownout_hold_s})")
+        if self.brownout_max_images < 1:
+            raise ValueError(
+                f"brownout_max_images must be >= 1 "
+                f"(got {self.brownout_max_images})")
+        if self.prefix_cache_mb is not None \
+                and not self.prefix_cache_mb > 0:
+            raise ValueError(
+                f"prefix_cache_mb must be > 0 or None "
+                f"(got {self.prefix_cache_mb})")

@@ -158,3 +158,111 @@ def params_to_jax(model: DALLE) -> Dict:
             node = node.setdefault(key, {})
         node[path[-1]] = _to_numpy(t)
     return {"params": out}
+
+
+def _conv_from_flax(kernel) -> torch.Tensor:
+    """flax conv kernel (kh, kw, I, O) -> torch (O, I, kh, kw)."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.transpose(np.asarray(kernel, np.float32), (3, 2, 0, 1))))
+
+
+def _f32(arr) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, np.float32))
+
+
+def vqgan_from_jax(tree, cfg):
+    """A :class:`~dalle_tpu_torch.models.vqgan.VQGANDecoder` with the
+    weights of the JAX package's ``VQGANDecoder`` parameters (``{"params":
+    ...}``): the inverse of ``dalle_tpu.models.vqgan.map_taming_state_dict``
+    (flax names -> taming's)."""
+    from dalle_tpu_torch.models.vqgan import VQGANDecoder
+
+    p = tree["params"] if "params" in tree else tree
+    sd: Dict[str, torch.Tensor] = {
+        "quantize.embedding.weight": _f32(p["codebook"])}
+
+    def conv(prefix, leaf):
+        sd[f"{prefix}.weight"] = _conv_from_flax(leaf["kernel"])
+        sd[f"{prefix}.bias"] = _f32(leaf["bias"])
+
+    def norm(prefix, leaf):
+        sd[f"{prefix}.weight"] = _f32(leaf["scale"])
+        sd[f"{prefix}.bias"] = _f32(leaf["bias"])
+
+    def block(prefix, leaf):
+        for name, sub in leaf.items():
+            (norm if name.startswith("norm") else conv)(
+                f"{prefix}.{name}", sub)
+
+    conv("post_quant_conv", p["post_quant_conv"])
+    conv("decoder.conv_in", p["conv_in"])
+    for name in ("block_1", "attn_1", "block_2"):
+        block(f"decoder.mid.{name}", p[f"mid_{name}"])
+    for name, leaf in p.items():
+        if name.startswith("up_"):
+            _, level, kind, *idx = name.split("_")
+            prefix = (f"decoder.up.{level}.upsample.conv"
+                      if kind == "upsample"
+                      else f"decoder.up.{level}.{kind}.{idx[0]}")
+            (conv if kind == "upsample" else block)(prefix, leaf)
+    norm("decoder.norm_out", p["norm_out"])
+    conv("decoder.conv_out", p["conv_out"])
+    model = VQGANDecoder(cfg)
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def clip_from_jax(tree, cfg):
+    """A :class:`~dalle_tpu_torch.models.clip.CLIPModel` with the weights
+    of the JAX package's ``CLIPModel`` parameters: the inverse of
+    ``dalle_tpu.models.clip.map_openai_state_dict`` (per-head flax
+    attention kernels -> the packed ``in_proj_weight``)."""
+    from dalle_tpu_torch.models.clip import CLIPModel
+
+    p = tree["params"] if "params" in tree else tree
+    sd: Dict[str, torch.Tensor] = {}
+
+    def ln(prefix, leaf):
+        sd[f"{prefix}.weight"] = _f32(leaf["scale"])
+        sd[f"{prefix}.bias"] = _f32(leaf["bias"])
+
+    def dense(prefix, leaf):
+        sd[f"{prefix}.weight"] = _f32(leaf["kernel"]).t().contiguous()
+        sd[f"{prefix}.bias"] = _f32(leaf["bias"])
+
+    def block(prefix, leaf, width):
+        attn = leaf["attn"]
+        sd[f"{prefix}.attn.in_proj_weight"] = torch.cat([
+            _f32(attn[n]["kernel"]).reshape(width, width).t()
+            for n in ("query", "key", "value")])
+        sd[f"{prefix}.attn.in_proj_bias"] = torch.cat([
+            _f32(attn[n]["bias"]).reshape(width)
+            for n in ("query", "key", "value")])
+        sd[f"{prefix}.attn.out_proj.weight"] = _f32(
+            attn["out"]["kernel"]).reshape(width, width).t().contiguous()
+        sd[f"{prefix}.attn.out_proj.bias"] = _f32(attn["out"]["bias"])
+        ln(f"{prefix}.ln_1", leaf["ln_1"])
+        ln(f"{prefix}.ln_2", leaf["ln_2"])
+        dense(f"{prefix}.mlp.c_fc", leaf["mlp_fc"])
+        dense(f"{prefix}.mlp.c_proj", leaf["mlp_proj"])
+
+    sd["visual.conv1.weight"] = _conv_from_flax(p["patch_embed"]["kernel"])
+    sd["visual.class_embedding"] = _f32(p["class_embedding"])
+    sd["visual.positional_embedding"] = _f32(p["vision_pos"])
+    ln("visual.ln_pre", p["ln_pre"])
+    ln("visual.ln_post", p["ln_post"])
+    sd["visual.proj"] = _f32(p["vision_proj"])
+    sd["token_embedding.weight"] = _f32(p["token_embedding"])
+    sd["positional_embedding"] = _f32(p["text_pos"])
+    ln("ln_final", p["ln_final"])
+    sd["text_projection"] = _f32(p["text_proj"])
+    sd["logit_scale"] = _f32(p["logit_scale"])
+    for i in range(cfg.vision_layers):
+        block(f"visual.transformer.resblocks.{i}", p[f"vision_block_{i}"],
+              cfg.vision_width)
+    for i in range(cfg.text_layers):
+        block(f"transformer.resblocks.{i}", p[f"text_block_{i}"],
+              cfg.text_width)
+    model = CLIPModel(cfg)
+    model.load_state_dict(sd)
+    return model.eval()

@@ -606,3 +606,113 @@ def test_cuda_tiny_model_matches_cpu(cuda_device, name):
     for key, g in grads_c.items():
         torch.testing.assert_close(grads_g[key].cpu(), g, msg=key,
                                    **MODEL_TOL)
+
+
+# -- the serving slice on the card: no kernel, CUDA graphs ----------------
+
+def _live_slots(runner, visible, seed):
+    """Every slot live just below ``visible`` (at different positions),
+    with random cache contents, inputs, seeds and per-slot knobs."""
+    st, cfg = runner.state, runner.model.cfg
+    s, dev = st.pos.shape[0], st.pos.device
+    g = torch.Generator().manual_seed(seed)
+    pos = [max(0, visible - runner.n_steps - 3 * i) for i in range(s)]
+    st.pos.copy_(torch.tensor(pos))
+    st.tokens.copy_(torch.randint(0, cfg.vocab_text, (s,), generator=g))
+    st.seeds.copy_(torch.randint(0, 2 ** 62, (s,), generator=g))
+    st.text.copy_(torch.randint(1, cfg.vocab_text, st.text.shape,
+                                generator=g))
+    st.temp.copy_(torch.tensor([1.0, 0.0, 0.7, 1.0] * s)[:s])
+    st.top_k.copy_(torch.tensor([64, 0, 5, 0] * s)[:s])
+    st.top_p.copy_(torch.tensor([1.0, 1.0, 0.9, 0.8] * s)[:s])
+    for t in st.cache.values():
+        t.copy_(torch.randn(t.shape, generator=g).to(t.dtype).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tiny", "flagship"])
+def test_cuda_chunk_graph_equals_eager(cuda_device, name):
+    """The engine's captured chunk against the same chunk run eagerly,
+    bitwise, from the same live state, at every visible bucket: the tiny
+    f32 config and the full-width flagship in bf16 (4 slots, 8 steps)."""
+    from dalle_tpu_torch import resolve_device
+    from dalle_tpu_torch.config import flagship_model_config
+    from dalle_tpu_torch.models.decode import bucket_bounds
+    from dalle_tpu_torch.serving.engine import ChunkRunner, init_state
+
+    dev = resolve_device("cuda")
+    cfg = (tiny_model_config(attn_types=("axial_row", "axial_col"), depth=2)
+           if name == "tiny"
+           else flagship_model_config(param_dtype="bfloat16"))
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    bounds = bucket_bounds(cfg.total_seq_len, 4)
+    runner = ChunkRunner(model, init_state(cfg, 4, dev), 8, bounds)
+    runner.capture()
+    assert sorted(runner.graphs) == bounds
+    reset_launches()
+    for i, visible in enumerate(bounds):
+        _live_slots(runner, visible, i)
+        assert runner.replay_equals_eager(visible) == [], visible
+    assert all(v == 0 for v in LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_cuda_engine_greedy_codes_equal_cpu(cuda_device):
+    """The tiny engine on the card (graph replays, 2 slots, staggered and
+    recycled) gives the greedy codes the same weights give on the CPU."""
+    import time
+
+    from dalle_tpu_torch import resolve_device
+    from dalle_tpu_torch.config import ServingConfig
+    from dalle_tpu_torch.models.decode import SamplingConfig
+    from dalle_tpu_torch.serving.engine import DecodeEngine
+
+    dev = resolve_device("cuda")
+    cfg, cpu, card, _, _ = _tiny_pair(cuda_device, dict(
+        attn_types=("axial_row", "axial_col"), depth=2))
+    texts = [np.random.default_rng(i).integers(2, cfg.vocab_text,
+                                               cfg.text_seq_len)
+             for i in range(4)]
+    rows = {}
+    for where, model in (("cpu", cpu), ("cuda", card.to(dev))):
+        engine = DecodeEngine(model, cfg, ServingConfig(
+            n_slots=2, steps_per_call=4), sampling=SamplingConfig(0.0))
+        engine.start()
+        if where == "cuda":
+            assert len(engine.runner.graphs) == engine.n_buckets
+        try:
+            handles = []
+            for i, t in enumerate(texts):
+                handles.append(engine.submit(t, i))
+                time.sleep(0.01 * i)
+            rows[where] = [h.result(timeout=120)["codes"] for h in handles]
+        finally:
+            engine.stop()
+    for got, want in zip(rows["cuda"], rows["cpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_pixels_match_cpu(cuda_device):
+    """VQGAN decode and CLIP scores on the card against the same weights
+    on the CPU, in f32 (TF32 off), at 1e-4."""
+    from dalle_tpu_torch import resolve_device
+    from dalle_tpu_torch.models import clip, vqgan
+
+    dev = resolve_device("cuda")
+    g = torch.Generator().manual_seed(0)
+    vq_cpu = vqgan.init_params(vqgan.tiny_vqgan_config(), g)
+    cl_cpu = clip.init_params(clip.tiny_clip_config(), g)
+    codes = torch.randint(0, 64, (2, 16), generator=g)
+    tokens = torch.randint(1, 63, (1, 12), generator=g)
+    tokens[0, 6] = 63
+    with torch.no_grad():
+        want = vq_cpu(codes)
+        got = copy.deepcopy(vq_cpu).to(dev)(codes.to(dev)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    imgs = clip.resize_for_clip(vqgan.decode_codes(vq_cpu, codes),
+                                cl_cpu.cfg)
+    want = clip.clip_scores(cl_cpu, imgs, tokens)
+    got = clip.clip_scores(copy.deepcopy(cl_cpu).to(dev), imgs.to(dev),
+                           tokens.to(dev)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

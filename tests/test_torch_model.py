@@ -179,7 +179,7 @@ def test_greedy_codes_equal_jax(name):
         params, jcfg, jnp.asarray(text, jnp.int32), jax.random.PRNGKey(0),
         jdecode.SamplingConfig(temperature=0.0)))
     got = tdecode.generate_images(
-        model, torch.from_numpy(text), torch.Generator().manual_seed(0),
+        model, torch.from_numpy(text), [0, 1],
         tdecode.SamplingConfig(temperature=0.0))
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -203,11 +203,12 @@ def test_sampled_ids_lie_in_the_jax_support(knobs, monkeypatch):
     jdecode.sample_logits(jax.random.PRNGKey(0), jnp.asarray(logits), cfg)
     support = seen["x"] > jdecode.NEG_INF / 2
     assert 0 < support.sum() < support.size
-    gen = torch.Generator().manual_seed(0)
     tcfg = tdecode.SamplingConfig(**cfg._asdict())
     hits = np.zeros_like(support)
-    for _ in range(200):
-        ids = tdecode.sample_logits(torch.from_numpy(logits), tcfg, gen)
+    seeds = torch.arange(4)
+    for pos in range(200):
+        ids = tdecode.sample_logits(torch.from_numpy(logits), tcfg,
+                                    tdecode.gumbel_noise(seeds, pos, 64))
         hits[np.arange(4), ids.numpy()] = True
     assert not (hits & ~support).any()
     assert hits.sum() > 4   # it samples, not argmax

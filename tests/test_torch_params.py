@@ -120,7 +120,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "dalle_tpu_torch.training.steps",
                 "dalle_tpu_torch.data.synthetic",
                 "dalle_tpu_torch.time_layer_norm",
-                "dalle_tpu_torch.time_quant"):
+                "dalle_tpu_torch.time_quant",
+                "dalle_tpu_torch.serving", "dalle_tpu_torch.serving.engine",
+                "dalle_tpu_torch.serving.scheduler",
+                "dalle_tpu_torch.serving.metrics",
+                "dalle_tpu_torch.serving.chaos",
+                "dalle_tpu_torch.serving.prefix_cache",
+                "dalle_tpu_torch.serving.pixels",
+                "dalle_tpu_torch.serving.server",
+                "dalle_tpu_torch.obs", "dalle_tpu_torch.obs.trace",
+                "dalle_tpu_torch.obs.exposition",
+                "dalle_tpu_torch.models.vqgan", "dalle_tpu_torch.models.clip",
+                "dalle_tpu_torch.cli", "dalle_tpu_torch.cli._args",
+                "dalle_tpu_torch.cli.run_server",
+                "dalle_tpu_torch.cli.run_inference"):
         assert mod in mods, mod
     # chip_smoke.py imports inside main(): read every import it names
     tree = ast.parse((root / "chip_smoke.py").read_text())
@@ -131,5 +144,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     bad = sorted(n for n in names
                  if n.split(".")[0] in ("jax", "flax", "optax", "dalle_tpu"))
     assert not bad, bad
-    assert "dalle_tpu_torch.training.steps" in names
+    assert {"dalle_tpu_torch.training.steps",
+            "dalle_tpu_torch.serving.engine"} <= names
     assert "dalle_tpu_torch.swarm.error_feedback" in names
