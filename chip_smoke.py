@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship inference and training paths, the
-8-bit LAMB, a swarm round's device codec and the generic kernel route on
-one NVIDIA GPU.
+8-bit LAMB, a swarm round's device codec, the generic kernel route and the
+collaborative trainer peer on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out RECORDS.json] [--profile TABLE.txt]
 
@@ -88,7 +88,25 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    GEGLU, f32, head_dim 16) through its forward and one ``grad_step`` on
    the card against the same weights on the CPU (loss, logits, every
    gradient within ``TINY_TOL``), counting the generic launches of that run;
-11. the ``kernels`` line (the eleven ported kernels and the six generic
+11. the trainer peer: (a) two flagship peers in this process (two
+   threads, each a ``TrainingTask`` on a loopback DHT, the second
+   bootstrapped from the first; micro-batch 4 x accumulation 2, the 8-bit
+   LAMB, ``CollabConfig(target_batch_size=16, matchmaking_time=3,
+   allreduce_timeout=60, average_state_every=0,
+   wire_codec_backend="device", audit_gather=False)`` and the other
+   defaults: size-adaptive codec, encryption, screening, strike gossip,
+   the overlapped round) run ``train_loop`` for two epochs: both epochs
+   form a 2-peer group, the peers' params and moments end ``torch.equal``,
+   the rounds launch ``wire_quantize_u8`` (its launch count in the
+   ``kernels`` line is this run's, both peers together), no generic kernel
+   runs, the losses are finite; recorded: each round's matchmaking,
+   all-reduce and apply seconds, its wire bytes and the host walls of its
+   legs, the swarm's samples/s, peak memory and the device idle share of
+   one traced round; (b) ``python -m dalle_tpu_torch.cli.run_trainer
+   --preset flagship`` as a subprocess (one solo epoch, a checkpoint
+   directory under ``build/``) exits 0 and its checkpoint restores here at
+   epoch 1 with finite params;
+12. the ``kernels`` line (the eleven ported kernels and the six generic
    instances).
 
 With ``--profile``, one flagship forward and one training micro-batch are
@@ -501,6 +519,229 @@ def serving_phase(torch, np, dev, smi, model, captions, seeds, knobs,
          peak_mem_gb=peak / 1e9, probes=probes,
          chunk_trace=trace, launches=dict(LAUNCHES))
     del engine, pipeline, vqgan, clip, vq_cpu
+    release_memory()
+
+
+TRAINER_COLLAB = dict(target_batch_size=16, matchmaking_time=3,
+                      allreduce_timeout=60, average_state_every=0,
+                      wire_codec_backend="device", audit_gather=False)
+TRAINER_CLI = ["--preset", "flagship", "--per-device-batch", "4",
+               "--grad-accum-steps", "2", "--max-epochs", "1",
+               "--target-batch-size", "8", "--matchmaking-time", "3",
+               "--no-audit-gather", "--warmup-batches", "1"]
+
+
+def trainer_phase(torch, smi, kernels, release_memory, dev="cuda",
+                  model_overrides=None, cli_argv=TRAINER_CLI) -> None:
+    """Phase 11: the trainer peer. 11a: two flagship peers in this process
+    (two threads, loopback DHT) train two epochs through ``TrainingTask``
+    and ``train_loop``; both epochs must form a 2-peer group, the peers'
+    params and moments end ``torch.equal``, the real rounds launch
+    ``wire_quantize_u8``, no generic kernel runs, the losses are finite.
+    Records the round split, wire bytes, the host walls of the wire legs,
+    the swarm's samples/s, peak memory and the device idle share of one
+    traced round. 11b: ``python -m dalle_tpu_torch.cli.run_trainer`` as a
+    subprocess (one solo epoch) exits 0, and its checkpoint restores here
+    (epoch 1, finite params)."""
+    import shutil
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dalle_tpu_torch.config import (CollabConfig, OptimizerConfig,
+                                        PeerConfig, TrainerConfig,
+                                        flagship_model_config)
+    from dalle_tpu_torch.models.dalle import init_params
+    from dalle_tpu_torch.ops import (GENERIC_LAUNCHES, LAUNCHES,
+                                     reset_launches)
+    from dalle_tpu_torch.optim import make_optimizer
+    from dalle_tpu_torch.params import state_leaf_tensors
+    from dalle_tpu_torch.task import TrainingTask
+    from dalle_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                     params_are_finite)
+    from dalle_tpu_torch.training.loop import train_loop
+    from dalle_tpu_torch.training.steps import TrainState
+
+    model_cfg = flagship_model_config(**(model_overrides or {}))
+    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
+
+    def make_task(peers):
+        return TrainingTask(
+            model_cfg, opt_cfg,
+            TrainerConfig(per_device_batch=4, grad_accum_steps=2),
+            CollabConfig(run_id="smoke", **TRAINER_COLLAB),
+            PeerConfig(initial_peers=tuple(peers),
+                       experiment_prefix="smoke"),
+            device=dev)
+
+    # -- 11a. two peers --------------------------------------------------
+    release_memory()
+    tasks = [make_task(())]
+    tasks.append(make_task((tasks[0].dht.visible_address,)))
+    for task in tasks:
+        task.collab_optimizer          # model, optimizer state, swarm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)   # warms the tracer
+        torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    epochs = [[], []]
+    step_ends = [[], []]          # host clock at the end of each local step
+    errors = []
+
+    def run(i):
+        collab = tasks[i].collab_optimizer
+
+        def on_epoch(report):
+            epochs[i].append(dict(
+                epoch=report.epoch, loss=report.loss,
+                mini_steps=report.mini_steps,
+                timings={k: v for k, v in collab.last_timings.items()
+                         if k != "robust"},
+                wire=collab.last_wire_report))
+
+        def on_step(n, loss):
+            step_ends[i].append(time.perf_counter())
+        try:
+            train_loop(tasks[i], max_epochs=2, warmup_steps=1,
+                       on_epoch=on_epoch, on_step=on_step)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    # one traced round: from peer 0's first epoch to its second
+    trace = None
+    collab0 = tasks[0].collab_optimizer
+    while threads[0].is_alive() and collab0.local_epoch < 1:
+        time.sleep(0.05)
+    if threads[0].is_alive():
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+        tw = time.perf_counter()
+        while threads[0].is_alive() and collab0.local_epoch < 2:
+            time.sleep(0.05)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tw) * 1e3
+        prof.stop()
+        busy = sum(e.self_device_time_total / 1e3
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0 and e.cpu_time_total == 0)
+        trace = dict(wall_ms=wall_ms, device_busy_ms=busy,
+                     device_idle_share=1.0 - busy / wall_ms)
+    for t in threads:
+        t.join()
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    generic = dict(GENERIC_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if errors:
+        raise errors[0]
+    collabs = [t.collab_optimizer for t in tasks]
+    if [c.local_epoch for c in collabs] != [2, 2]:
+        raise AssertionError(f"trainer: epochs {[c.local_epoch for c in collabs]}"
+                             ", expected 2 on both peers")
+    groups = [[e["timings"].get("group_size") for e in ep] for ep in epochs]
+    if any(g != [2, 2] for g in groups):
+        raise AssertionError(f"trainer: group sizes {groups}, expected a "
+                             "2-peer group in both epochs on both peers")
+    losses = [e["loss"] for ep in epochs for e in ep]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"trainer: non-finite losses {losses}")
+    a, b = (state_leaf_tensors(c.state.model, c.state.opt_state)
+            for c in collabs)
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("trainer: the peers' params or moments differ")
+    if launches["wire_quantize_u8"] <= 0:
+        raise AssertionError("trainer: the rounds launched no "
+                             "wire_quantize_u8")
+    if any(generic.values()):
+        raise AssertionError(f"trainer: generic launches {generic}")
+    kernels["wire_quantize_u8"]["launches"] = launches["wire_quantize_u8"]
+    rounds = []
+    for i, ep in enumerate(epochs):
+        for e in ep:
+            legs = {}
+            for row in (e["wire"] or {}).get("phases", {}).get("hops", []):
+                leg = legs.setdefault(row["leg"], dict(bytes=0, wall_s=0.0,
+                                                       chunks=0))
+                leg["bytes"] += row["bytes"]
+                leg["chunks"] += row["chunks"]
+                leg["wall_s"] = max(leg["wall_s"], row["wall_s"])
+            phases = {k: v for k, v in (e["wire"] or {}).get(
+                "phases", {}).items() if k != "hops"}
+            rounds.append(dict(peer=i, epoch=e["epoch"], loss=e["loss"],
+                               mini_steps=e["mini_steps"],
+                               timings=e["timings"], wire_phases=phases,
+                               legs=legs))
+    # the swarm's rate after both peers' first step (warmup, the kernels'
+    # first calls and the threads' start are behind it): the samples of the
+    # steps that ended between the later first step and the earlier last
+    t_a = max(ends[0] for ends in step_ends)
+    t_b = min(ends[-1] for ends in step_ends)
+    n_in = sum(1 for ends in step_ends for t in ends if t_a < t <= t_b)
+    batch = tasks[0].local_batch_size
+    step_s = [[b - a for a, b in zip(ends, ends[1:])] for ends in step_ends]
+    emit(phase="trainer_peers", card=smi, peers=2, epochs=2,
+         collab=TRAINER_COLLAB, local_batch=batch,
+         steps=[len(ends) for ends in step_ends], step_s=step_s,
+         wall_s=wall_s, swarm_samples_per_s=(
+             n_in * batch / (t_b - t_a) if t_b > t_a else None),
+         peak_mem_gb=peak / 1e9,
+         launches=launches, generic_launches=generic, rounds=rounds,
+         traced_round=trace, robust=collabs[0].robustness_snapshot())
+    for task in tasks[::-1]:
+        task.shutdown()
+    del tasks, collabs, a, b, collab0
+    release_memory()
+
+    # -- 11b. the entry point --------------------------------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt_dir = os.path.join(root, "build", "dalle_tpu_torch", "smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    metrics = os.path.join(ckpt_dir, "metrics.jsonl")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [env.get("PYTHONPATH")] if p])
+    cmd = [sys.executable, "-m", "dalle_tpu_torch.cli.run_trainer",
+           *cli_argv, "--checkpoint-dir", ckpt_dir, "--metrics-file",
+           metrics, "--log-level", "WARNING"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"run_trainer exited {res.returncode}:\n"
+                             f"{res.stderr[-4000:]}")
+    with open(metrics) as f:
+        rows = [json.loads(line) for line in f]
+    model = init_params(model_cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 1))
+    state = TrainState.create(model, make_optimizer(opt_cfg))
+    ckpt = CheckpointManager(ckpt_dir)
+    t0 = time.perf_counter()
+    restored = ckpt.restore_latest(state)
+    restore_s = time.perf_counter() - t0
+    ckpt.close()
+    if restored is None or restored[1] != 1:
+        raise AssertionError(f"run_trainer's checkpoint: restored "
+                             f"{restored and restored[1]}, expected epoch 1")
+    if not params_are_finite(restored[0].model):
+        raise AssertionError("run_trainer's checkpoint: non-finite params")
+    size = sum(os.path.getsize(os.path.join(ckpt_dir, n))
+               for n in os.listdir(ckpt_dir) if n.endswith(".msgpack"))
+    emit(phase="trainer_cli", card=smi, argv=cli_argv, seconds=cli_s,
+         epochs=[r["epoch"] for r in rows], losses=[r["loss"] for r in rows],
+         timings=rows[-1]["timings"] if rows else None,
+         checkpoint_bytes=size, restore_s=restore_s,
+         restored_epoch=restored[1], restored_step=restored[0].step)
+    del model, state, restored
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     release_memory()
 
 
@@ -1861,7 +2102,10 @@ def main() -> int:
     kernels.update(check_generic_route())
     release_memory()
 
-    # -- 11. kernels line and the end ------------------------------------
+    # -- 11. the trainer peer ---------------------------------------------
+    trainer_phase(torch, smi, kernels, release_memory)
+
+    # -- 12. kernels line and the end ------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_line = {"kernels": [{k: rec[k] for k in keys}

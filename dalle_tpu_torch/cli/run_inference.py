@@ -7,9 +7,10 @@ temperature/top-k/top-p and saves the (B, grid, grid) code grids as
 ``--vqgan-checkpoint`` / ``--clip-checkpoint``. Image *j* of prompt *q*
 samples with the noise seed ``--seed + q * images_per_query + j``.
 
-Weights come from ``--seed`` (``init_params``); ``--checkpoint-dir`` and
-``--tokenizer-path`` (and so ``--query``) raise until the port has a
-checkpoint reader and a caption tokenizer. Prompts are given
+Weights come from the freshest checkpoint under ``--checkpoint-dir`` (the
+port trainer's files and the JAX trainer's), or else from ``--seed``
+(``init_params``); ``--tokenizer-path`` (and so ``--query``) raises until
+the port has a caption tokenizer. Prompts are given
 pre-tokenized with ``--tokens`` (comma-separated ids, zero-padded to
 ``text_seq_len``), the counterpart of the server's ``tokens`` body.
 
@@ -26,8 +27,8 @@ import logging
 import sys
 from typing import Optional, Sequence
 
-from dalle_tpu_torch.cli import (CHECKPOINT_UNPORTED, MODEL_PRESETS,
-                                 TOKENIZER_UNPORTED)
+from dalle_tpu_torch.cli import (MODEL_PRESETS, TOKENIZER_UNPORTED,
+                                 restore_weights)
 from dalle_tpu_torch.cli._args import add_dataclass_args, dataclass_from_args
 from dalle_tpu_torch.config import ModelConfig
 
@@ -93,8 +94,6 @@ def prompt_ids(spec: str, text_len: int):
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=args.log_level)
-    if args.checkpoint_dir:
-        raise SystemExit(CHECKPOINT_UNPORTED)
     if args.tokenizer_path or args.query:
         raise SystemExit(TOKENIZER_UNPORTED)
     if not args.tokens:
@@ -116,6 +115,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                               base=MODEL_PRESETS[args.preset]())
     model = init_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed)).eval()
+    if args.checkpoint_dir and not restore_weights(
+            model, args.checkpoint_dir, logger):
+        return 1
     sampling = SamplingConfig(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
 

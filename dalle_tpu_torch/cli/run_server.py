@@ -16,9 +16,10 @@ Usage::
         "n_images": 4, "seed": 7, "temperature": 0.8, "top_k": 64}'
     curl -s localhost:8080/stats
 
-Weights come from ``--seed`` (``init_params``), as the JAX CLIs serve
-them with ``--random-init``; ``--checkpoint-dir`` and ``--tokenizer-path``
-raise until the port has a checkpoint reader and a caption tokenizer, so
+Weights come from the freshest checkpoint under ``--checkpoint-dir``
+(the port trainer's files and the JAX trainer's), or else from ``--seed``
+(``init_params``), as the JAX CLIs serve them with ``--random-init``.
+``--tokenizer-path`` raises until the port has a caption tokenizer, so
 requests carry pre-tokenized ``tokens``. ``--temperature``/``--top-k``/
 ``--top-p`` set the engine-wide default; a request body may override any
 of them per request (the knobs are per-slot tensors of the chunk, so a
@@ -32,8 +33,8 @@ import logging
 import sys
 from typing import Optional, Sequence
 
-from dalle_tpu_torch.cli import (CHECKPOINT_UNPORTED, MODEL_PRESETS,
-                                 TOKENIZER_UNPORTED)
+from dalle_tpu_torch.cli import (MODEL_PRESETS, TOKENIZER_UNPORTED,
+                                 restore_weights)
 from dalle_tpu_torch.cli._args import (add_dataclass_args,
                                        check_no_collisions,
                                        dataclass_from_args)
@@ -52,10 +53,12 @@ def build_parser() -> argparse.ArgumentParser:
                         default="flagship")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a GPU) or cpu")
-    parser.add_argument("--checkpoint-dir", type=str, default=None)
+    parser.add_argument("--checkpoint-dir", type=str, default=None,
+                        help="serve the parameters of the freshest "
+                             "checkpoint here (port or JAX trainer)")
     parser.add_argument("--random-init", action="store_true",
-                        help="serve freshly initialized weights (the only "
-                             "mode until checkpoints are ported)")
+                        help="serve freshly initialized weights (the "
+                             "default without --checkpoint-dir)")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the initialized weights")
     parser.add_argument("--tokenizer-path", type=str, default=None,
@@ -160,8 +163,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(
         level=args.log_level,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    if args.checkpoint_dir:
-        raise SystemExit(CHECKPOINT_UNPORTED)
     if args.tokenizer_path:
         raise SystemExit(TOKENIZER_UNPORTED)
 
@@ -182,6 +183,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     serving.validate()
     model = init_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed)).eval()
+    if args.checkpoint_dir and not restore_weights(
+            model, args.checkpoint_dir, logger):
+        return 1
 
     metrics = ServingMetrics(n_slots=serving.n_slots,
                              jsonl_path=args.metrics_file,

@@ -1,9 +1,13 @@
 """Configuration of the PyTorch port.
 
-The port's own copy of ``dalle_tpu/config.py``'s model and optimizer
-halves (``ModelConfig``, the attention-type names, ``tiny_model_config``,
-the flagship preset and ``OptimizerConfig``): the port imports nothing of
-``dalle_tpu``. Field names, defaults and the derived schedule are
+The port's own copy of ``dalle_tpu/config.py`` (``ModelConfig``, the
+attention-type names, ``tiny_model_config``, the flagship and XL presets,
+``OptimizerConfig``, the trainer peer's ``TrainerConfig``, ``CollabConfig``
+and ``PeerConfig``, and ``ServingConfig``): the port imports nothing of
+``dalle_tpu``. The trainer peer's dataclasses carry every JAX field with
+its default, because the CLIs derive their flags from them; the settings
+whose modules are not ported yet raise ``NotImplementedError`` from
+``check_ported()``. Field names, defaults and the derived schedule are
 identical, so one set of keyword arguments builds the same model in either
 package, and the parameter converter (``params.py``) can map one tree onto
 the other.
@@ -192,7 +196,9 @@ class OptimizerConfig:
     package) is the 8-bit LAMB: moments of tensors with at least
     ``min_8bit_size`` elements block-quantized in blocks of ``block_size``;
     32 is the fp32 clipped LAMB. ``max_grad_norm`` None turns the global
-    clip off."""
+    clip off. ``offload`` and a nonzero ``stacked_reps`` are kept so that
+    both packages take the same flags; the port refuses them
+    (:meth:`check_ported`)."""
 
     learning_rate: float = 2.5e-3
     warmup_steps: int = 3125
@@ -206,6 +212,344 @@ class OptimizerConfig:
     state_bits: int = 8
     block_size: int = 4096
     min_8bit_size: int = 65536
+    # host-resident optimizer state (the JAX package's training/offload.py);
+    # not ported: True raises (ROADMAP)
+    offload: bool = False
+    # dense_scan stacked-leaf leading-axis size; the port keeps every
+    # layer's weights as their own tensors, so only None/0 are accepted
+    stacked_reps: "int | None" = None
+
+    def check_ported(self) -> None:
+        """Raise ``NotImplementedError`` for a setting the port does not
+        take yet (ROADMAP lists each)."""
+        if self.offload:
+            raise NotImplementedError(
+                "OptimizerConfig.offload: host-resident optimizer state "
+                "(training/offload.py) is not ported yet; see ROADMAP")
+        if self.stacked_reps:
+            raise NotImplementedError(
+                "OptimizerConfig.stacked_reps: the port has no dense_scan "
+                "(stacked per-layer) parameter layout")
+
+
+@dataclass(frozen=True)
+class TrainerConfig:
+    """Local training-loop knobs (reference ``arguments.py:8-56``)."""
+
+    per_device_batch: int = 2         # arguments.py:12-14
+    grad_accum_steps: int = 1
+    seed: int = 0
+    text_pad_id: int = 1              # T5 pad token (=eos in reference, task.py:58-59)
+    # Mesh axis sizes; -1 means "use all remaining devices" on the dp axis.
+    dp: int = -1
+    fsdp: int = 1
+    tp: int = 1
+    sp: int = 1                       # sequence parallelism (ring attention)
+
+    @property
+    def local_batch_per_step(self) -> int:
+        return self.per_device_batch * self.grad_accum_steps
+
+
+    def check_ported(self) -> None:
+        """Raise ``NotImplementedError`` for a layout the port does not
+        take yet: one GPU per peer (``dp`` -1 or 1, no fsdp/tp/sp)."""
+        if self.dp not in (-1, 1) or self.fsdp != 1 or self.tp != 1 \
+                or self.sp != 1:
+            raise NotImplementedError(
+                f"TrainerConfig dp={self.dp} fsdp={self.fsdp} tp={self.tp} "
+                f"sp={self.sp}: the port trains on one GPU per peer; "
+                "meshes wait for the multi-GPU slice (ROADMAP)")
+
+
+@dataclass(frozen=True)
+class CollabConfig:
+    """Swarm-wide optimizer semantics (reference ``arguments.py:60-78``)."""
+
+    run_id: str = "dalle-tpu"
+    target_batch_size: int = 4096     # arguments.py:62-65
+    matchmaking_time: float = 15.0    # arguments.py:66-68
+    allreduce_timeout: float = 60.0   # arguments.py:69-71
+    averaging_timeout: float = 180.0  # arguments.py:72-74
+    # Average params+opt state with peers every N epochs to bound drift.
+    # Rounds are byte-identical across surviving members (part owners apply
+    # the same lossy wire bytes they broadcast), so state averaging is
+    # repair for peers that missed chunks, not a per-epoch necessity —
+    # and keeping it off the common path halves the per-epoch matchmaking
+    # cost, which keeps peers' matchmaking windows aligned.
+    average_state_every: int = 10
+    # Compression: tensors with <= threshold elems -> fp16, else uniform 8-bit
+    # (SizeAdaptiveCompression(threshold=2**16+1, ...), task.py:125-126).
+    # "power_sgd" instead exchanges rank-r low-rank factors with error
+    # feedback (swarm/powersgd.py; hivemind carries PowerSGD upstream,
+    # SURVEY.md §2 component 15).
+    size_adaptive_threshold: int = 2 ** 16 + 1
+    # NOTE: the tuned flagship operating point (FLAGSHIP_TUNED, PERF.md)
+    # was measured against the HBM wall with size_adaptive compression.
+    # power_sgd keeps device-resident f32 error-feedback + in-flight M
+    # caches at gradient size (~500 MB persistent + ~2x transient for the
+    # flagship's 125.6M unique params) — see PERF.md's PowerSGD footprint
+    # note before combining it with the tuned micro/accum point.
+    grad_compression: str = "size_adaptive"
+    state_compression: str = "size_adaptive"
+    # Where the u8/u4/f16 wire codec EXECUTES (never what it emits —
+    # wire bytes are backend-identical, mixed groups interoperate):
+    # "device" runs quantize/dequantize as jitted programs on the
+    # accelerator (swarm/device_codec.py; measured on the JAX package: 20.1 s +
+    # 13.8 s of host numpy codec per N=4 flagship epoch while the TPU
+    # idled) and hands gradients to the wire without the host f32 pull;
+    # "host" is the numpy path; "auto" picks device on TPU peers, host
+    # elsewhere.
+    wire_codec_backend: str = "auto"
+    # --- In-collective quantization (EQuARX arxiv 2506.17615,
+    # DynamiQ arxiv 2602.08923). wire_bits_reduce / wire_bits_gather PIN
+    # the wire codec of the butterfly's two legs for the whole run —
+    # 8 -> blockwise u8, 4 -> blockwise u4 (half the sync bytes again)
+    # — instead of the per-part SizeAdaptive dispatch. A pinned leg
+    # also REJECTS frames naming any other codec (codec flapping is
+    # authenticated garbage: error-feedback residual scales are only
+    # meaningful against one stable quantizer). None keeps the legacy
+    # grad_compression dispatch for that leg, byte-identical to the unpinned protocol.
+    wire_bits_reduce: "int | None" = None
+    wire_bits_gather: "int | None" = None
+    # Error-feedback residuals through the collective: each sender
+    # carries the previous round's quantization error into this round's
+    # scatter encode (device-resident, donated under the device codec
+    # backend), and each part owner carries its own residual into the
+    # gather re-quantize (the DynamiQ second aggregation-hop stage; the
+    # carry-in is suspended on audit-challenged parts so the audit replay
+    # stays bit-exact — swarm/error_feedback.py). Requires BOTH
+    # wire_bits knobs pinned; False + 8-bit leaves every round
+    # byte-identical to the unpinned protocol.
+    ef_residuals: bool = False
+    # --- In-collective hop pipelining (DynamiQ arXiv 2602.08923,
+    # EQuARX arXiv 2506.17615: the win is overlapping compressed hops
+    # INSIDE the collective against compute, not just overlapping the
+    # round as a whole). With pipeline_hops the butterfly's legs stop
+    # being strictly sequential: gather-leg frames drain/decode/apply
+    # on a background thread from round start, the owner's averaged
+    # part is served as soon as the reduce finishes (before the scatter
+    # barrier + EF store), and scatter parts are encoded/sent with at
+    # most pipeline_depth parts in flight so encode(part i+1) overlaps
+    # send(part i). OFF leaves every round byte-identical to the
+    # sequential protocol; ON changes only wall-clock placement — the
+    # averaged bytes, EF residuals, and audit transcripts are bit-exact
+    # either way (pinned by tests/test_pipeline.py).
+    pipeline_hops: bool = False
+    # Max scatter parts concurrently in the encode/send window (>=1).
+    pipeline_depth: int = 2
+    powersgd_rank: int = 4
+    # Run PowerSGD's Gram-Schmidt on the host (bit-stable IEEE f32 loop
+    # order) instead of on device. Cross-peer basis agreement needs every
+    # group member to orthogonalize identical averaged bytes identically;
+    # device MGS guarantees that only on a homogeneous XLA backend, and a
+    # volunteer swarm is exactly where jax/XLA builds differ — divergent
+    # bases silently corrupt reconstructed gradients on every peer. Host
+    # MGS is bit-stable across peers and costs O(m*r^2) on a rank-4
+    # (m x 4) factor — noise next to the wire round-trip — so it is the
+    # DEFAULT; flip off only for a fleet known to run one backend build.
+    powersgd_host_orthogonalize: bool = True
+    # AEAD-encrypt the all-reduce data plane under a per-round group key
+    # distributed through the signed matchmaking confirmation
+    # (swarm/crypto.py). The reference gets transport encryption from
+    # libp2p's security handshake; ours is framing-level.
+    encrypt_data_plane: bool = True
+    delay_optimizer_step: bool = True  # task.py:129
+    reuse_grad_buffers: bool = True    # task.py:133
+    metrics_expiration: float = 600.0  # statistics_expiration, arguments.py:129-131
+    # --- Byzantine defense (swarm/screening.py + swarm/health.py;
+    # CHAOS.md "Defense in depth"). Signatures and strict parsing stop
+    # forged/malformed traffic; these knobs govern the CONTENT layer:
+    # screening of valid-but-wrong gradients, the sender-weight clamp,
+    # and gossiped signed strike receipts.
+    # Norm/cosine outlier screening of scatter contributions at each
+    # part owner (drop/keep, never reweight — surviving rounds stay
+    # bit-identical to an honest-only round). Auto-skipped below
+    # screen_min_senders weighted contributors (small swarms keep the
+    # pre-screening semantics byte-for-byte).
+    screen_gradients: bool = True
+    screen_min_senders: int = 4
+    # never drop a majority (see screening.ScreenPolicy for the
+    # calibration rationale on every threshold)
+    screen_max_drop_frac: float = 0.49
+    screen_norm_tolerance: float = 8.0
+    screen_cosine_floor: float = -0.5
+    # Clamp on sender-supplied frame weights (a single signed frame
+    # claiming weight=1e9 otherwise drowns the swarm with no value
+    # screen tripping): claims outside [0, max_peer_weight] are dropped
+    # with an attributable strike. None -> target_batch_size (no single
+    # peer can legitimately carry more than the whole swarm's target);
+    # 0 disables the clamp.
+    max_peer_weight: "float | None" = None
+    # Gossip attributable strikes as Ed25519-signed receipts under
+    # {run_id}_strikes and fold verified remote receipts into the local
+    # ledger (bounded influence: no issuer veto, and remote evidence
+    # alone can never convict — health.py). Off = ledger stays local.
+    gossip_strikes: bool = True
+    strike_gossip_period: float = 5.0
+    # Verified aggregation (swarm/audit.py; CHAOS.md "Defense in
+    # depth" row 7): each round a deterministic challenge derived from
+    # the shared round id selects parts whose owner must serve a
+    # signed audit transcript (the sender-signed inputs it averaged,
+    # its drop-set, the accumulation order); any member replays the
+    # weighted mean + the screen decisions and bit-compares against
+    # the part it gathered. A mismatch is an owner-audit-fail strike
+    # that gossips via the signed-receipt plane. audit_frac is the
+    # per-part challenge probability per round: a challenged part
+    # costs its owner the transcript (≈ the part's scatter traffic
+    # re-served from its mailbox) and each auditor a fetch + full
+    # re-verify/replay, so the default SAMPLES — every owner is
+    # audited in expectation every ~1/frac rounds, which convicts a
+    # persistent cheat within a few epochs at a quarter of the
+    # bandwidth/CPU tax (the soaks and gates run frac=1.0 for
+    # deterministic conviction-latency oracles). audit_ttl bounds how
+    # long a transcript stays fetchable in the owner's mailbox. Off =
+    # zero retention, rounds byte-identical to the pre-audit protocol.
+    audit_gather: bool = True
+    audit_frac: float = 0.25
+    audit_ttl: float = 120.0
+    # Round repair (swarm/repair.py; CHAOS.md "Round repair"): an
+    # owner-audit-fail conviction whose replay SUCCEEDED (the
+    # replayed-bytes-mismatch class — the wrong_gather_part attack
+    # shape) has recomputed the honest part bytes bit-exactly, so the
+    # optimizer applies the compensating correction honest - served:
+    # assigned over the averaged gradients when the conviction beats
+    # the apply (bit-exact), added into the next applied gradient
+    # vector after the LAMB step fired (bounded-staleness
+    # compensation — one step of preconditioner staleness). False
+    # keeps the detection-only behavior byte-for-byte.
+    repair_convicted: bool = True
+    # BYTE bound on the audit worker's retained-round ring (the
+    # pending RoundAudits hold signed frames + gathered part copies
+    # that late repair/proofs need): oldest-first eviction with a
+    # counted eviction, so flagship-size parts cannot balloon host
+    # RAM under a slow audit. The round-count bound (8) still applies.
+    audit_ring_bytes: int = 256 << 20
+    # Audit the two auxiliary averaging phases too — PowerSGD factor
+    # rounds ({run}_grads_p/_q) and periodic state averaging
+    # ({run}_state) ride the same butterfly and, with this on, the
+    # same challenge/transcript/replay machinery (each phase under its
+    # own prefix). Convictions there strike + gossip proof-carrying
+    # receipts.
+    audit_aux_phases: bool = True
+    # aux-phase REPAIR: a replayed-bytes-mismatch conviction in a
+    # PowerSGD factor round or in state averaging queues its
+    # honest - served correction into the factor buffers / the
+    # averaged-state application (same pre-step-exact /
+    # bounded-staleness split as gradient repair, each phase drained
+    # at its own application site). Requires repair_convicted and
+    # audit_aux_phases; False keeps factor/state convictions
+    # detection + proof.
+    repair_aux_phases: bool = True
+    # evidence by reference (swarm/audit.EvidencePlane): evidence
+    # bundles too large to embed inline in a proof receipt
+    # (PROOF_MAX_BYTES) are parked chunked in the issuer's mailbox and
+    # the receipt carries a sha256 digest + mailbox descriptor;
+    # verifiers fetch under the hard byte/time budgets below
+    # (hash-check before any sized allocation), replay, and re-serve
+    # verified bundles for failover. Off: over-budget convictions
+    # degrade to the capped accusation.
+    proof_by_reference: bool = True
+    # hard per-bundle byte budget a verifier will fetch (an oversize
+    # descriptor claim is rejected before any allocation or I/O); the
+    # flagship 502 MB part's bundle (~2x part bytes: transcript
+    # frames + gather frames) sizes the default
+    proof_fetch_max_bytes: int = 2 << 30
+    # hard wall-clock budget for one bundle fetch, covering every
+    # retry and failover server — the gossip fold blocks at most this
+    # long per by-reference receipt
+    proof_fetch_budget_s: float = 30.0
+    # per-chunk mailbox-read attempts (exponential backoff between)
+    # before a server is abandoned for the next one
+    proof_fetch_retries: int = 3
+    # Plausible-lead bound on progress-record EPOCH claims (the epoch
+    # twin of the sample cap): a peer's claimed epoch may lead this
+    # node's local epoch by at most this margin in the aggregate —
+    # clamped always, struck (progress-overclaim) only beyond 100x
+    # the bound, because honest peers legitimately run several epochs
+    # ahead of a slow or partitioned node. 0 disables.
+    progress_max_epoch_lead: int = 2
+    # Absolute per-sender L2 norm ceiling in the gradient screen,
+    # active at ANY sender count — it narrows the <4-sender gap where
+    # leave-one-out screening must skip. Below the screen quorum the
+    # drop is unstruck (2-peer unattributability preserved). 0
+    # disables; size it well above the honest gradient envelope (the
+    # bound is model- and scale-specific, hence no finite default).
+    screen_abs_norm_ceiling: float = 0.0
+    # Deterministic fault injection (swarm/chaos.py, CHAOS.md): a
+    # FaultPlan as inline JSON ('{...}') or a path to a JSON file. The
+    # plan wraps this peer's DHT transport with seeded message
+    # drop/delay/duplication, payload corruption/truncation, bandwidth
+    # throttles, timed blackouts (partitions) and crash-at-epoch — the
+    # churn-soak harness (scripts/churn_soak.py) drives it. None (the
+    # default) leaves the transport untouched; every swarm entry point
+    # exposes it as --chaos-plan.
+    chaos_plan: Optional[str] = None
+    # Flight recorder (dalle_tpu/obs, OBSERVABILITY.md): append this
+    # peer's round-lifecycle spans (matchmaking → allreduce phases →
+    # apply → state averaging, plus state-transfer streams) as JSONL
+    # rows whose trace ids are protocol ids — merge files from
+    # several peers with scripts/trace_report.py for the cross-peer
+    # round timeline. None (the default) records nothing and the
+    # round paths stay byte-identical to the uninstrumented protocol.
+    trace_file: Optional[str] = None
+    # Byte cap on the in-memory flight ring behind the tracer (the
+    # last-N-rounds dump a failure artifact wants).
+    trace_ring_kb: int = 256
+
+
+    def check_ported(self) -> None:
+        """Raise ``NotImplementedError`` for a setting whose module the port
+        does not have yet (ROADMAP lists each)."""
+        if self.audit_gather:
+            raise NotImplementedError(
+                "CollabConfig.audit_gather: verified aggregation and round "
+                "repair (swarm/audit.py, swarm/repair.py) are not ported "
+                "yet (ROADMAP); pass audit_gather=False (--no-audit-gather)")
+        if self.grad_compression == "power_sgd":
+            raise NotImplementedError(
+                "CollabConfig.grad_compression='power_sgd': "
+                "swarm/powersgd.py is not ported yet (ROADMAP)")
+        if self.chaos_plan is not None:
+            raise NotImplementedError(
+                "CollabConfig.chaos_plan: fault injection (swarm/chaos.py) "
+                "is not ported yet (ROADMAP)")
+
+
+@dataclass(frozen=True)
+class PeerConfig:
+    """Peer identity and networking (reference ``arguments.py:81-137``)."""
+
+    host: str = "127.0.0.1"
+    port: int = 0                      # 0 = ephemeral, like /ip4/0.0.0.0/tcp/0
+    initial_peers: Tuple[str, ...] = ()
+    client_mode: bool = False          # outbound-only peers (arguments.py:89-92)
+    identity_path: Optional[str] = None  # persisted keypair (arguments.py:118-124)
+    experiment_prefix: str = "dalle-tpu"
+    statistics_expiration: float = 600.0
+    # Access-token authorization (swarm/auth.py; reference
+    # huggingface_auth.py:46-193): hex Ed25519 public key of the experiment
+    # authority (None = open swarm) and the path to this peer's token file
+    # issued by ``python -m dalle_tpu.cli.issue_token``.
+    auth_authority: Optional[str] = None
+    auth_token_path: Optional[str] = None
+    # Rendezvous bootstrap (swarm/rendezvous.py) — the offline-exercisable
+    # analogue of the reference's IPFS-assisted bootstrap (use_ipfs,
+    # arguments.py:100-106): a shared file (NFS / mounted bucket) where
+    # routable peers advertise and joiners with an empty initial_peers
+    # list find their first contact; peers also advertise in the DHT
+    # under {prefix}_rendezvous for list-repair after first contact.
+    rendezvous_path: Optional[str] = None
+
+
+    def check_ported(self) -> None:
+        """Raise ``NotImplementedError`` for access-token authorization,
+        which the port does not have yet (ROADMAP: swarm/auth.py)."""
+        if self.auth_authority is not None or \
+                self.auth_token_path is not None:
+            raise NotImplementedError(
+                "PeerConfig.auth_authority/auth_token_path: access-token "
+                "authorization (swarm/auth.py) is not ported yet (ROADMAP)")
 
 
 @dataclass(frozen=True)
@@ -351,3 +695,16 @@ class ServingConfig:
             raise ValueError(
                 f"prefix_cache_mb must be > 0 or None "
                 f"(got {self.prefix_cache_mb})")
+
+
+def xl_model_config(**overrides: Any) -> ModelConfig:
+    """DALL-E-XL ~3B (the JAX package's ``xl_model_config``): dim 1792,
+    depth 64 with the same 4-block weight sharing, 28 heads x 64,
+    VQGAN-f16 tokens (16384-code codebook; 512px images -> 32x32 codes).
+    The JAX package keeps the plain LayerNorm lowering on this shape
+    (``ln_fusion`` off), and so does this copy."""
+    base = dict(dim=1792, heads=28, head_dim=64,
+                vocab_image=16384, image_grid=32,
+                remat_skip_blocks=0, head_chunk=2048, scan_unroll=2)
+    base.update(overrides)
+    return dataclasses.replace(ModelConfig(), **base)

@@ -21,7 +21,8 @@ way, so that both optimizers can step from one state.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import functools
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +51,8 @@ def _flatten(tree, prefix=()):
 
 
 def _to_torch(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):  # a leaf read by training/checkpoint
+        return arr.detach().clone()
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":   # ml_dtypes bfloat16: reinterpret
         return torch.from_numpy(arr.view(np.int16).copy()).view(
@@ -266,3 +269,106 @@ def clip_from_jax(tree, cfg):
     model = CLIPModel(cfg)
     model.load_state_dict(sd)
     return model.eval()
+
+
+# -- the JAX package's leaf order (the swarm wire and the checkpoints) ----
+
+def jax_leaf_names(cfg: ModelConfig) -> List[str]:
+    """The port's parameter names in the order of
+    ``jax.tree_util.tree_leaves(params)`` for the JAX model of ``cfg``:
+    the flax paths with the keys of every level sorted. Gradients cross
+    the swarm wire, and state is transferred and averaged, in this order,
+    so a torch peer and a JAX peer average the same coordinates."""
+    return list(_jax_leaf_names(cfg))
+
+
+@functools.lru_cache(maxsize=16)
+def _jax_leaf_names(cfg: ModelConfig) -> Tuple[str, ...]:
+    with torch.device("meta"):      # names only: no parameter storage
+        names = list(DALLE(cfg).state_dict())
+    return tuple(sorted(names, key=lambda n: flax_path(n, cfg)))
+
+
+#: one leaf of the (params, opt_state) state: ("param", name), ("count",),
+#: or (moment, name, part) with moment "mu"/"nu" and part "codes",
+#: "absmax" (a quantized moment) or "dense"
+StateLeaf = Tuple[str, ...]
+
+
+def jax_state_leaves(cfg: ModelConfig, opt_state) -> List[StateLeaf]:
+    """The leaves of ``(params, opt_state)`` in the order of the JAX
+    package's ``CollaborativeOptimizer._state_leaves``: the parameters
+    (:func:`jax_leaf_names`), the LAMB step count, then the ``mu`` and the
+    ``nu`` trees in the same order, a quantized moment as its codes and
+    then its absmax."""
+    names = jax_leaf_names(cfg)
+    out: List[StateLeaf] = [("param", n) for n in names]
+    out.append(("count",))
+    for moment in ("mu", "nu"):
+        tree = getattr(opt_state, moment)
+        for n in names:
+            if isinstance(tree[n], Quantized):
+                out += [(moment, n, "codes"), (moment, n, "absmax")]
+            else:
+                out.append((moment, n, "dense"))
+    return out
+
+
+def state_leaf_tensors(model: DALLE, opt_state) -> List[torch.Tensor]:
+    """The tensors of ``(model, opt_state)`` in :func:`jax_state_leaves`
+    order (live references, except the count: a new 0-d int32 tensor)."""
+    params = dict(model.named_parameters())
+    out = []
+    for leaf in jax_state_leaves(model.cfg, opt_state):
+        if leaf[0] == "param":
+            out.append(params[leaf[1]].detach())
+        elif leaf[0] == "count":
+            out.append(torch.tensor(int(opt_state.count), dtype=torch.int32))
+        else:
+            moment = getattr(opt_state, leaf[0])[leaf[1]]
+            out.append(moment if leaf[2] == "dense"
+                       else getattr(moment, leaf[2]))
+    return out
+
+
+def _as_tensor_like(a, like: torch.Tensor) -> torch.Tensor:
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))
+    return t.reshape(like.shape).to(device=like.device, dtype=like.dtype)
+
+
+@torch.no_grad()
+def load_state_leaves(model: DALLE, opt_state, arrays):
+    """Adopt ``arrays`` (host arrays or tensors in :func:`jax_state_leaves`
+    order) as the state: parameters are copied in place, each cast to its
+    parameter's dtype; returns the new optimizer state (same type, moments
+    on the parameters' device). Raises on a count or shape mismatch."""
+    leaves = jax_state_leaves(model.cfg, opt_state)
+    if len(arrays) != len(leaves):
+        raise ValueError(f"state has {len(leaves)} leaves, got "
+                         f"{len(arrays)}")
+    params = dict(model.named_parameters())
+    count = opt_state.count
+    mu, nu = dict(opt_state.mu), dict(opt_state.nu)
+    fresh = {}
+    for leaf, a in zip(leaves, arrays):
+        if leaf[0] == "param":
+            p = params[leaf[1]]
+            p.copy_(_as_tensor_like(a, p))
+        elif leaf[0] == "count":
+            count = int(np.asarray(a.cpu() if isinstance(a, torch.Tensor)
+                                   else a))
+        else:
+            tree = mu if leaf[0] == "mu" else nu
+            old = tree[leaf[1]]
+            if leaf[2] == "dense":
+                tree[leaf[1]] = _as_tensor_like(a, old)
+            else:
+                fresh.setdefault((leaf[0], leaf[1]), {})[leaf[2]] = \
+                    _as_tensor_like(a, getattr(old, leaf[2]))
+    for (moment, name), parts in fresh.items():
+        tree = mu if moment == "mu" else nu
+        old = tree[name]
+        tree[name] = Quantized(parts["codes"], parts["absmax"], old.shape,
+                               old.signed)
+    return type(opt_state)(count, mu, nu)

@@ -182,6 +182,12 @@ def adaptive_codec(n_elements: int,
     return UNIFORM8BIT if n_elements >= threshold else FLOAT16
 
 
+def is_float_dtype(dtype) -> bool:
+    """True for float dtypes, given as a numpy dtype or a dtype name
+    (``"bfloat16"`` included)."""
+    return "float" in getattr(dtype, "name", dtype)
+
+
 def compress(x: np.ndarray, codec: int) -> bytes:
     if codec == NONE:
         return np.asarray(x, np.float32).tobytes()
@@ -222,3 +228,27 @@ def unpack_array(buf: bytes) -> Tuple[np.ndarray, int]:
     """-> (flat float32 array, codec used)."""
     codec, n = struct.unpack(">BI", buf[:5])
     return decompress(buf[5:], codec, n), codec
+
+
+# -- codec backend registry ---------------------------------------------
+# One wire format, two execution backends: "host" (the numpy functions
+# above) and "device" (swarm/device_codec.py: the u8/u4 encodes are the
+# wire kernels on the GPU, and only packed codes and scales cross to the
+# host). Both produce the same bytes; the backend is a per-peer choice,
+# never a protocol version.
+
+HOST_BACKEND = "host"
+DEVICE_BACKEND = "device"
+
+
+def backend_module(name: str):
+    """The module implementing codec backend ``name``: each exposes
+    ``compress(x, codec) -> bytes`` and ``decompress(buf, codec, n)`` over
+    the same wire bytes. ``device`` is imported on first use."""
+    if name == HOST_BACKEND:
+        import dalle_tpu_torch.swarm.compression as host_mod
+        return host_mod
+    if name == DEVICE_BACKEND:
+        from dalle_tpu_torch.swarm import device_codec
+        return device_codec
+    raise ValueError(f"unknown codec backend {name!r}")

@@ -107,6 +107,20 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A writable host copy of ``t``. A GPU tensor is copied into a pinned
+    buffer on the current stream, and only that copy is waited for."""
+    t = t.detach()
+    if t.device.type != "cuda":
+        return t.cpu().numpy().copy()
+    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    pinned.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return pinned.numpy()
+
+
 def flatten_device(tensors: Sequence) -> torch.Tensor:
     """All tensors flattened and cast to f32 in one ``torch.cat`` on their
     device, without a host pull. Host arrays among them go to the device

@@ -1,0 +1,815 @@
+"""The collaborative optimizer: swarm-synchronous training facade
+(counterpart of ``dalle_tpu/swarm/optimizer.py``).
+
+Capability parity with ``hivemind.Optimizer`` as configured by the
+reference (task.py:122-135): peers accumulate gradients locally until the
+swarm collectively reaches ``target_batch_size``; then they form a group
+(matchmaking), average gradients with a compressed butterfly all-reduce,
+and every peer applies an identical optimizer update — so the swarm
+behaves like one giant synchronous data-parallel trainer with elastic
+membership. Surfaces: ``.step()``, ``.local_epoch``, ``.tracker``,
+``.load_state_from_peers()``, ``on_after_global_step`` /
+``on_load_state_from_peers`` callbacks, ``finalize()``,
+``drop_pending_round()`` and ``robustness_snapshot()``.
+
+The port's seams:
+
+- Gradients arrive as a dict of f32 tensors keyed by the port's parameter
+  names (``training/steps.grad_step``) and are accumulated on their device
+  (``acc + g * batch_size``). They cross the wire in the JAX package's leaf
+  order (:func:`~dalle_tpu_torch.params.jax_leaf_names`), and state
+  crosses it in the order of :func:`~dalle_tpu_torch.params
+  .jax_state_leaves`, so a torch peer and a JAX peer average the same
+  coordinates. Under ``wire_codec_backend="device"`` the round hands
+  device tensors to the codec (``swarm/device_codec.py``: the divide, the
+  flatten and the ``wire_quantize_u8``/``u4`` kernels run on the GPU).
+- The apply (``apply_step``) and the accumulator update tensors in place,
+  where JAX returns new arrays. So every reader on another thread takes a
+  copy under :attr:`state_lock`, which the training thread holds while it
+  changes the state: the state server's snapshot clones the state on the
+  device and pulls the clone to the host after the lock is released; an
+  overlapped round is handed the accumulator, and the training thread
+  starts a new one rather than writing it. All device work of the peer's
+  threads runs on the device's default stream, so a clone is ordered after
+  the apply it follows and before the next one.
+
+Not ported in this slice, and refused by ``CollabConfig.check_ported``:
+verified aggregation and round repair (``audit_gather``), PowerSGD
+(``grad_compression="power_sgd"``), fault injection (``chaos_plan``) and
+access tokens (an ``authorizer``). Multi-process peers are refused by
+:class:`~dalle_tpu_torch.parallel.multihost.SliceRole`.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from dalle_tpu_torch.config import CollabConfig
+from dalle_tpu_torch.params import (jax_leaf_names, load_state_leaves,
+                                    state_leaf_tensors)
+from dalle_tpu_torch.swarm import compression
+from dalle_tpu_torch.swarm.allreduce import run_allreduce
+from dalle_tpu_torch.swarm.dht import DHT
+from dalle_tpu_torch.swarm.matchmaking import make_group
+from dalle_tpu_torch.swarm.progress import ProgressTracker
+from dalle_tpu_torch.swarm.state_transfer import (StateServer,
+                                                  load_state_from_peers)
+
+logger = logging.getLogger(__name__)
+
+_CODECS = {"none": compression.NONE, "float16": compression.FLOAT16,
+           "uniform8bit": compression.UNIFORM8BIT, "size_adaptive": None}
+
+Grads = Dict[str, torch.Tensor]
+
+
+class _PendingRound:
+    """An overlapped swarm round in flight on a background thread.
+
+    Holds the gradient accumulator handed off at launch (``leaves``, device
+    tensors in the wire order that the training thread no longer writes)
+    and receives the wire outcome (``result`` = averaged host arrays, or
+    None for an ALONE epoch whose device grads flow straight to the
+    apply). The worker thread only touches the wire and its copies; all
+    train-state mutation happens at reconcile time on the training thread.
+    """
+
+    def __init__(self, epoch: int, leaves: List[torch.Tensor],
+                 weight: float, weight_int: int):
+        self.epoch = epoch
+        self.leaves = leaves
+        self.weight = weight
+        self.weight_int = weight_int          # frozen progress report value
+        self.result: Optional[List[np.ndarray]] = None
+        self.report: Optional[dict] = None      # run_allreduce's report
+        self.error: Optional[BaseException] = None
+        self.group_size = 1
+        self.timings: dict = {}
+        self.overlapped_steps = 0             # grad steps run during round
+        self.hidden_s = 0.0                   # round wall hidden from chip
+        self.done = threading.Event()
+        self.thread: Optional[threading.Thread] = None
+        # hop-granular progress (pipeline_hops): run_allreduce's progress
+        # hook bumps these from codec/drain threads while the training
+        # thread polls hop_progress() between grad steps
+        self._hop_lock = threading.Lock()
+        self.hops = {"scatter": 0, "reduce": 0, "gather": 0}
+
+    def note_hop(self, leg: str, part: int) -> None:
+        """run_allreduce ``progress`` sink (thread-safe)."""
+        with self._hop_lock:
+            if leg in self.hops:
+                self.hops[leg] += 1
+
+    def hop_progress(self) -> dict:
+        with self._hop_lock:
+            return dict(self.hops)
+
+
+class CollaborativeOptimizer:
+    """Owns the train state and drives swarm-synchronous updates.
+
+    Args:
+      dht: this peer's swarm node.
+      cfg: swarm-wide semantics (target batch, timeouts, compression).
+      state: the initial ``training.steps.TrainState`` (model + optimizer
+        state + step), on the device the peer trains on.
+      apply_step: ``(state, grads) -> state``, one optimizer update with a
+        dict of averaged f32 gradients (``training.steps.apply_step`` with
+        the optimizer bound).
+      client_mode: outbound-only peer — contributes gradients but owns no
+        all-reduce part (reference arguments.py:89-92).
+      serve_state: run a StateServer thread so joiners can bootstrap from
+        this peer (reference callback.py:41 semantics).
+    """
+
+    def __init__(self, dht: Optional[DHT], cfg: CollabConfig, state: Any,
+                 apply_step: Callable[[Any, Grads], Any],
+                 client_mode: bool = False,
+                 serve_state: bool = True,
+                 matchmaking_min_group: int = 2,
+                 authorizer=None,
+                 role=None):
+        from dalle_tpu_torch.parallel.multihost import SliceRole
+        cfg.check_ported()
+        if authorizer is not None:
+            raise NotImplementedError(
+                "access-token authorization (swarm/auth.py) is not ported "
+                "yet (ROADMAP)")
+        self.role = role or SliceRole()
+        if dht is None:
+            raise ValueError("a trainer peer needs a DHT")
+        self.dht = dht
+        self.cfg = cfg
+        self.state = state
+        self.apply_step = apply_step
+        self.client_mode = client_mode
+        self.matchmaking_min_group = matchmaking_min_group
+        self.authorizer = None
+        # held by the training thread while it changes the state, and by
+        # readers on other threads while they take their device copy
+        self.state_lock = threading.RLock()
+        self._names = jax_leaf_names(state.model.cfg)
+        self._device = next(state.model.parameters()).device
+        # flight recorder (obs/trace.py): round spans under the protocol
+        # round id {run_id}:grads:{epoch}; None records nothing
+        self.tracer = None
+        if cfg.trace_file:
+            from dalle_tpu_torch.obs.trace import Tracer
+            self.tracer = Tracer(peer=dht.peer_id[:12],
+                                 sink_path=cfg.trace_file,
+                                 ring_bytes=cfg.trace_ring_kb * 1024)
+        self.local_epoch = 0
+        self.local_samples = 0
+        # Peer-health ledger (swarm/health.py): allreduce bans feed
+        # strikes; matchmaking and progress aggregation down-rank repeat
+        # offenders until the strikes decay. Content screening and the
+        # frame-weight clamp ride every allreduce call; the gossip worker
+        # publishes/folds signed strike receipts until shutdown().
+        from dalle_tpu_torch.swarm.health import (PeerHealthLedger,
+                                                  StrikeGossip)
+        self.ledger = PeerHealthLedger()
+        self.tracker = ProgressTracker(
+            dht, cfg.run_id, cfg.target_batch_size,
+            client_mode=client_mode, ledger=self.ledger,
+            max_epoch_lead=cfg.progress_max_epoch_lead)
+        if cfg.screen_gradients:
+            from dalle_tpu_torch.swarm.screening import (GradientScreen,
+                                                         ScreenPolicy)
+            self._screen = GradientScreen(ScreenPolicy(
+                min_senders=cfg.screen_min_senders,
+                max_drop_frac=cfg.screen_max_drop_frac,
+                norm_tolerance=cfg.screen_norm_tolerance,
+                cosine_floor=cfg.screen_cosine_floor,
+                abs_norm_ceiling=cfg.screen_abs_norm_ceiling))
+        else:
+            self._screen = None
+        mpw = cfg.max_peer_weight
+        if mpw is None:
+            mpw = float(cfg.target_batch_size)
+        self._max_peer_weight = mpw if mpw > 0 else None
+        self._gossip = None
+        if cfg.gossip_strikes:
+            self._gossip = StrikeGossip(dht, self.ledger, cfg.run_id,
+                                        period=cfg.strike_gossip_period)
+            self._gossip.start()
+        self.on_after_global_step: List[Callable[[], None]] = []
+        self.on_load_state_from_peers: List[Callable[[], None]] = []
+        # Wire-codec execution backend (swarm/device_codec.py): "device"
+        # quantizes on the GPU and keeps gradients there until the codec
+        # consumes them; the wire bytes are identical either way.
+        from dalle_tpu_torch.swarm.device_codec import resolve_backend
+        self._codec_backend = resolve_backend(cfg.wire_codec_backend)
+        self._device_grad_handoff = (
+            self._codec_backend == compression.DEVICE_BACKEND)
+        self._grad_codec = _CODECS[cfg.grad_compression]
+        self._state_codec = _CODECS[cfg.state_compression]
+        # In-collective quantization: wire_bits_reduce/_gather pin the
+        # butterfly legs' codecs for the run (receivers reject codec
+        # flapping); ef_residuals arms both error-feedback legs. Grad
+        # rounds only: state averaging keeps its own codec.
+        wb_r, wb_g = cfg.wire_bits_reduce, cfg.wire_bits_gather
+        reduce_codec = compression.codec_for_bits(wb_r)
+        gather_codec = compression.codec_for_bits(wb_g)
+        if cfg.ef_residuals and (wb_r is None or wb_g is None):
+            raise ValueError(
+                "ef_residuals carries quantization error between rounds, "
+                "which is only meaningful against a STABLE codec: pin "
+                "both wire_bits_reduce and wire_bits_gather (8 or 4)")
+        if reduce_codec is not None:
+            self._grad_codec = reduce_codec
+        self._gather_codec = gather_codec
+        self._pin_codec = wb_r is not None or wb_g is not None
+        # Per-part pipelined butterfly: moves wall-clock only, the bytes
+        # are those of the sequential protocol. Grad rounds only.
+        self._pipeline_hops = bool(cfg.pipeline_hops)
+        self._pipeline_depth = int(cfg.pipeline_depth)
+        if cfg.ef_residuals:
+            from dalle_tpu_torch.swarm.error_feedback import ErrorFeedback
+            self._ef_scatter = ErrorFeedback()
+            self._ef_gather = ErrorFeedback()
+        else:
+            self._ef_scatter = None
+            self._ef_gather = None
+        self._grad_acc: Optional[Grads] = None
+        self._pending: Optional[_PendingRound] = None
+        self._next_resync = 0.0
+        self.last_timings: dict = {}
+        # the last applied round's run_allreduce report (None for an
+        # ALONE epoch): per-phase walls, per-hop rows with wire bytes
+        self.last_wire_report: Optional[dict] = None
+        self._apply_timings: dict = {}
+        self._server: Optional[StateServer] = None
+        if serve_state and not client_mode:
+            self._server = StateServer(
+                dht, cfg.run_id, self._state_snapshot,
+                codec=self._state_codec,
+                adaptive_threshold=cfg.size_adaptive_threshold,
+                epoch_fn=lambda: self.local_epoch,
+                stream_timeout=cfg.averaging_timeout,
+                tracer=self.tracer).start()
+        self.tracker.report_local_progress(0, 0, force=True)
+
+    # -- state (de)construction -----------------------------------------
+
+    def _state_snapshot(self):
+        """StateServer provider (runs on a server thread): ``(epoch,
+        arrays)``, the state leaves in the JAX order, copied on the device
+        under the state lock (never a half-applied state) and pulled to
+        the host after it is released."""
+        with self.state_lock:
+            leaves = state_leaf_tensors(self.state.model,
+                                        self.state.opt_state)
+            epoch, copies = self.local_epoch, [t.clone() for t in leaves]
+        return epoch, [_host(t) for t in copies]
+
+    def _replace_state_leaves(self, arrays) -> None:
+        with self.state_lock:
+            self.state.opt_state = load_state_leaves(
+                self.state.model, self.state.opt_state, arrays)
+
+    # -- the hot path ----------------------------------------------------
+
+    _CONTINUE, _GLOBAL_STEP, _RESYNC = 0, 1, 2
+
+    def _accumulate(self, grads: Grads, scale: float) -> None:
+        if self._grad_acc is None:
+            self._grad_acc = {n: torch.zeros_like(g, dtype=torch.float32)
+                              for n, g in grads.items()}
+        s = float(scale)
+        for n, g in grads.items():
+            # a multiply, then an add: two roundings, as the JAX tree-add
+            self._grad_acc[n].add_(g.to(torch.float32) * s)
+
+    def step(self, grads: Grads, batch_size: int) -> bool:
+        """Record one local accumulation step; run a global step when the
+        swarm is ready. Returns True iff a global step (the optimizer
+        apply) happened during this call.
+
+        With ``cfg.delay_optimizer_step`` (the reference's default,
+        task.py:129-131) the swarm round — matchmaking + all-reduce — runs
+        on a background thread while step() keeps accumulating gradients
+        for the NEXT epoch into a fresh buffer. The epoch counter and the
+        tracker's published progress stay frozen at the launch values
+        until the round's result is applied (reconciled) at a later
+        step() boundary, so to every other peer the DHT looks identical to
+        a synchronous round in progress. Samples accumulated during the
+        round were computed against the pre-apply params and count toward
+        the next epoch: the one-step staleness delay_optimizer_step trades
+        for a device that never waits on the wire.
+        """
+        did_global = False
+        if self._pending is not None and self._pending.done.is_set():
+            self._finish_pending()
+            did_global = True
+
+        if self.tracer is not None and self._pending is not None:
+            t_acc = time.monotonic()
+            self._accumulate(grads, batch_size)
+            _sync(self._device)
+            self.tracer.add(
+                "swarm", "accumulate",
+                self._round_trace(self._pending.epoch), t_acc,
+                time.monotonic() - t_acc, samples=int(batch_size))
+        else:
+            self._accumulate(grads, batch_size)
+        self.local_samples += int(batch_size)
+        if self._pending is not None:
+            # round in flight: report the FROZEN pre-round progress (pure
+            # liveness); decisions wait for the reconcile
+            self._pending.overlapped_steps += 1
+            self.tracker.report_local_progress(
+                self.local_epoch, self._pending.weight_int)
+            return did_global
+        # after a reconcile the tracker just force-published the epoch
+        # reset (samples=0): an unforced report here would be throttled
+        # and this call's ready check would miss
+        self.tracker.report_local_progress(
+            self.local_epoch, self.local_samples, force=did_global)
+
+        decision = self._CONTINUE
+        min_epoch = 0
+        progress = self.tracker.global_progress()
+        if progress.epoch > self.local_epoch:
+            # keep accumulating between throttled attempts
+            if time.monotonic() >= self._next_resync:
+                decision = self._RESYNC
+                min_epoch = progress.epoch
+                self._next_resync = time.monotonic() + 1.0
+        elif progress.ready_to_update:
+            decision = self._GLOBAL_STEP
+
+        if decision == self._RESYNC:
+            logger.info("behind the swarm (local %d < global %d): "
+                        "resyncing", self.local_epoch, min_epoch)
+            self.load_state_from_peers(min_epoch=min_epoch)
+            return did_global
+        if decision == self._GLOBAL_STEP:
+            if self.cfg.delay_optimizer_step:
+                self._launch_round()
+                return did_global  # the apply lands at a later reconcile
+            self._run_global_step()
+            return True
+        return did_global
+
+    # -- overlapped rounds (delay_optimizer_step) -------------------------
+
+    def _round_trace(self, epoch: int) -> str:
+        """The PROTOCOL round id (shared by every member of the round)."""
+        return f"{self.cfg.run_id}:grads:{epoch}"
+
+    def _trace_allreduce(self, trace: str, t_start: float, t_end: float,
+                         rep: Optional[dict], group_size: int) -> None:
+        """A completed exchange's measured walls as spans: the allreduce
+        envelope plus the wire report's per-protocol-phase walls."""
+        tr = self.tracer
+        if tr is None:
+            return
+        attrs = {"group": group_size}
+        if rep is not None and "complete" in rep:
+            attrs["complete"] = bool(rep["complete"])
+        tr.add("swarm", "allreduce", trace, t_start, t_end - t_start,
+               **attrs)
+        t = t_start
+        for name, dur in ((rep or {}).get("phases") or {}).items():
+            if not isinstance(dur, (int, float)):
+                continue
+            phase = "ar_" + (name[:-2] if name.endswith("_s") else name)
+            tr.add("swarm", phase, trace, t, dur)
+            t += dur
+
+    def _wire_leaves(self, acc: Grads) -> List[torch.Tensor]:
+        return [acc[n] for n in self._names]
+
+    def _launch_round(self) -> None:
+        """Hand the gradient accumulator to a background wire thread and
+        start a fresh buffer; the epoch advances when the round's result
+        is applied (``_finish_pending``)."""
+        pending = _PendingRound(
+            epoch=self.local_epoch,
+            leaves=self._wire_leaves(self._grad_acc),
+            weight=float(max(self.local_samples, 1)),
+            weight_int=self.local_samples)
+        self._grad_acc = None
+        self.local_samples = 0
+        pending.thread = threading.Thread(
+            target=self._round_worker, args=(pending,),
+            name="swarm-round", daemon=True)
+        self._pending = pending
+        pending.thread.start()
+
+    def _exchange(self, epoch: int, leaves: List[torch.Tensor],
+                  weight: float, group, budget: float,
+                  progress=None):
+        """``(averaged, pull_s, report)``: the averaged gradients of one
+        round (host arrays, wire order), the seconds spent handing the
+        gradients to the codec, and the wire report (per-phase walls and
+        per-hop rows with their bytes)."""
+        t_pull = time.monotonic()
+        if self._device_grad_handoff:
+            # device tensors to the codec: the divide, flatten and
+            # quantize all run on the GPU; the round's one bulk host copy
+            # lands in allreduce's flatten phase
+            grads_local = [g / weight for g in leaves]
+        else:
+            grads_local = [_host(g) / weight for g in leaves]
+        pull_s = time.monotonic() - t_pull
+        rep = {}
+        t_ar = time.monotonic()
+        averaged = run_allreduce(
+            self.dht, group, f"{self.cfg.run_id}_grads", epoch,
+            grads_local, weight=weight, allreduce_timeout=budget,
+            codec=self._grad_codec,
+            adaptive_threshold=self.cfg.size_adaptive_threshold,
+            codec_backend=self._codec_backend, ledger=self.ledger,
+            screen=self._screen, max_peer_weight=self._max_peer_weight,
+            audit=None, gather_codec=self._gather_codec,
+            ef_scatter=self._ef_scatter, ef_gather=self._ef_gather,
+            pin_codec=self._pin_codec, report=rep,
+            pipeline_hops=self._pipeline_hops,
+            pipeline_depth=self._pipeline_depth, tracer=self.tracer,
+            trace=self._round_trace(epoch), progress=progress)
+        self._trace_allreduce(self._round_trace(epoch), t_ar,
+                              time.monotonic(), rep, group.size)
+        return averaged, pull_s, rep
+
+    def _round_worker(self, pending: _PendingRound) -> None:
+        """Wire half of an overlapped round: matchmaking + all-reduce.
+        Touches the DHT and the handed-off gradients only — never
+        ``self.state`` (the training thread owns it)."""
+        t0 = time.monotonic()
+        try:
+            group = make_group(
+                self.dht, f"{self.cfg.run_id}_grads", pending.epoch,
+                weight=pending.weight,
+                matchmaking_time=self.cfg.matchmaking_time,
+                min_group_size=self.matchmaking_min_group,
+                client_mode=self.client_mode, authorizer=None,
+                encrypt=self.cfg.encrypt_data_plane, ledger=self.ledger)
+            t_match = time.monotonic()
+            pending.timings["matchmaking_s"] = round(t_match - t0, 4)
+            if self.tracer is not None:
+                self.tracer.add(
+                    "swarm", "matchmaking", self._round_trace(
+                        pending.epoch), t0, t_match - t0,
+                    group=group.size if group is not None else 1)
+            if group is not None and group.size > 1:
+                budget = min(self.cfg.allreduce_timeout,
+                             max(1.0, self.cfg.averaging_timeout
+                                 - (t_match - t0)))
+                pending.result, pull_s, pending.report = self._exchange(
+                    pending.epoch, pending.leaves, pending.weight, group,
+                    budget, progress=pending.note_hop)
+                pending.timings["grad_pull_s"] = round(pull_s, 4)
+                pending.timings["allreduce_s"] = round(
+                    time.monotonic() - t_match, 4)
+            if group is not None:
+                pending.group_size = group.size
+        # the error crosses threads on the round object and
+        # _finish_pending logs it on the training thread, where the
+        # apply-local-grads fallback runs
+        except BaseException as e:  # noqa: BLE001 - reported at reconcile
+            pending.error = e
+        finally:
+            pending.hidden_s = time.monotonic() - t0
+            pending.done.set()
+
+    def _finish_pending(self, block: bool = False,
+                        discard: bool = False) -> None:
+        """Reconcile an overlapped round on the training thread: apply its
+        averaged gradients (or, for an ALONE / failed round, the handed-off
+        device gradients — the synchronous path's exact fallback) and
+        advance the epoch. ``block`` waits for the wire thread;
+        ``discard`` drops the round instead of applying."""
+        pending = self._pending
+        if pending is None:
+            return
+        if not pending.done.is_set() and not block:
+            return
+        pending.thread.join()
+        self._pending = None
+        if discard:
+            return
+        self.last_wire_report = pending.report
+        if pending.error is not None:
+            logger.warning(
+                "overlapped round for epoch %d failed (%r): applying "
+                "local gradients", pending.epoch, pending.error)
+        averaged = pending.result
+        if averaged is None:
+            # ALONE epoch (or wire failure): the accumulated grads never
+            # left the device
+            averaged = [g / pending.weight for g in pending.leaves]
+        self._apply_averaged(averaged, preserve_accumulator=True)
+        pending.timings.setdefault("grad_pull_s", 0.0)
+        pending.timings.setdefault("allreduce_s", 0.0)
+        self.last_timings = {
+            **pending.timings, **self._apply_timings,
+            "group_size": pending.group_size,
+            "overlapped_steps": pending.overlapped_steps,
+            "hidden_s": round(pending.hidden_s, 4),
+            "round_hops": pending.hop_progress(),
+            "robust": self.robustness_snapshot(),
+        }
+        logger.info(
+            "overlapped global step -> epoch %d (group=%d, %d grad steps "
+            "ran during the %.2fs round, %s)", self.local_epoch,
+            pending.group_size, pending.overlapped_steps, pending.hidden_s,
+            self.last_timings)
+
+    def round_progress(self) -> Optional[dict]:
+        """Hop-granular progress of the in-flight overlapped round
+        ({"scatter", "reduce", "gather"} part counts, the epoch and the
+        grad steps overlapped so far), or None when no round is
+        pending."""
+        p = self._pending
+        if p is None:
+            return None
+        prog = p.hop_progress()
+        prog["epoch"] = p.epoch
+        prog["overlapped_steps"] = p.overlapped_steps
+        return prog
+
+    def finalize(self) -> bool:
+        """Block until an in-flight overlapped round (if any) is applied.
+        Returns True iff a round was applied."""
+        if self._pending is None:
+            return False
+        self._finish_pending(block=True)
+        return True
+
+    def drop_pending_round(self) -> None:
+        """Abandon the current trajectory's swarm work WITHOUT applying
+        it (the rollback paths' hook): discard an in-flight overlapped
+        round AND the live gradient accumulator, both computed against
+        pre-rollback params."""
+        self._finish_pending(block=True, discard=True)
+        self._grad_acc = None
+        self.local_samples = 0
+
+    def _run_global_step(self) -> None:
+        t0 = time.monotonic()
+        leaves = self._wire_leaves(self._grad_acc)
+        weight = float(max(self.local_samples, 1))
+        group = make_group(
+            self.dht, f"{self.cfg.run_id}_grads", self.local_epoch,
+            weight=weight, matchmaking_time=self.cfg.matchmaking_time,
+            min_group_size=self.matchmaking_min_group,
+            client_mode=self.client_mode, authorizer=None,
+            encrypt=self.cfg.encrypt_data_plane, ledger=self.ledger)
+        t_match = time.monotonic()
+        if self.tracer is not None:
+            self.tracer.add(
+                "swarm", "matchmaking", self._round_trace(
+                    self.local_epoch), t0, t_match - t0,
+                group=group.size if group is not None else 1)
+        pull_s = 0.0
+        if group is not None and group.size > 1:
+            budget = min(self.cfg.allreduce_timeout,
+                         max(1.0, self.cfg.averaging_timeout
+                             - (time.monotonic() - t0)))
+            averaged, pull_s, self.last_wire_report = self._exchange(
+                self.local_epoch, leaves, weight, group, budget)
+        else:
+            # alone this epoch: the grads never leave the device
+            averaged = [g / weight for g in leaves]
+        t_reduce = time.monotonic()
+        self._apply_averaged(averaged)
+        self.last_timings = {
+            "grad_pull_s": round(pull_s, 4),
+            "matchmaking_s": round(t_match - t0, 4),
+            "allreduce_s": round(t_reduce - t_match - pull_s, 4),
+            "group_size": group.size if group is not None else 1,
+            **self._apply_timings,
+            "robust": self.robustness_snapshot(),
+        }
+        logger.info("global step -> epoch %d (%.2fs, group=%s, %s)",
+                    self.local_epoch, time.monotonic() - t0,
+                    group.size if group else 1, self.last_timings)
+
+    def _note_epoch_advanced(self) -> None:
+        """Every epoch advance drives the health ledger's strike decay."""
+        self.ledger.advance_epoch(self.local_epoch)
+
+    def _apply_averaged(self, averaged,
+                        preserve_accumulator: bool = False) -> None:
+        """The post-exchange half of a global step: apply the averaged
+        gradients (host arrays or device tensors, wire order), advance the
+        epoch, and run the periodic state averaging. Fills
+        ``self._apply_timings``. ``preserve_accumulator`` (overlapped
+        rounds): the live accumulator holds the NEXT epoch's gradients
+        collected during the round and survives the reconcile."""
+        t0 = time.monotonic()
+        grads = {n: _to_device(a, self._device)
+                 for n, a in zip(self._names, averaged)}
+        with self.state_lock:
+            self.state = self.apply_step(self.state, grads)
+        _sync(self._device)
+        t_applied = time.monotonic()
+
+        epoch0 = self.local_epoch
+        self.local_epoch += 1
+        if not preserve_accumulator:
+            self.local_samples = 0
+            self._grad_acc = None
+        self.tracker.reset_epoch(self.local_epoch)
+        self._note_epoch_advanced()
+
+        if (self.cfg.average_state_every > 0
+                and self.local_epoch % self.cfg.average_state_every == 0):
+            self._average_state()
+        self._apply_timings = {
+            "apply_s": round(t_applied - t0, 4),
+            "state_avg_s": round(time.monotonic() - t_applied, 4),
+        }
+        if self.tracer is not None:
+            trace = self._round_trace(epoch0)
+            self.tracer.add("swarm", "apply", trace, t0,
+                            self._apply_timings["apply_s"])
+            if self._apply_timings["state_avg_s"] > 0:
+                self.tracer.add("swarm", "state_avg", trace, t_applied,
+                                self._apply_timings["state_avg_s"])
+            self.tracer.maybe_flush()
+
+        for cb in self.on_after_global_step:
+            cb()
+
+    def robustness_snapshot(self) -> dict:
+        """The robustness counters of the JAX package's optimizer, with
+        the same keys: the audit, repair and proof counters stay 0 until
+        that plane is ported; ``ef_lost_rounds`` counts the
+        error-feedback residuals lost to failed rounds, and the proof
+        receipts the strike gossip saw are counted too."""
+        out = {
+            "parts_audited": 0, "audit_fail": 0, "audit_omit": 0,
+            "audit_unserved": 0, "ring_evictions": 0,
+            "repairs_applied": 0, "repairs_exact": 0,
+            "repairs_pending": 0,
+            "proofs_published": 0, "proofs_convicted": 0,
+            "proofs_rejected": 0, "proofs_by_reference": 0,
+            "proof_fetch_attempted": 0, "proof_fetch_ok": 0,
+            "proof_fetch_failed": 0, "proof_fetch_timeouts": 0,
+            "proof_fetch_failover": 0, "proof_fetch_bytes": 0,
+            "ef_lost_rounds": 0,
+        }
+        if self._gossip is not None:
+            out["proofs_published"] = self._gossip.proofs_published
+            out["proofs_convicted"] = self._gossip.proofs_convicted
+            out["proofs_rejected"] = self._gossip.proofs_rejected
+            out["proofs_by_reference"] = self._gossip.proofs_by_reference
+        for ef in (self._ef_scatter, self._ef_gather):
+            if ef is not None:
+                out["ef_lost_rounds"] += ef.lost_rounds
+        return out
+
+    # -- drift control / recovery ----------------------------------------
+
+    def _average_state(self) -> None:
+        """Butterfly-average the float content of the state (params + opt
+        statistics), in the JAX package's leaf order.
+
+        Block-quantized moments are dequantized before averaging and
+        requantized after (averaging their absmax scales against another
+        peer's codes would corrupt the moments precisely in the divergent-
+        peer situation state averaging exists for). The step count stays
+        local (identical updates keep it synchronized)."""
+        from dalle_tpu_torch.ops.quant import (Quantized,
+                                               dequantize_blockwise,
+                                               quantize_blockwise)
+        group = make_group(
+            self.dht, f"{self.cfg.run_id}_state", self.local_epoch,
+            weight=1.0, matchmaking_time=self.cfg.matchmaking_time,
+            min_group_size=self.matchmaking_min_group,
+            client_mode=self.client_mode, authorizer=None,
+            encrypt=self.cfg.encrypt_data_plane)
+        if group is None or group.size <= 1:
+            return
+        model, opt_state = self.state.model, self.state.opt_state
+        params = dict(model.named_parameters())
+        # (kind, name) of each float leaf, the JAX order with a quantized
+        # moment as ONE leaf (its dequantized values)
+        slots = [("param", n) for n in self._names]
+        for moment in ("mu", "nu"):
+            slots += [(moment, n) for n in self._names]
+
+        def value(slot):
+            kind, name = slot
+            if kind == "param":
+                return params[name].detach()
+            m = getattr(opt_state, kind)[name]
+            return dequantize_blockwise(m) if isinstance(m, Quantized) else m
+
+        with self.state_lock:
+            floats = [_host(value(s).to(torch.float32)) for s in slots]
+        averaged = run_allreduce(
+            self.dht, group, f"{self.cfg.run_id}_state",
+            self.local_epoch, floats, weight=1.0,
+            allreduce_timeout=self.cfg.allreduce_timeout,
+            codec=self._state_codec,
+            adaptive_threshold=self.cfg.size_adaptive_threshold,
+            codec_backend=self._codec_backend, ledger=self.ledger,
+            screen=self._screen, max_peer_weight=self._max_peer_weight,
+            audit=None)
+        if averaged is None:
+            return
+        with self.state_lock, torch.no_grad():
+            mu, nu = dict(opt_state.mu), dict(opt_state.nu)
+            for (kind, name), avg in zip(slots, averaged):
+                if kind == "param":
+                    p = params[name]
+                    p.copy_(_to_device(avg, p.device).reshape(p.shape)
+                            .to(p.dtype))
+                    continue
+                tree = mu if kind == "mu" else nu
+                old = tree[name]
+                if isinstance(old, Quantized):
+                    x = _to_device(avg, old.codes.device).reshape(old.shape)
+                    tree[name] = quantize_blockwise(
+                        x, block_size=old.codes.shape[1], signed=old.signed)
+                else:
+                    tree[name] = _to_device(avg, old.device).reshape(
+                        old.shape).to(old.dtype)
+            self.state.opt_state = type(opt_state)(opt_state.count, mu, nu)
+
+    def load_state_from_peers(self, min_epoch: int = 0,
+                              timeout: Optional[float] = None) -> bool:
+        """Bootstrap params+opt state from the freshest live peer
+        (reference callback.py:41, run_aux_peer.py:48)."""
+        # an in-flight overlapped round averages gradients for state this
+        # download is about to replace: drain and discard it first
+        self._finish_pending(block=True, discard=True)
+        result = load_state_from_peers(
+            self.dht, self.cfg.run_id, min_epoch=min_epoch,
+            timeout=timeout or self.cfg.averaging_timeout,
+            tracer=self.tracer)
+        if result is None:
+            logger.warning("load_state_from_peers: nobody answered")
+            return False
+        epoch, arrays = result
+        # accept only state that moves us forward (except at epoch 0, where
+        # a fresh joiner synchronizes its random init with the swarm)
+        if epoch < self.local_epoch or (
+                epoch == self.local_epoch and self.local_epoch > 0):
+            logger.warning("ignoring stale peer state (epoch %d <= local "
+                           "%d)", epoch, self.local_epoch)
+            return False
+        try:
+            self._replace_state_leaves(arrays)
+        except (ValueError, RuntimeError):  # structurally alien state
+            logger.warning("peer state does not match local structure",
+                           exc_info=True)
+            return False
+        self.local_epoch = max(epoch, self.local_epoch)
+        self.local_samples = 0
+        self._grad_acc = None
+        self.tracker.reset_epoch(self.local_epoch)
+        self._note_epoch_advanced()
+        for cb in self.on_load_state_from_peers:
+            cb()
+        return True
+
+    def shutdown(self) -> None:
+        self._finish_pending(block=True, discard=True)
+        if self._server is not None:
+            self._server.stop()
+            self._server = None
+        if self._gossip is not None:
+            # signal AND bounded-join BEFORE the caller tears the DHT
+            # down: an in-flight publish/fold on a destroyed native node
+            # is a use-after-free
+            self._gossip.stop()
+            self._gossip = None
+        if self.tracer is not None:
+            self.tracer.flush()
+
+    def __enter__(self) -> "CollaborativeOptimizer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown()
+
+
+def _host(t) -> np.ndarray:
+    """A host copy of a tensor (or an array), through a pinned buffer for
+    a GPU tensor."""
+    if isinstance(t, torch.Tensor):
+        from dalle_tpu_torch.swarm.device_codec import to_host
+        return to_host(t)
+    return np.array(t, copy=True)
+
+
+def _to_device(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -102,8 +102,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax')"
-        " or m.startswith(('jax.', 'flax.', 'optax.'))"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax',"
+        " 'msgpack', 'pydantic')"
+        " or m.startswith(('jax.', 'flax.', 'optax.', 'msgpack.',"
+        " 'pydantic.'))"
         " or m == 'dalle_tpu' or m.startswith('dalle_tpu.'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
@@ -133,7 +135,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "dalle_tpu_torch.models.vqgan", "dalle_tpu_torch.models.clip",
                 "dalle_tpu_torch.cli", "dalle_tpu_torch.cli._args",
                 "dalle_tpu_torch.cli.run_server",
-                "dalle_tpu_torch.cli.run_inference"):
+                "dalle_tpu_torch.cli.run_inference",
+                "dalle_tpu_torch.cli.run_trainer",
+                "dalle_tpu_torch.utils.msgpack", "dalle_tpu_torch.task",
+                "dalle_tpu_torch.parallel.multihost",
+                "dalle_tpu_torch.training.checkpoint",
+                "dalle_tpu_torch.training.loop",
+                "dalle_tpu_torch.swarm._fallback_crypto",
+                "dalle_tpu_torch.swarm.crypto",
+                "dalle_tpu_torch.swarm.identity",
+                "dalle_tpu_torch.swarm._native", "dalle_tpu_torch.swarm.dht",
+                "dalle_tpu_torch.swarm.metrics",
+                "dalle_tpu_torch.swarm.rendezvous",
+                "dalle_tpu_torch.swarm.health",
+                "dalle_tpu_torch.swarm.screening",
+                "dalle_tpu_torch.swarm.progress",
+                "dalle_tpu_torch.swarm.matchmaking",
+                "dalle_tpu_torch.swarm.allreduce",
+                "dalle_tpu_torch.swarm.state_transfer",
+                "dalle_tpu_torch.swarm.optimizer"):
         assert mod in mods, mod
     # chip_smoke.py imports inside main(): read every import it names
     tree = ast.parse((root / "chip_smoke.py").read_text())
@@ -142,8 +162,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     names |= {n.module for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.module}
     bad = sorted(n for n in names
-                 if n.split(".")[0] in ("jax", "flax", "optax", "dalle_tpu"))
+                 if n.split(".")[0] in ("jax", "flax", "optax", "dalle_tpu",
+                                        "msgpack", "pydantic"))
     assert not bad, bad
     assert {"dalle_tpu_torch.training.steps",
-            "dalle_tpu_torch.serving.engine"} <= names
+            "dalle_tpu_torch.serving.engine",
+            "dalle_tpu_torch.training.loop"} <= names
     assert "dalle_tpu_torch.swarm.error_feedback" in names
