@@ -88,24 +88,33 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    GEGLU, f32, head_dim 16) through its forward and one ``grad_step`` on
    the card against the same weights on the CPU (loss, logits, every
    gradient within ``TINY_TOL``), counting the generic launches of that run;
-11. the trainer peer: (a) two flagship peers in this process (two
-   threads, each a ``TrainingTask`` on a loopback DHT, the second
-   bootstrapped from the first; micro-batch 4 x accumulation 2, the 8-bit
-   LAMB, ``CollabConfig(target_batch_size=16, matchmaking_time=3,
+11. the trainer peer at the JAX package's swarm defaults: (a) two
+   flagship peers in this process (two threads, each a ``TrainingTask`` on
+   a loopback DHT, the second bootstrapped from the first; micro-batch 4 x
+   accumulation 2, the 8-bit LAMB, ``CollabConfig(target_batch_size=16,
    allreduce_timeout=60, average_state_every=0,
-   wire_codec_backend="device", audit_gather=False)`` and the other
-   defaults: size-adaptive codec, encryption, screening, strike gossip,
-   the overlapped round) run ``train_loop`` for two epochs: both epochs
-   form a 2-peer group, the peers' params and moments end ``torch.equal``,
+   wire_codec_backend="device", audit_frac=1.0)`` and the other defaults:
+   size-adaptive codec, encryption, screening, strike gossip, the
+   overlapped round, and the trust plane (verified aggregation, round
+   repair, proof receipts)) run ``train_loop`` for two epochs: both epochs
+   form a 2-peer group, each peer audits the other's part of both rounds
+   (every part is challenged) with no failure, omission, unserved
+   transcript or strike, the peers' params and moments end ``torch.equal``,
    the rounds launch ``wire_quantize_u8`` (its launch count in the
-   ``kernels`` line is this run's, both peers together), no generic kernel
-   runs, the losses are finite; recorded: each round's matchmaking,
-   all-reduce and apply seconds, its wire bytes and the host walls of its
-   legs, the swarm's samples/s, peak memory and the device idle share of
-   one traced round; (b) ``python -m dalle_tpu_torch.cli.run_trainer
-   --preset flagship`` as a subprocess (one solo epoch, a checkpoint
-   directory under ``build/``) exits 0 and its checkpoint restores here at
-   epoch 1 with finite params;
+   ``kernels`` line is this run's, both peers together), no generic
+   kernel runs, the losses are finite; recorded: each round's
+   matchmaking, all-reduce and apply seconds, its wire bytes and the host
+   walls of its legs, the swarm's samples/s, peak memory, the device idle
+   share of one traced round, the audit's host seconds a round and its
+   ring's peak retention; (b) ``python -m dalle_tpu_torch.cli.run_trainer
+   --preset flagship`` at the defaults as a subprocess (one solo epoch, a
+   checkpoint directory under ``build/``) exits 0 and its checkpoint
+   restores here at epoch 1 with finite params; (c) the two peers of (a)
+   with ``grad_compression="power_sgd"`` (rank 4, host Gram-Schmidt) for
+   two epochs: both factor rounds complete in every epoch (and are
+   audited clean), params and moments end ``torch.equal``, the losses are
+   finite; recorded: round seconds, the factor rounds' wire bytes, peak
+   memory;
 12. the ``kernels`` line (the eleven ported kernels and the six generic
    instances).
 
@@ -522,68 +531,45 @@ def serving_phase(torch, np, dev, smi, model, captions, seeds, knobs,
     release_memory()
 
 
-TRAINER_COLLAB = dict(target_batch_size=16, matchmaking_time=3,
-                      allreduce_timeout=60, average_state_every=0,
-                      wire_codec_backend="device", audit_gather=False)
+# matchmaking_time stays at the default 15 s: the two peers share one GIL
+# with the audit's host work, and their round launches may lie a grad step
+# (4-8 s) apart; a shorter window lets the earlier peer leave before the
+# later one announces, which then forms a 2-peer group alone
+TRAINER_COLLAB = dict(target_batch_size=16, allreduce_timeout=60,
+                      average_state_every=0, wire_codec_backend="device",
+                      audit_frac=1.0)
+POWERSGD_COLLAB = dict(TRAINER_COLLAB, grad_compression="power_sgd",
+                       powersgd_rank=4, powersgd_host_orthogonalize=True)
 TRAINER_CLI = ["--preset", "flagship", "--per-device-batch", "4",
                "--grad-accum-steps", "2", "--max-epochs", "1",
                "--target-batch-size", "8", "--matchmaking-time", "3",
-               "--no-audit-gather", "--warmup-batches", "1"]
+               "--warmup-batches", "1"]
+AUDIT_WAIT_S = 240             # the last rounds' audits after the loops
 
 
-def trainer_phase(torch, smi, kernels, release_memory, dev="cuda",
-                  model_overrides=None, cli_argv=TRAINER_CLI) -> None:
-    """Phase 11: the trainer peer. 11a: two flagship peers in this process
-    (two threads, loopback DHT) train two epochs through ``TrainingTask``
-    and ``train_loop``; both epochs must form a 2-peer group, the peers'
-    params and moments end ``torch.equal``, the real rounds launch
-    ``wire_quantize_u8``, no generic kernel runs, the losses are finite.
-    Records the round split, wire bytes, the host walls of the wire legs,
-    the swarm's samples/s, peak memory and the device idle share of one
-    traced round. 11b: ``python -m dalle_tpu_torch.cli.run_trainer`` as a
-    subprocess (one solo epoch) exits 0, and its checkpoint restores here
-    (epoch 1, finite params)."""
-    import shutil
+def _peer_pair(torch, make_task, collab_kw, trace_round):
+    """Two peers (threads of this process, loopback DHT) train two epochs
+    through ``train_loop``; with ``trace_round``, peer 0's second round is
+    traced. Returns the run's record: the tasks, per-epoch reports, step
+    end times, launches, peak memory and the traced round."""
     import threading
 
     from torch.profiler import ProfilerActivity, profile
 
-    from dalle_tpu_torch.config import (CollabConfig, OptimizerConfig,
-                                        PeerConfig, TrainerConfig,
-                                        flagship_model_config)
-    from dalle_tpu_torch.models.dalle import init_params
     from dalle_tpu_torch.ops import (GENERIC_LAUNCHES, LAUNCHES,
                                      reset_launches)
-    from dalle_tpu_torch.optim import make_optimizer
-    from dalle_tpu_torch.params import state_leaf_tensors
-    from dalle_tpu_torch.task import TrainingTask
-    from dalle_tpu_torch.training.checkpoint import (CheckpointManager,
-                                                     params_are_finite)
     from dalle_tpu_torch.training.loop import train_loop
-    from dalle_tpu_torch.training.steps import TrainState
 
-    model_cfg = flagship_model_config(**(model_overrides or {}))
-    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
-
-    def make_task(peers):
-        return TrainingTask(
-            model_cfg, opt_cfg,
-            TrainerConfig(per_device_batch=4, grad_accum_steps=2),
-            CollabConfig(run_id="smoke", **TRAINER_COLLAB),
-            PeerConfig(initial_peers=tuple(peers),
-                       experiment_prefix="smoke"),
-            device=dev)
-
-    # -- 11a. two peers --------------------------------------------------
-    release_memory()
-    tasks = [make_task(())]
-    tasks.append(make_task((tasks[0].dht.visible_address,)))
+    tasks = [make_task((), collab_kw)]
+    tasks.append(make_task((tasks[0].dht.visible_address,), collab_kw))
     for task in tasks:
         task.collab_optimizer          # model, optimizer state, swarm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        torch.ones(1, device=dev).add_(1)   # warms the tracer
-        torch.cuda.synchronize()
+    if trace_round:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.ones(1, device=tasks[0].device).add_(1)   # warms it
+            torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     epochs = [[], []]
@@ -613,12 +599,13 @@ def trainer_phase(torch, smi, kernels, release_memory, dev="cuda",
     t0 = time.perf_counter()
     for t in threads:
         t.start()
-    # one traced round: from peer 0's first epoch to its second
     trace = None
     collab0 = tasks[0].collab_optimizer
-    while threads[0].is_alive() and collab0.local_epoch < 1:
-        time.sleep(0.05)
-    if threads[0].is_alive():
+    if trace_round:
+        # one traced round: from peer 0's first epoch to its second
+        while threads[0].is_alive() and collab0.local_epoch < 1:
+            time.sleep(0.05)
+    if trace_round and threads[0].is_alive():
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
         prof.start()
@@ -637,67 +624,186 @@ def trainer_phase(torch, smi, kernels, release_memory, dev="cuda",
         t.join()
     wall_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
-    generic = dict(GENERIC_LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    run_rec = dict(tasks=tasks, epochs=epochs, step_ends=step_ends,
+                   wall_s=wall_s, trace=trace, launches=dict(LAUNCHES),
+                   generic=dict(GENERIC_LAUNCHES),
+                   peak=torch.cuda.max_memory_allocated())
     if errors:
+        for task in tasks[::-1]:
+            task.shutdown()
         raise errors[0]
-    collabs = [t.collab_optimizer for t in tasks]
+    return run_rec
+
+
+def _check_pair(torch, run, where):
+    """The checks both two-peer runs share: two epochs on both peers, a
+    2-peer group in each, finite losses, params and moments ``torch.equal``
+    and no generic kernel."""
+    from dalle_tpu_torch.params import state_leaf_tensors
+    collabs = [t.collab_optimizer for t in run["tasks"]]
     if [c.local_epoch for c in collabs] != [2, 2]:
-        raise AssertionError(f"trainer: epochs {[c.local_epoch for c in collabs]}"
-                             ", expected 2 on both peers")
-    groups = [[e["timings"].get("group_size") for e in ep] for ep in epochs]
+        raise AssertionError(f"{where}: epochs "
+                             f"{[c.local_epoch for c in collabs]}, "
+                             "expected 2 on both peers")
+    groups = [[e["timings"].get("group_size") for e in ep]
+              for ep in run["epochs"]]
     if any(g != [2, 2] for g in groups):
-        raise AssertionError(f"trainer: group sizes {groups}, expected a "
+        raise AssertionError(f"{where}: group sizes {groups}, expected a "
                              "2-peer group in both epochs on both peers")
-    losses = [e["loss"] for ep in epochs for e in ep]
+    losses = [e["loss"] for ep in run["epochs"] for e in ep]
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"trainer: non-finite losses {losses}")
+        raise AssertionError(f"{where}: non-finite losses {losses}")
     a, b = (state_leaf_tensors(c.state.model, c.state.opt_state)
             for c in collabs)
     if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
-        raise AssertionError("trainer: the peers' params or moments differ")
-    if launches["wire_quantize_u8"] <= 0:
-        raise AssertionError("trainer: the rounds launched no "
-                             "wire_quantize_u8")
-    if any(generic.values()):
-        raise AssertionError(f"trainer: generic launches {generic}")
-    kernels["wire_quantize_u8"]["launches"] = launches["wire_quantize_u8"]
-    rounds = []
+        raise AssertionError(f"{where}: the peers' params or moments "
+                             "differ")
+    if any(run["generic"].values()):
+        raise AssertionError(f"{where}: generic launches {run['generic']}")
+    return collabs
+
+
+def _wait_audits(collabs, parts, where):
+    """Wait for each peer's auditor to finish ``parts`` challenged parts,
+    then require a clean audit: no failure, omission or unserved
+    transcript, and no strike in either ledger. Returns each peer's
+    robustness counters and its auditor's timing."""
+    deadline = time.perf_counter() + AUDIT_WAIT_S
+    while time.perf_counter() < deadline and any(
+            c.robustness_snapshot()["parts_audited"] < parts
+            for c in collabs):
+        time.sleep(0.25)
+    robust = [c.robustness_snapshot() for c in collabs]
+    for r in robust:
+        if r["parts_audited"] < parts:
+            raise AssertionError(f"{where}: {r['parts_audited']} parts "
+                                 f"audited, expected {parts}: {robust}")
+        bad = {k: r[k] for k in ("audit_fail", "audit_omit",
+                                 "audit_unserved", "proofs_convicted",
+                                 "repairs_applied") if r[k]}
+        if bad:
+            raise AssertionError(f"{where}: the audit convicted an honest "
+                                 f"peer: {bad}")
+    strikes = [c.ledger.snapshot() for c in collabs]
+    if any(strikes):
+        raise AssertionError(f"{where}: strikes {strikes}")
+    timing = [c._auditor.timing() for c in collabs]
+    return robust, timing
+
+
+def _round_rows(epochs, report_of):
+    """Per peer and epoch: loss, timings and the wire legs (bytes, chunks,
+    longest wall) of the round's reports (``report_of(wire)`` lists them)."""
+    rows = []
     for i, ep in enumerate(epochs):
         for e in ep:
-            legs = {}
-            for row in (e["wire"] or {}).get("phases", {}).get("hops", []):
-                leg = legs.setdefault(row["leg"], dict(bytes=0, wall_s=0.0,
-                                                       chunks=0))
-                leg["bytes"] += row["bytes"]
-                leg["chunks"] += row["chunks"]
-                leg["wall_s"] = max(leg["wall_s"], row["wall_s"])
-            phases = {k: v for k, v in (e["wire"] or {}).get(
-                "phases", {}).items() if k != "hops"}
-            rounds.append(dict(peer=i, epoch=e["epoch"], loss=e["loss"],
-                               mini_steps=e["mini_steps"],
-                               timings=e["timings"], wire_phases=phases,
-                               legs=legs))
-    # the swarm's rate after both peers' first step (warmup, the kernels'
-    # first calls and the threads' start are behind it): the samples of the
-    # steps that ended between the later first step and the earlier last
-    t_a = max(ends[0] for ends in step_ends)
-    t_b = min(ends[-1] for ends in step_ends)
-    n_in = sum(1 for ends in step_ends for t in ends if t_a < t <= t_b)
-    batch = tasks[0].local_batch_size
-    step_s = [[b - a for a, b in zip(ends, ends[1:])] for ends in step_ends]
-    emit(phase="trainer_peers", card=smi, peers=2, epochs=2,
-         collab=TRAINER_COLLAB, local_batch=batch,
-         steps=[len(ends) for ends in step_ends], step_s=step_s,
-         wall_s=wall_s, swarm_samples_per_s=(
-             n_in * batch / (t_b - t_a) if t_b > t_a else None),
-         peak_mem_gb=peak / 1e9,
-         launches=launches, generic_launches=generic, rounds=rounds,
-         traced_round=trace, robust=collabs[0].robustness_snapshot())
-    for task in tasks[::-1]:
-        task.shutdown()
-    del tasks, collabs, a, b, collab0
+            legs, phases = {}, {}
+            for rep in report_of(e["wire"]):
+                for row in rep.get("phases", {}).get("hops", []):
+                    leg = legs.setdefault(row["leg"], dict(
+                        bytes=0, wall_s=0.0, chunks=0))
+                    leg["bytes"] += row["bytes"]
+                    leg["chunks"] += row["chunks"]
+                    leg["wall_s"] = max(leg["wall_s"], row["wall_s"])
+                for k, v in rep.get("phases", {}).items():
+                    if k != "hops" and isinstance(v, (int, float)):
+                        phases[k] = phases.get(k, 0.0) + v
+            rows.append(dict(peer=i, epoch=e["epoch"], loss=e["loss"],
+                             mini_steps=e["mini_steps"],
+                             timings=e["timings"], wire_phases=phases,
+                             legs=legs))
+    return rows
+
+
+def _swarm_rate(run, batch):
+    """The swarm's samples/s after both peers' first step (warmup, the
+    kernels' first calls and the threads' start are behind it): the
+    samples of the steps that ended between the later first step and the
+    earlier last."""
+    ends_all = run["step_ends"]
+    t_a = max(ends[0] for ends in ends_all)
+    t_b = min(ends[-1] for ends in ends_all)
+    n_in = sum(1 for ends in ends_all for t in ends if t_a < t <= t_b)
+    return n_in * batch / (t_b - t_a) if t_b > t_a else None
+
+
+def trainer_phase(torch, smi, kernels, release_memory, dev="cuda",
+                  model_overrides=None, cli_argv=TRAINER_CLI) -> None:
+    """Phase 11: the trainer peer at the JAX package's swarm defaults.
+    11a: two flagship peers in this process (two threads, loopback DHT)
+    train two epochs through ``TrainingTask`` and ``train_loop`` with the
+    trust plane on and every part of every round challenged
+    (``audit_frac=1.0``); both epochs must form a 2-peer group, each peer
+    must audit the other's part of both rounds with no failure and no
+    strike, the peers' params and moments end ``torch.equal``, the real
+    rounds launch ``wire_quantize_u8``, no generic kernel runs, the losses
+    are finite. Records the round split, wire bytes, the host walls of
+    the wire legs, the swarm's samples/s, peak memory, the device idle
+    share of one traced round, and the audit's host seconds a round and
+    its ring's peak retention. 11b: ``python -m
+    dalle_tpu_torch.cli.run_trainer`` (the defaults, audit on) as a
+    subprocess (one solo epoch) exits 0, and its checkpoint restores here
+    (epoch 1, finite params). 11c: the same two peers with
+    ``grad_compression="power_sgd"`` (rank 4, host Gram-Schmidt) for two
+    epochs: both factor rounds complete in both epochs, params and moments
+    end ``torch.equal``, the losses are finite; records the round
+    seconds, the factor rounds' wire bytes and peak memory."""
+    import shutil
+
+    from dalle_tpu_torch.config import (CollabConfig, OptimizerConfig,
+                                        PeerConfig, TrainerConfig,
+                                        flagship_model_config)
+    from dalle_tpu_torch.models.dalle import init_params
+    from dalle_tpu_torch.optim import make_optimizer
+    from dalle_tpu_torch.task import TrainingTask
+    from dalle_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                     params_are_finite)
+    from dalle_tpu_torch.training.steps import TrainState
+
+    model_cfg = flagship_model_config(**(model_overrides or {}))
+    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
+
+    def make_task(peers, collab_kw):
+        return TrainingTask(
+            model_cfg, opt_cfg,
+            TrainerConfig(per_device_batch=4, grad_accum_steps=2),
+            CollabConfig(run_id="smoke", **collab_kw),
+            PeerConfig(initial_peers=tuple(peers),
+                       experiment_prefix="smoke"),
+            device=dev)
+
+    # -- 11a. two peers, every part audited --------------------------------
+    release_memory()
+    run = _peer_pair(torch, make_task, TRAINER_COLLAB, trace_round=True)
+    tasks = run["tasks"]
+    try:
+        collabs = _check_pair(torch, run, "trainer")
+        if run["launches"]["wire_quantize_u8"] <= 0:
+            raise AssertionError("trainer: the rounds launched no "
+                                 "wire_quantize_u8")
+        robust, audit_timing = _wait_audits(collabs, 2, "trainer")
+        kernels["wire_quantize_u8"]["launches"] = \
+            run["launches"]["wire_quantize_u8"]
+        batch = tasks[0].local_batch_size
+        emit(phase="trainer_peers", card=smi, peers=2, epochs=2,
+             collab=TRAINER_COLLAB, local_batch=batch,
+             steps=[len(ends) for ends in run["step_ends"]],
+             step_s=[[b - a for a, b in zip(ends, ends[1:])]
+                     for ends in run["step_ends"]],
+             wall_s=run["wall_s"],
+             swarm_samples_per_s=_swarm_rate(run, batch),
+             peak_mem_gb=run["peak"] / 1e9, launches=run["launches"],
+             generic_launches=run["generic"],
+             rounds=_round_rows(run["epochs"],
+                                lambda w: [w] if w else []),
+             traced_round=run["trace"], robust=robust,
+             audit=[dict(t, busy_s_per_round=(
+                 t["busy_s"] / t["rounds"] if t["rounds"] else None))
+                 for t in audit_timing])
+    finally:
+        for task in tasks[::-1]:
+            task.shutdown()
+    del run, tasks, collabs
     release_memory()
 
     # -- 11b. the entry point --------------------------------------------
@@ -742,6 +848,41 @@ def trainer_phase(torch, smi, kernels, release_memory, dev="cuda",
          restored_epoch=restored[1], restored_step=restored[0].step)
     del model, state, restored
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    release_memory()
+
+    # -- 11c. PowerSGD ------------------------------------------------------
+    run = _peer_pair(torch, make_task, POWERSGD_COLLAB, trace_round=False)
+    tasks = run["tasks"]
+    try:
+        collabs = _check_pair(torch, run, "powersgd")
+        factor_rounds = [[{ph: bool((e["wire"] or {}).get(ph, {}).get(
+            "complete")) for ph in ("p", "q")} for e in ep]
+            for ep in run["epochs"]]
+        if any(not all(r.values()) for ep in factor_rounds for r in ep):
+            raise AssertionError(f"powersgd: factor rounds {factor_rounds},"
+                                 " expected both complete in every epoch")
+        plan = collabs[0]._powersgd.plan(
+            [collabs[0].state.model.get_parameter(n)
+             for n in collabs[0]._names])
+        robust, audit_timing = _wait_audits(collabs, 4, "powersgd")
+        batch = tasks[0].local_batch_size
+        emit(phase="trainer_powersgd", card=smi, peers=2, epochs=2,
+             collab=POWERSGD_COLLAB, local_batch=batch,
+             planned_leaves=len(plan),
+             factor_elements=sum(p.m + p.n for p in plan)
+             * POWERSGD_COLLAB["powersgd_rank"],
+             steps=[len(ends) for ends in run["step_ends"]],
+             wall_s=run["wall_s"],
+             swarm_samples_per_s=_swarm_rate(run, batch),
+             peak_mem_gb=run["peak"] / 1e9, launches=run["launches"],
+             rounds=_round_rows(run["epochs"], lambda w: [
+                 (w or {}).get(ph) or {} for ph in ("p", "q")]),
+             factor_rounds=factor_rounds, robust=robust,
+             audit=audit_timing)
+    finally:
+        for task in tasks[::-1]:
+            task.shutdown()
+    del run, tasks, collabs
     release_memory()
 
 

@@ -11,14 +11,18 @@ is a flag (bool fields as ``--x``/``--no-x``); ``--device`` (default
 ``cuda``, raising without a GPU) takes the place of the JAX CLI's
 ``--platform``. ``--data-path`` and ``--tokenizer-path`` raise until the
 dataset reader and the tokenizer are ported, and so does every setting
-whose module is not ported yet (``TrainingTask`` lists them).
+whose module is not ported yet (``TrainingTask`` lists them). The trust
+plane (``--audit-gather``, ``--repair-convicted`` and the rest) is on by
+default as in the JAX CLI; ``--grad-compression power_sgd`` with
+``--powersgd-rank`` and ``--[no-]powersgd-host-orthogonalize`` selects
+PowerSGD.
 
 Usage::
 
     python -m dalle_tpu_torch.cli.run_trainer --preset tiny --device cpu \\
-        --no-audit-gather                                      # first peer
+        --port 31337                                           # first peer
     python -m dalle_tpu_torch.cli.run_trainer --preset tiny --device cpu \\
-        --no-audit-gather --initial-peers 127.0.0.1:31337      # joiner
+        --initial-peers 127.0.0.1:31337                        # joiner
 """
 
 from __future__ import annotations

@@ -501,19 +501,10 @@ class CollabConfig:
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for a setting whose module the port
         does not have yet (ROADMAP lists each)."""
-        if self.audit_gather:
-            raise NotImplementedError(
-                "CollabConfig.audit_gather: verified aggregation and round "
-                "repair (swarm/audit.py, swarm/repair.py) are not ported "
-                "yet (ROADMAP); pass audit_gather=False (--no-audit-gather)")
-        if self.grad_compression == "power_sgd":
-            raise NotImplementedError(
-                "CollabConfig.grad_compression='power_sgd': "
-                "swarm/powersgd.py is not ported yet (ROADMAP)")
         if self.chaos_plan is not None:
             raise NotImplementedError(
                 "CollabConfig.chaos_plan: fault injection (swarm/chaos.py) "
-                "is not ported yet (ROADMAP)")
+                "is not ported yet (ROADMAP, Queue 1 item 3.4)")
 
 
 @dataclass(frozen=True)

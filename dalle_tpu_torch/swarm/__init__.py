@@ -11,7 +11,11 @@
   ``build/dalle_tpu_torch/``), metrics records, rendezvous, the health
   ledger and strike gossip, gradient screening, progress tracking,
   matchmaking, the butterfly all-reduce, state transfer and the
-  collaborative optimizer.
+  collaborative optimizer;
+- the trust plane and PowerSGD: ``audit.py`` (verified aggregation:
+  challenges, signed transcripts, replay, proofs), ``repair.py`` (the
+  corrections a conviction queues) and ``powersgd.py`` (rank-r factor
+  rounds, their products on torch).
 
 A torch peer and a JAX peer in one run speak the same protocol and average
 the same coordinates (``params.jax_leaf_names``).

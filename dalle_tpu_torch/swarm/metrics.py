@@ -17,8 +17,10 @@ pydantic, so :class:`LocalMetrics` is a frozen dataclass whose
 :meth:`LocalMetrics.model_validate` accepts and refuses the same decoded
 records as pydantic v2's lax mode: extra or missing fields are refused; an
 int field takes an int, a bool, an integral float below 2**63 in magnitude,
-or a decimal string (ASCII digits, one underscore between digits, an
-optional ``.0…`` tail); a float field takes an int, a bool, a float or a
+or a decimal string as pydantic-core reads one (leading zeros and
+underscores stripped, after which a ``-`` may still open the number; then
+a JSON integer, with single underscores between digits; an optional
+``.0…`` tail); a float field takes an int, a bool, a float or a
 float string (``inf``/``nan`` spellings too); a str field takes a str or
 UTF-8 bytes. Strings are stripped of whitespace first, and bytes are
 decoded as UTF-8. ``tests/test_torch_swarm.py`` holds the two validators
@@ -43,8 +45,14 @@ class ValidationError(ValueError):
     """A record that the schema refuses."""
 
 
-_INT_RE = re.compile(r"[+-]?[0-9]+(?:_[0-9]+)*(?:\.0+)?")
+_JSON_INT = re.compile(r"-?(?:0|[1-9][0-9]*)")
+_DECIMAL_ZEROS = re.compile(r"(.*)\.0+", re.S)
 _FLOAT_CHARS = re.compile(r"[0-9A-Za-z+\-._]+")
+# Unicode White_Space, the characters pydantic-core trims (Rust's
+# ``str::trim``); Python's ``str.strip()`` would also take \x1c-\x1f.
+_WHITESPACE = ("\t\n\x0b\x0c\r \x85\xa0\u1680\u2000\u2001\u2002\u2003"
+               "\u2004\u2005\u2006\u2007\u2008\u2009\u200a\u2028\u2029"
+               "\u202f\u205f\u3000")
 
 
 def _text(value: Any) -> str:
@@ -54,6 +62,36 @@ def _text(value: Any) -> str:
         except UnicodeDecodeError:
             raise ValidationError("invalid UTF-8") from None
     return value
+
+
+def _strip_zeros(body: str):
+    if not body or body[0] in "123456789":
+        return body or None
+    if body[0] != "0":
+        return None
+    for i in range(1, len(body)):
+        if body[i] in "0_":
+            continue
+        return body[i:] if body[i] in "123456789-" else None
+    return body[-1]
+
+
+def _int_text(text: str):
+    """pydantic-core's ``str_as_int`` on trimmed text: leading zeros (and
+    underscores among them) go first, so ``'0-1'`` reads as -1; what is
+    left is a JSON integer, with its underscores dropped if each lies
+    between two characters."""
+    if text[:1] in ("+", "-") and text:
+        rest = _strip_zeros(text[1:])
+        text = None if rest is None else text[0].lstrip("+") + rest
+    else:
+        text = _strip_zeros(text)
+    if text is None:
+        return None
+    if (_JSON_INT.fullmatch(text) is None and "_" in text
+            and not ("__" in text or text[0] == "_" or text[-1] == "_")):
+        text = text.replace("_", "")
+    return int(text) if _JSON_INT.fullmatch(text) else None
 
 
 def _as_int(value: Any) -> int:
@@ -67,9 +105,13 @@ def _as_int(value: Any) -> int:
             return int(value)
         raise ValidationError(f"not an integral number: {value!r}")
     if isinstance(value, (str, bytes, bytearray)):
-        text = _text(value).strip()
-        if _INT_RE.fullmatch(text):
-            return int(text.split(".")[0].replace("_", ""))
+        text = _text(value).strip(_WHITESPACE)
+        number = _int_text(text)
+        tail = _DECIMAL_ZEROS.fullmatch(text)
+        if number is None and tail is not None:
+            number = _int_text(tail.group(1))
+        if number is not None:
+            return number
         raise ValidationError(f"not an integer string: {text!r}")
     raise ValidationError(f"not an integer: {type(value).__name__}")
 
@@ -78,9 +120,11 @@ def _as_float(value: Any) -> float:
     if isinstance(value, (bool, int, float)):
         return float(value)
     if isinstance(value, (str, bytes, bytearray)):
-        text = _text(value).strip()
+        raw = _text(value)
+        text = raw.strip(_WHITESPACE)
         if (not _FLOAT_CHARS.fullmatch(text) or text.startswith("_")
-                or text.endswith("_") or "__" in text):
+                or text.endswith("_") or "__" in text
+                or ("_" in text and text != raw)):
             raise ValidationError(f"not a float string: {text!r}")
         try:
             return float(text.replace("_", ""))

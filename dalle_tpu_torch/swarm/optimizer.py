@@ -12,6 +12,17 @@ membership. Surfaces: ``.step()``, ``.local_epoch``, ``.tracker``,
 ``on_load_state_from_peers`` callbacks, ``finalize()``,
 ``drop_pending_round()`` and ``robustness_snapshot()``.
 
+The trust plane runs at the JAX package's defaults: verified aggregation
+(``swarm/audit.py``: each round's challenged owners post signed
+transcripts, and an ``AuditWorker`` replays the parts this peer gathered),
+round repair (``swarm/repair.py``: a conviction's correction lands in the
+next applied gradients, or the factor/state buffers of its own phase),
+proof-carrying strike receipts judged by a ``ProofVerifier`` and the
+evidence-by-reference plane. ``grad_compression="power_sgd"`` runs the
+rank-r factor rounds of ``swarm/powersgd.py`` (P, then Q and the raw
+tail, each on half the round budget, fp16 on the wire, audited and
+repaired under ``{run}_grads_p`` / ``_q``).
+
 The port's seams:
 
 - Gradients arrive as a dict of f32 tensors keyed by the port's parameter
@@ -33,11 +44,11 @@ The port's seams:
   threads runs on the device's default stream, so a clone is ordered after
   the apply it follows and before the next one.
 
-Not ported in this slice, and refused by ``CollabConfig.check_ported``:
-verified aggregation and round repair (``audit_gather``), PowerSGD
-(``grad_compression="power_sgd"``), fault injection (``chaos_plan``) and
-access tokens (an ``authorizer``). Multi-process peers are refused by
-:class:`~dalle_tpu_torch.parallel.multihost.SliceRole`.
+Not ported yet, and refused: fault injection (``chaos_plan``, by
+``CollabConfig.check_ported``) and access tokens (an ``authorizer``).
+Multi-process peers are refused by
+:class:`~dalle_tpu_torch.parallel.multihost.SliceRole`, so every peer is
+one process and repair always runs.
 """
 
 from __future__ import annotations
@@ -199,6 +210,45 @@ class CollaborativeOptimizer:
             self._gossip = StrikeGossip(dht, self.ledger, cfg.run_id,
                                         period=cfg.strike_gossip_period)
             self._gossip.start()
+        # Verified aggregation: the worker drains completed rounds'
+        # RoundAudit retention off the training thread (fetch, replay,
+        # bit-compare, strike); its ring is byte-bounded. Repair queues a
+        # conviction's honest - served correction for the phase it
+        # belongs to. shutdown() stops the worker before the DHT goes.
+        self._auditor = None
+        self._audit_policy = None
+        self._repair = None
+        self._evidence = None
+        if cfg.audit_gather:
+            from dalle_tpu_torch.swarm.audit import (AuditPolicy, AuditWorker,
+                                                     EvidencePlane)
+            self._audit_policy = AuditPolicy(frac=cfg.audit_frac,
+                                             ttl=cfg.audit_ttl)
+            if cfg.repair_convicted:
+                from dalle_tpu_torch.swarm.repair import RepairPlane
+                prefixes = [f"{cfg.run_id}_grads"]
+                if cfg.repair_aux_phases:
+                    # factor and state corrections drain at their own
+                    # phase's application site, never into gradients
+                    prefixes += [f"{cfg.run_id}_grads_p",
+                                 f"{cfg.run_id}_grads_q",
+                                 f"{cfg.run_id}_state"]
+                self._repair = RepairPlane(accept_prefix=tuple(prefixes))
+            if cfg.proof_by_reference and self._gossip is not None:
+                # evidence past PROOF_MAX_BYTES rides the receipt as a
+                # digest and mailbox reference: this plane serves ours
+                # and fetches theirs (budgeted, hash-checked)
+                self._evidence = EvidencePlane(
+                    dht, cfg.run_id, max_bytes=cfg.proof_fetch_max_bytes,
+                    budget_s=cfg.proof_fetch_budget_s,
+                    retries=cfg.proof_fetch_retries, tracer=self.tracer)
+                self._gossip.evidence_store = self._evidence
+            self._auditor = AuditWorker(
+                dht, self.ledger, repair=self._repair,
+                max_bytes=cfg.audit_ring_bytes,
+                # with the by-reference plane, evidence has no inline cap
+                evidence_limit=0 if self._evidence is not None else None)
+            self._auditor.start()
         self.on_after_global_step: List[Callable[[], None]] = []
         self.on_load_state_from_peers: List[Callable[[], None]] = []
         # Wire-codec execution backend (swarm/device_codec.py): "device"
@@ -208,7 +258,18 @@ class CollaborativeOptimizer:
         self._codec_backend = resolve_backend(cfg.wire_codec_backend)
         self._device_grad_handoff = (
             self._codec_backend == compression.DEVICE_BACKEND)
-        self._grad_codec = _CODECS[cfg.grad_compression]
+        self._powersgd = None
+        if cfg.grad_compression == "power_sgd":
+            # rank-r factor exchange; the factors ride the wire as fp16
+            from dalle_tpu_torch.swarm.powersgd import PowerSGDCompressor
+            self._powersgd = PowerSGDCompressor(
+                cfg.powersgd_rank,
+                host_orthogonalize=cfg.powersgd_host_orthogonalize,
+                keep_factors_on_device=self._device_grad_handoff,
+                device=self._device)
+            self._grad_codec = compression.FLOAT16
+        else:
+            self._grad_codec = _CODECS[cfg.grad_compression]
         self._state_codec = _CODECS[cfg.state_compression]
         # In-collective quantization: wire_bits_reduce/_gather pin the
         # butterfly legs' codecs for the run (receivers reject codec
@@ -217,6 +278,12 @@ class CollaborativeOptimizer:
         wb_r, wb_g = cfg.wire_bits_reduce, cfg.wire_bits_gather
         reduce_codec = compression.codec_for_bits(wb_r)
         gather_codec = compression.codec_for_bits(wb_g)
+        if (wb_r is not None or wb_g is not None or cfg.ef_residuals) \
+                and self._powersgd is not None:
+            raise ValueError(
+                "wire_bits_*/ef_residuals pin the uniform wire codec; "
+                "power_sgd exchanges low-rank factors — choose one "
+                "compression family")
         if cfg.ef_residuals and (wb_r is None or wb_g is None):
             raise ValueError(
                 "ef_residuals carries quantization error between rounds, "
@@ -237,6 +304,28 @@ class CollaborativeOptimizer:
         else:
             self._ef_scatter = None
             self._ef_gather = None
+        # Proof-carrying receipts: a gossiped owner-audit-fail receipt
+        # with evidence is replayed under THIS peer's round config
+        # (codec, pin, screen, clamp); a verified proof convicts alone,
+        # an unverifiable one is dropped without ledger effect.
+        if self._gossip is not None and self._audit_policy is not None:
+            from dalle_tpu_torch.swarm.allreduce import CHUNK_ELEMS
+            from dalle_tpu_torch.swarm.audit import ProofVerifier
+            self._gossip.verifier = ProofVerifier(
+                cfg.run_id, frac=self._audit_policy.frac,
+                chunk_elems=CHUNK_ELEMS, codec=self._grad_codec,
+                adaptive_threshold=cfg.size_adaptive_threshold,
+                screen=self._screen,
+                max_peer_weight=self._max_peer_weight,
+                gather_codec=self._gather_codec,
+                pinned=self._grad_codec if self._pin_codec else None,
+                phase_overrides={
+                    # the aux phases run their own codec config
+                    "powersgd": {"gather_codec": None, "pinned": None},
+                    "state": {"codec": self._state_codec,
+                              "gather_codec": None, "pinned": None},
+                },
+                fetcher=self._evidence)
         self._grad_acc: Optional[Grads] = None
         self._pending: Optional[_PendingRound] = None
         self._next_resync = 0.0
@@ -360,6 +449,40 @@ class CollaborativeOptimizer:
 
     # -- overlapped rounds (delay_optimizer_step) -------------------------
 
+    def _new_round_audit(self, epoch: int, phase_suffix: str = "grads"):
+        """A fresh per-round audit container, or None when auditing is
+        off. ``phase_suffix`` names the averaging phase: the gradient
+        rounds ("grads"), the PowerSGD factor rounds ("grads_p" /
+        "grads_q") and state averaging ("state"); the last three are
+        audited only with ``cfg.audit_aux_phases``."""
+        if self._auditor is None:
+            return None
+        if phase_suffix != "grads" and not self.cfg.audit_aux_phases:
+            return None
+        from dalle_tpu_torch.swarm.audit import RoundAudit
+        return RoundAudit(f"{self.cfg.run_id}_{phase_suffix}", epoch,
+                          self._audit_policy)
+
+    def _submit_audit(self, ra) -> None:
+        if ra is not None and self._auditor is not None:
+            self._auditor.submit(ra)
+
+    def _repaired(self, arrays, prefix: str):
+        """Round repair at a phase's application site: ``arrays`` with the
+        corrections queued for ``prefix`` applied, or ``arrays`` itself
+        when none are. A correction whose round is this application's
+        still finds the served bytes and is assigned exactly; one that
+        missed its round is added as a bounded-staleness compensation.
+        Host arrays are patched in a copy; tensors in place on their
+        device, in the correction's window only."""
+        if (arrays is None or self._repair is None
+                or not self._repair.accepts(prefix)
+                or not self._repair.pending(prefix)):
+            return arrays
+        arrays = [_writable(a) for a in arrays]
+        self._repair.apply(arrays, prefix=prefix)
+        return arrays
+
     def _round_trace(self, epoch: int) -> str:
         """The PROTOCOL round id (shared by every member of the round)."""
         return f"{self.cfg.run_id}:grads:{epoch}"
@@ -411,6 +534,9 @@ class CollaborativeOptimizer:
         round (host arrays, wire order), the seconds spent handing the
         gradients to the codec, and the wire report (per-phase walls and
         per-hop rows with their bytes)."""
+        if self._powersgd is not None:
+            return self._exchange_powersgd(epoch, leaves, weight, group,
+                                           budget)
         t_pull = time.monotonic()
         if self._device_grad_handoff:
             # device tensors to the codec: the divide, flatten and
@@ -421,6 +547,7 @@ class CollaborativeOptimizer:
             grads_local = [_host(g) / weight for g in leaves]
         pull_s = time.monotonic() - t_pull
         rep = {}
+        ra = self._new_round_audit(epoch)
         t_ar = time.monotonic()
         averaged = run_allreduce(
             self.dht, group, f"{self.cfg.run_id}_grads", epoch,
@@ -429,15 +556,62 @@ class CollaborativeOptimizer:
             adaptive_threshold=self.cfg.size_adaptive_threshold,
             codec_backend=self._codec_backend, ledger=self.ledger,
             screen=self._screen, max_peer_weight=self._max_peer_weight,
-            audit=None, gather_codec=self._gather_codec,
+            audit=ra, gather_codec=self._gather_codec,
             ef_scatter=self._ef_scatter, ef_gather=self._ef_gather,
             pin_codec=self._pin_codec, report=rep,
             pipeline_hops=self._pipeline_hops,
             pipeline_depth=self._pipeline_depth, tracer=self.tracer,
             trace=self._round_trace(epoch), progress=progress)
+        self._submit_audit(ra)
         self._trace_allreduce(self._round_trace(epoch), t_ar,
                               time.monotonic(), rep, group.size)
         return averaged, pull_s, rep
+
+    def _exchange_powersgd(self, epoch: int, leaves: List[torch.Tensor],
+                           weight: float, group, budget: float):
+        """The PowerSGD round: the factor rounds of
+        :func:`~dalle_tpu_torch.swarm.powersgd.average_with_powersgd` on
+        the accumulated device gradients. The report holds each factor
+        round's wire report under ``"p"`` and ``"q"``."""
+        from dalle_tpu_torch.swarm.powersgd import average_with_powersgd
+        rep = {}
+        t_ar = time.monotonic()
+        averaged = average_with_powersgd(
+            self._powersgd, [g / weight for g in leaves],
+            self._powersgd_reduce_fn(group, weight, budget, epoch, rep),
+            epoch=epoch)
+        self._trace_allreduce(self._round_trace(epoch), t_ar,
+                              time.monotonic(), None, group.size)
+        return averaged, 0.0, rep
+
+    def _powersgd_reduce_fn(self, group, weight: float, budget: float,
+                            epoch: int, reports: dict):
+        """Reduce callback for the PowerSGD factor rounds: P, then Q and
+        the raw tail, each with half the round budget. An incomplete round
+        raises :class:`~dalle_tpu_torch.swarm.powersgd.IncompleteRound`
+        (the epoch falls back to local gradients). Each round is audited
+        under its phase prefix, and a queued correction for that prefix
+        lands in the averaged factors before they are used."""
+        from dalle_tpu_torch.swarm.powersgd import IncompleteRound
+
+        def reduce_fn(tensors, phase):
+            prefix = f"{self.cfg.run_id}_grads_{phase}"
+            rep: dict = {}
+            ra = self._new_round_audit(epoch, f"grads_{phase}")
+            out = run_allreduce(
+                self.dht, group, prefix, epoch, tensors, weight=weight,
+                allreduce_timeout=budget / 2, codec=self._grad_codec,
+                adaptive_threshold=self.cfg.size_adaptive_threshold,
+                report=rep, codec_backend=self._codec_backend,
+                ledger=self.ledger, screen=self._screen,
+                max_peer_weight=self._max_peer_weight, audit=ra)
+            self._submit_audit(ra)
+            reports[phase] = rep
+            if not rep.get("complete", False):
+                raise IncompleteRound(phase)
+            return self._repaired(out, prefix)
+
+        return reduce_fn
 
     def _round_worker(self, pending: _PendingRound) -> None:
         """Wire half of an overlapped round: matchmaking + all-reduce.
@@ -606,6 +780,7 @@ class CollaborativeOptimizer:
         rounds): the live accumulator holds the NEXT epoch's gradients
         collected during the round and survives the reconcile."""
         t0 = time.monotonic()
+        averaged = self._repaired(averaged, f"{self.cfg.run_id}_grads")
         grads = {n: _to_device(a, self._device)
                  for n, a in zip(self._names, averaged)}
         with self.state_lock:
@@ -642,10 +817,9 @@ class CollaborativeOptimizer:
 
     def robustness_snapshot(self) -> dict:
         """The robustness counters of the JAX package's optimizer, with
-        the same keys: the audit, repair and proof counters stay 0 until
-        that plane is ported; ``ef_lost_rounds`` counts the
-        error-feedback residuals lost to failed rounds, and the proof
-        receipts the strike gossip saw are counted too."""
+        its keys: audit volume and verdicts, repairs applied (exact vs
+        stale), repair-ring evictions, proof-receipt traffic and the
+        error-feedback residuals lost to failed rounds."""
         out = {
             "parts_audited": 0, "audit_fail": 0, "audit_omit": 0,
             "audit_unserved": 0, "ring_evictions": 0,
@@ -658,11 +832,26 @@ class CollaborativeOptimizer:
             "proof_fetch_failover": 0, "proof_fetch_bytes": 0,
             "ef_lost_rounds": 0,
         }
+        if self._auditor is not None:
+            ac = self._auditor.counters()
+            out["parts_audited"] = ac["audited"]
+            out["audit_fail"] = ac["failures"]
+            out["audit_omit"] = ac["omissions"]
+            out["audit_unserved"] = ac["unserved"]
+            out["ring_evictions"] = ac["ring_evictions"]
+        if self._repair is not None:
+            snap = self._repair.snapshot()
+            out["repairs_applied"] = snap["applied"]
+            out["repairs_exact"] = snap["applied_exact"]
+            out["repairs_pending"] = snap["pending"]
         if self._gossip is not None:
             out["proofs_published"] = self._gossip.proofs_published
             out["proofs_convicted"] = self._gossip.proofs_convicted
             out["proofs_rejected"] = self._gossip.proofs_rejected
             out["proofs_by_reference"] = self._gossip.proofs_by_reference
+        if self._evidence is not None:
+            for k, v in self._evidence.counters().items():
+                out[f"proof_fetch_{k}"] = v
         for ef in (self._ef_scatter, self._ef_gather):
             if ef is not None:
                 out["ef_lost_rounds"] += ef.lost_rounds
@@ -707,6 +896,7 @@ class CollaborativeOptimizer:
 
         with self.state_lock:
             floats = [_host(value(s).to(torch.float32)) for s in slots]
+        ra = self._new_round_audit(self.local_epoch, "state")
         averaged = run_allreduce(
             self.dht, group, f"{self.cfg.run_id}_state",
             self.local_epoch, floats, weight=1.0,
@@ -715,9 +905,13 @@ class CollaborativeOptimizer:
             adaptive_threshold=self.cfg.size_adaptive_threshold,
             codec_backend=self._codec_backend, ledger=self.ledger,
             screen=self._screen, max_peer_weight=self._max_peer_weight,
-            audit=None)
+            audit=ra)
+        self._submit_audit(ra)
         if averaged is None:
             return
+        # a convicted state round's correction lands in the averaged
+        # floats before they are adopted
+        averaged = self._repaired(averaged, f"{self.cfg.run_id}_state")
         with self.state_lock, torch.no_grad():
             mu, nu = dict(opt_state.mu), dict(opt_state.nu)
             for (kind, name), avg in zip(slots, averaged):
@@ -785,6 +979,15 @@ class CollaborativeOptimizer:
             # is a use-after-free
             self._gossip.stop()
             self._gossip = None
+        if self._evidence is not None:
+            # after the gossip worker (it publishes through this plane),
+            # before the DHT dies
+            self._evidence.stop()
+            self._evidence = None
+        if self._auditor is not None:
+            # an in-flight transcript fetch needs a live node
+            self._auditor.stop()
+            self._auditor = None
         if self.tracer is not None:
             self.tracer.flush()
 
@@ -802,6 +1005,15 @@ def _host(t) -> np.ndarray:
         from dalle_tpu_torch.swarm.device_codec import to_host
         return to_host(t)
     return np.array(t, copy=True)
+
+
+def _writable(a):
+    """An averaged leaf the repair plane may patch in place: a tensor as
+    an f32 contiguous tensor on its device (no host pull), a host array
+    as a fresh f32 copy."""
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.float32).contiguous()
+    return np.array(a, np.float32, copy=True)
 
 
 def _to_device(a, device: torch.device) -> torch.Tensor:

@@ -11,8 +11,8 @@ the optimizer step runs on that device.
 Settings whose modules are not ported yet raise ``NotImplementedError``
 when the task is built: ``data_path``/``tokenizer_path`` (the streaming
 dataset and the caption tokenizer), access tokens, ``chaos_plan``,
-``audit_gather``, PowerSGD, optimizer offload and meshes other than one
-device (each names its ROADMAP item).
+optimizer offload and meshes other than one device (each names its
+ROADMAP item).
 """
 
 from __future__ import annotations

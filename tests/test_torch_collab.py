@@ -4,8 +4,9 @@ averaging, a snapshot taken during an apply, a mixed JAX + port pair
 training a tiny DALLE, and a port joiner loading a JAX peer's state.
 
 All peers here are tiny DALLEs on the CPU with the 8-bit LAMB (dim 256, so
-the block-quantized moments are in play), on loopback DHTs, with
-``audit_gather=False`` (the audit plane is not ported yet).
+the block-quantized moments are in play), on loopback DHTs. Most cases pass
+``audit_gather=False`` to keep their rounds lean; the cases at the JAX
+defaults run the trust plane (audit, repair, proofs) and PowerSGD.
 """
 
 import threading
@@ -130,6 +131,134 @@ def test_two_port_peers_end_bitwise_equal(delay):
             o.shutdown()
         for n in nodes:
             n.shutdown()
+
+
+def _wait_audited(opts, parts, timeout=20.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        snaps = [o.robustness_snapshot() for o in opts]
+        if all(s["parts_audited"] >= parts for s in snaps):
+            return snaps
+        time.sleep(0.1)
+    return [o.robustness_snapshot() for o in opts]
+
+
+@pytest.mark.parametrize("audit_frac", [None, 1.0],
+                         ids=["defaults", "every_part"])
+def test_two_port_peers_at_the_jax_defaults(audit_frac):
+    """Two port peers with CollabConfig's defaults (audit, repair, proof
+    receipts, screening, gossip, encryption, the overlapped round) but for
+    the round's timing: they end bitwise equal, and the audit finds
+    nothing (with every part challenged, each peer audits the other's
+    part of both rounds)."""
+    kw = dict(run_id=f"co_def_{audit_frac}", target_batch_size=16,
+              matchmaking_time=4.0, allreduce_timeout=15.0,
+              averaging_timeout=30.0)
+    if audit_frac is not None:
+        kw["audit_frac"] = audit_frac
+    cfg = CollabConfig(**kw)
+    assert cfg.audit_gather and cfg.repair_convicted and cfg.gossip_strikes
+    nodes = _nodes(2)
+    opts = [_port_peer(n, cfg) for n in nodes]
+    try:
+        epochs = _run([lambda i=i: _train(opts[i], i, 2) for i in range(2)])
+        assert min(epochs) >= 2
+        a, b = _state(opts[0]), _state(opts[1])
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        snaps = _wait_audited(opts, 2 if audit_frac else 0)
+        for o, snap in zip(opts, snaps):
+            assert o._auditor is not None and o._repair is not None
+            assert o._gossip.verifier is not None
+            for key in ("audit_fail", "audit_omit", "audit_unserved",
+                        "repairs_applied", "proofs_convicted"):
+                assert snap[key] == 0, (key, snap)
+            assert o.ledger.snapshot() == {}
+            if audit_frac:
+                assert snap["parts_audited"] >= 2, snap
+    finally:
+        for o in opts:
+            o.shutdown()
+        for n in nodes:
+            n.shutdown()
+
+
+@pytest.mark.parametrize("delay", [False, True])
+def test_two_port_peers_with_powersgd_end_bitwise_equal(delay):
+    nodes = _nodes(2)
+    cfg = _collab(f"co_psgd_{delay}", delay_optimizer_step=delay,
+                  grad_compression="power_sgd", powersgd_rank=2,
+                  audit_gather=True, audit_frac=1.0, matchmaking_time=4.0)
+    opts = [_port_peer(n, cfg) for n in nodes]
+    try:
+        init = [p.detach().clone()
+                for p in opts[0].state.model.parameters()]
+        epochs = _run([lambda i=i: _train(opts[i], i, 2) for i in range(2)])
+        assert min(epochs) >= 2
+        a, b = _state(opts[0]), _state(opts[1])
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert all(torch.isfinite(x.float()).all() for x in a)
+        assert opts[0].last_timings["group_size"] == 2
+        assert any(not torch.equal(p, q) for p, q in zip(
+            init, opts[0].state.model.parameters()))
+        assert opts[0]._powersgd._errors    # error feedback carried
+        snaps = _wait_audited(opts, 2)
+        for snap in snaps:
+            assert snap["parts_audited"] >= 2 and snap["audit_fail"] == 0
+    finally:
+        for o in opts:
+            o.shutdown()
+        for n in nodes:
+            n.shutdown()
+
+
+@pytest.mark.parametrize("stale", [False, True])
+def test_apply_lands_a_queued_correction_in_the_device_gradients(stale):
+    """A conviction's correction queued on the repair plane lands in the
+    averaged gradients the next apply consumes: assigned exactly when the
+    window still holds the served bytes, added otherwise; the gradient
+    tensors are patched in place, outside the window nothing moves."""
+    from dalle_tpu_torch.swarm.repair import RepairAction
+    nodes = _nodes(1)
+    opt = _port_peer(nodes[0], _collab("co_rep", audit_gather=True))
+    try:
+        names = jax_leaf_names(opt.state.model.cfg)
+        params = dict(opt.state.model.named_parameters())
+        gen = torch.Generator().manual_seed(5)
+        averaged = [torch.randn(params[n].shape, generator=gen)
+                    for n in names]
+        before = torch.cat([a.reshape(-1) for a in averaged]).clone()
+        lo = int(params[names[0]].numel()) - 7   # spans two leaves
+        served = before[lo:lo + 20].numpy().copy()
+        if stale:
+            served += 1.0
+        honest = np.random.default_rng(2).normal(size=20).astype(np.float32)
+        assert opt._repair.submit(RepairAction(
+            prefix="co_rep_grads", epoch=0, part=1, owner="ab" * 32, lo=lo,
+            served=served, honest=honest))
+        got = {}
+
+        def recording(state, grads):
+            got.update(grads)
+            return state
+
+        opt.apply_step = recording
+        ptrs = [a.data_ptr() for a in averaged]
+        opt._apply_averaged(averaged)
+        assert [a.data_ptr() for a in averaged] == ptrs
+        flat = torch.cat([got[n].reshape(-1) for n in names])
+        want = before.clone()
+        if stale:
+            want[lo:lo + 20] += torch.from_numpy(honest - served)
+        else:
+            want[lo:lo + 20] = torch.from_numpy(honest)
+        assert torch.equal(flat, want)
+        snap = opt.robustness_snapshot()
+        assert snap["repairs_applied"] == 1
+        assert snap["repairs_exact"] == (0 if stale else 1)
+        assert snap["repairs_pending"] == 0
+    finally:
+        opt.shutdown()
+        nodes[0].shutdown()
 
 
 def test_straggler_resyncs_from_peers():

@@ -14,7 +14,7 @@ import numpy as np
 import pydantic
 import pytest
 import torch
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 from dalle_tpu.swarm import _fallback_crypto as jfb
@@ -183,6 +183,22 @@ _FIELDS = [f for f in jmetrics.LocalMetrics.model_fields]
 
 
 @settings(max_examples=400, deadline=None)
+@example({"samples_per_second": "0_0 "}, {}, True)
+@example({"samples_per_second": " 0_0"}, {}, True)
+@example({"samples_per_second": " 1_0 "}, {}, True)
+@example({"samples_per_second": "1 "}, {}, True)
+@example({"samples_per_second": " 1"}, {}, True)
+@example({"samples_per_second": "1_000.5"}, {}, True)
+@example({"samples_per_second": "0-1"}, {}, True)
+@example({"samples_per_second": "\x1c1"}, {}, True)
+@example({"epoch": "0_0 "}, {}, True)
+@example({"epoch": " 0_0"}, {}, True)
+@example({"epoch": " 1_0 "}, {}, True)
+@example({"epoch": "1 "}, {}, True)
+@example({"epoch": " 1"}, {}, True)
+@example({"epoch": "1_000.5"}, {}, True)
+@example({"epoch": "0-1"}, {}, True)
+@example({"epoch": "\x1c1"}, {}, True)
 @given(st.dictionaries(st.sampled_from(_FIELDS), _VALUES),
        st.dictionaries(st.sampled_from(["extra", "", "Epoch"]), _VALUES,
                        max_size=1),

@@ -256,8 +256,6 @@ def test_run_trainer_cli_trains_and_writes_metrics(tmp_path):
 @pytest.mark.parametrize("argv, match", [
     (["--data-path", "x"], "data_path"),
     (["--tokenizer-path", "x"], "data_path"),
-    ([], "audit_gather"),
-    (["--grad-compression", "power_sgd"], "powersgd"),
     (["--chaos-plan", "{}"], "chaos"),
     (["--auth-authority", "ab"], "auth"),
     (["--offload"], "offload"),
@@ -270,10 +268,34 @@ def test_unported_flags_raise(tmp_path, argv, match):
     from dalle_tpu_torch.cli import run_trainer
     base = ["--preset", "tiny", "--device", "cpu", "--max-epochs", "1",
             "--identity-path", str(tmp_path / "id.pem")]
-    if "--no-audit-gather" not in argv and argv:
-        base.append("--no-audit-gather")
     with pytest.raises(NotImplementedError, match=match):
         run_trainer.main(base + argv)
+
+
+@pytest.mark.parametrize("argv, plane", [
+    ([], "_auditor"),
+    (["--grad-compression", "power_sgd", "--powersgd-rank", "2",
+      "--no-powersgd-host-orthogonalize"], "_powersgd"),
+])
+def test_trust_plane_and_powersgd_flags_build_the_optimizer(tmp_path, argv,
+                                                            plane):
+    """The JAX defaults (audit, repair, proofs) and PowerSGD build a
+    peer from the CLI's flags; they raised until this slice."""
+    from dalle_tpu_torch.cli import run_trainer
+    from dalle_tpu_torch.task import TrainingTask
+    args = run_trainer.build_parser().parse_args(
+        ["--preset", "tiny", "--identity-path", str(tmp_path / "id.pem")]
+        + argv)
+    model, opt, trainer, collab, peer = run_trainer.configs_from_args(args)
+    assert collab.audit_gather and collab.repair_convicted
+    with TrainingTask(model, opt, trainer, collab, peer,
+                      device="cpu") as task:
+        collab_opt = task.collab_optimizer
+        assert getattr(collab_opt, plane) is not None
+        assert collab_opt._repair is not None
+        if plane == "_powersgd":
+            assert collab_opt._powersgd.rank == 2
+            assert not collab_opt._powersgd.host_orthogonalize
 
 
 def test_multi_process_peers_raise(monkeypatch):
