@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship inference and training paths, the
-8-bit LAMB, a swarm round's device codec, the generic kernel route and the
-collaborative trainer peer on one NVIDIA GPU.
+8-bit LAMB, a swarm round's device codec, the generic kernel route, the
+collaborative trainer peer, real data, the serving router and access
+tokens on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out RECORDS.json] [--profile TABLE.txt]
 
@@ -115,7 +116,28 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    audited clean), params and moments end ``torch.equal``, the losses are
    finite; recorded: round seconds, the factor rounds' wire bytes, peak
    memory;
-12. the ``kernels`` line (the eleven ported kernels and the six generic
+12. real data, text prompts and access tokens (the fixtures in
+   ``tests/data`` are the JAX package's, made by
+   ``tests/data/make_fixtures.py``): (a) the port's ``prepare_data
+   synthetic-shards --preset flagship`` shards (2 x 64 records, seed 0)
+   and the first two batches its ``CodesDataset`` reads from them with
+   the fixture tokenizer equal the committed sha256 digests; the reader's
+   host ms a batch of read + tokenize and us a caption are recorded; then
+   ``run_trainer --data-path --tokenizer-path`` trains 3 flagship steps
+   solo in this process (finite losses, every model kernel launched, no
+   generic launch); (b) two ``ServingHTTPServer`` engines (phase 5b's
+   config, greedy, each on a copy of the phase-3 model) with the fixture
+   tokenizer, advertised by ``ServingAdvertiser`` on a loopback DHT,
+   behind a ``Router`` and ``RouterHTTPServer``: four ``{"text": ...}``
+   posts through the router (one caption twice) give the golden ids and
+   the codes of direct ``{"tokens": ...}`` posts, the repeated caption
+   lands twice on its affinity home; the router's added ms to TTFT and to
+   latency are recorded; (c) phase 11a's pair at the default
+   ``audit_frac`` for one epoch with an ``auth_authority`` and tokens from
+   the port's ``issue_token``, and a third peer whose token another
+   authority signed: the pair forms its 2-peer group without it and ends
+   ``torch.equal``;
+13. the ``kernels`` line (the eleven ported kernels and the six generic
    instances).
 
 With ``--profile``, one flagship forward and one training micro-batch are
@@ -547,11 +569,16 @@ TRAINER_CLI = ["--preset", "flagship", "--per-device-batch", "4",
 AUDIT_WAIT_S = 240             # the last rounds' audits after the loops
 
 
-def _peer_pair(torch, make_task, collab_kw, trace_round):
-    """Two peers (threads of this process, loopback DHT) train two epochs
-    through ``train_loop``; with ``trace_round``, peer 0's second round is
-    traced. Returns the run's record: the tasks, per-epoch reports, step
-    end times, launches, peak memory and the traced round."""
+def _peer_pair(torch, make_task, collab_kw, trace_round, epochs=2,
+               outsider=False):
+    """Two peers (threads of this process, loopback DHT) train ``epochs``
+    epochs through ``train_loop``; with ``trace_round``, peer 0's second
+    round is traced. ``make_task(peers, collab_kw, i)`` builds peer ``i``;
+    with ``outsider``, a third peer (``i == 2``) joins the same DHT and
+    trains as long as the pair, its rounds, reports and errors kept apart
+    (``run["outsider"]``). Returns the run's record: the tasks, per-epoch
+    reports, step end times, launches, peak memory and the traced
+    round."""
     import threading
 
     from torch.profiler import ProfilerActivity, profile
@@ -560,8 +587,10 @@ def _peer_pair(torch, make_task, collab_kw, trace_round):
                                      reset_launches)
     from dalle_tpu_torch.training.loop import train_loop
 
-    tasks = [make_task((), collab_kw)]
-    tasks.append(make_task((tasks[0].dht.visible_address,), collab_kw))
+    tasks = [make_task((), collab_kw, 0)]
+    for i in range(1, 3 if outsider else 2):
+        tasks.append(make_task((tasks[0].dht.visible_address,), collab_kw,
+                               i))
     for task in tasks:
         task.collab_optimizer          # model, optimizer state, swarm
     torch.cuda.synchronize()
@@ -572,15 +601,16 @@ def _peer_pair(torch, make_task, collab_kw, trace_round):
             torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    epochs = [[], []]
-    step_ends = [[], []]          # host clock at the end of each local step
-    errors = []
+    n_peers = len(tasks)
+    reports = [[] for _ in range(n_peers)]
+    step_ends = [[] for _ in range(n_peers)]   # host clock after each step
+    errors = [[] for _ in range(n_peers)]
 
     def run(i):
         collab = tasks[i].collab_optimizer
 
         def on_epoch(report):
-            epochs[i].append(dict(
+            reports[i].append(dict(
                 epoch=report.epoch, loss=report.loss,
                 mini_steps=report.mini_steps,
                 timings={k: v for k, v in collab.last_timings.items()
@@ -590,12 +620,13 @@ def _peer_pair(torch, make_task, collab_kw, trace_round):
         def on_step(n, loss):
             step_ends[i].append(time.perf_counter())
         try:
-            train_loop(tasks[i], max_epochs=2, warmup_steps=1,
+            train_loop(tasks[i], max_epochs=epochs, warmup_steps=1,
                        on_epoch=on_epoch, on_step=on_step)
         except BaseException as e:  # noqa: BLE001 - raised below
-            errors.append(e)
+            errors[i].append(e)
 
-    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(n_peers)]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -624,32 +655,36 @@ def _peer_pair(torch, make_task, collab_kw, trace_round):
         t.join()
     wall_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    run_rec = dict(tasks=tasks, epochs=epochs, step_ends=step_ends,
-                   wall_s=wall_s, trace=trace, launches=dict(LAUNCHES),
-                   generic=dict(GENERIC_LAUNCHES),
+    run_rec = dict(tasks=tasks[:2], epochs=reports[:2],
+                   step_ends=step_ends[:2], wall_s=wall_s, trace=trace,
+                   launches=dict(LAUNCHES), generic=dict(GENERIC_LAUNCHES),
                    peak=torch.cuda.max_memory_allocated())
-    if errors:
+    if outsider:
+        run_rec["outsider"] = dict(task=tasks[2], epochs=reports[2],
+                                   steps=len(step_ends[2]),
+                                   errors=errors[2])
+    if errors[0] or errors[1]:
         for task in tasks[::-1]:
             task.shutdown()
-        raise errors[0]
+        raise (errors[0] or errors[1])[0]
     return run_rec
 
 
-def _check_pair(torch, run, where):
-    """The checks both two-peer runs share: two epochs on both peers, a
-    2-peer group in each, finite losses, params and moments ``torch.equal``
-    and no generic kernel."""
+def _check_pair(torch, run, where, epochs=2):
+    """The checks every two-peer run shares: ``epochs`` epochs on both
+    peers, a 2-peer group in each, finite losses, params and moments
+    ``torch.equal`` and no generic kernel."""
     from dalle_tpu_torch.params import state_leaf_tensors
     collabs = [t.collab_optimizer for t in run["tasks"]]
-    if [c.local_epoch for c in collabs] != [2, 2]:
+    if [c.local_epoch for c in collabs] != [epochs, epochs]:
         raise AssertionError(f"{where}: epochs "
                              f"{[c.local_epoch for c in collabs]}, "
-                             "expected 2 on both peers")
+                             f"expected {epochs} on both peers")
     groups = [[e["timings"].get("group_size") for e in ep]
               for ep in run["epochs"]]
-    if any(g != [2, 2] for g in groups):
+    if any(g != [2] * epochs for g in groups):
         raise AssertionError(f"{where}: group sizes {groups}, expected a "
-                             "2-peer group in both epochs on both peers")
+                             "2-peer group in every epoch on both peers")
     losses = [e["loss"] for ep in run["epochs"] for e in ep]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{where}: non-finite losses {losses}")
@@ -763,7 +798,7 @@ def trainer_phase(torch, smi, kernels, release_memory, dev="cuda",
     model_cfg = flagship_model_config(**(model_overrides or {}))
     opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
 
-    def make_task(peers, collab_kw):
+    def make_task(peers, collab_kw, i):
         return TrainingTask(
             model_cfg, opt_cfg,
             TrainerConfig(per_device_batch=4, grad_accum_steps=2),
@@ -883,6 +918,484 @@ def trainer_phase(torch, smi, kernels, release_memory, dev="cuda",
         for task in tasks[::-1]:
             task.shutdown()
     del run, tasks, collabs
+    release_memory()
+
+
+# the data, router and auth phase (12): the fixtures below are made from
+# the JAX package by tests/data/make_fixtures.py
+DATA_DIR = os.path.join("tests", "data")
+ROUTER_PREFIX = "smoke-router"
+#: 12a: each of the 3 steps closes a solo epoch (a synchronous round), so
+#: each step's loss reaches the metrics file
+DATA_CLI = ["--preset", "flagship", "--per-device-batch", "4",
+            "--grad-accum-steps", "2", "--max-steps", "3",
+            "--target-batch-size", "8", "--matchmaking-time", "2",
+            "--no-delay-optimizer-step", "--warmup-batches", "1"]
+#: 12c: phase 11a's pair at the default audit_frac, for one epoch
+AUTH_COLLAB = {k: v for k, v in TRAINER_COLLAB.items() if k != "audit_frac"}
+READ_BATCHES = 32              # steady-state batches timed in 12a
+PROBES = 16                    # 12b: refused requests timed a route
+#: the kernels a flagship training step launches (8-bit LAMB)
+STEP_KERNELS = ("layer_norm", "line_attention", "window_attention",
+                "geglu_ff", "layer_norm_bwd", "line_attention_bwd",
+                "window_attention_bwd", "geglu_ff_bwd", "quantize_blockwise")
+
+
+def _digest(array) -> str:
+    """sha256 of an array's dtype, shape and C-order bytes (the digest
+    ``tests/data/make_fixtures.py`` commits)."""
+    import hashlib
+
+    import numpy as np
+    a = np.ascontiguousarray(array)
+    h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def data_phase(torch, smi, root, dev="cuda", model_overrides=None,
+               cli_argv=DATA_CLI, step_kernels=STEP_KERNELS) -> None:
+    """12a: real data. The port's ``prepare_data synthetic-shards --preset
+    flagship`` writes 2 shards x 64 records (seed 0) whose sha256 and the
+    first two batches' digests (text, image, mask; reader seed and batch
+    from the golden file) must equal the JAX package's committed ones;
+    the host time of the reader (first batch: the 8192-record shuffle
+    buffer fills; then ms a batch of read + tokenize, and us a caption of
+    tokenize alone) is recorded. Then ``run_trainer --data-path
+    --tokenizer-path`` (the fixture tokenizer) trains 3 steps solo in
+    this process: finite losses, every model kernel launched, no generic
+    launch."""
+    import hashlib
+    import tempfile
+
+    from dalle_tpu_torch.cli import prepare_data, run_trainer
+    from dalle_tpu_torch.config import ModelConfig
+    from dalle_tpu_torch.data.dataset import CodesDataset
+    from dalle_tpu_torch.data.tokenizer import CaptionTokenizer
+    from dalle_tpu_torch.ops import (GENERIC_LAUNCHES, LAUNCHES,
+                                     reset_launches)
+
+    tok_path = os.path.join(root, DATA_DIR, "tokenizer.json")
+    with open(os.path.join(root, DATA_DIR, "golden_data.json")) as f:
+        golden = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        shards = os.path.join(tmp, "shards")
+        t0 = time.perf_counter()
+        prepare_data.main(["synthetic-shards", "--out", shards,
+                           *golden["shard_args"]])
+        write_s = time.perf_counter() - t0
+        got = {n: hashlib.sha256(open(os.path.join(shards, n), "rb").read())
+               .hexdigest() for n in sorted(os.listdir(shards))}
+        if got != golden["shards"]:
+            raise AssertionError(f"data: shard sha256 {got} != the JAX "
+                                 f"writer's {golden['shards']}")
+        tokenizer = CaptionTokenizer.load(tok_path)
+        ds = CodesDataset(shards, ModelConfig(), tokenizer=tokenizer)
+        it = ds.batches(golden["batch"], seed=golden["seed"])
+        t0 = time.perf_counter()
+        first = next(it)
+        first_s = time.perf_counter() - t0
+        batches = [first, next(it)]
+        digests = [{k: _digest(v) for k, v in b.items()} for b in batches]
+        if digests != golden["batches"]:
+            raise AssertionError(f"data: batch digests {digests} != the "
+                                 f"JAX reader's {golden['batches']}")
+        t0 = time.perf_counter()
+        captions = []
+        for _ in range(READ_BATCHES):
+            batch = next(it)
+            captions.append(batch["text"])
+        read_s = (time.perf_counter() - t0) / READ_BATCHES
+        texts = [tokenizer.decode(row) for b in captions for row in b]
+        t0 = time.perf_counter()
+        for text in texts:
+            tokenizer.encode(text, ds.cfg.text_seq_len)
+        caption_s = (time.perf_counter() - t0) / len(texts)
+
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        overrides = [f"--{k.replace('_', '-')}={v}"
+                     for k, v in (model_overrides or {}).items()]
+        argv = [*cli_argv, *overrides, "--device", str(dev),
+                "--data-path", shards, "--tokenizer-path", tok_path,
+                "--identity-path", os.path.join(tmp, "id.pem"),
+                "--metrics-file", metrics, "--log-level", "WARNING"]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = run_trainer.main(argv)
+        train_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches, generic = dict(LAUNCHES), dict(GENERIC_LAUNCHES)
+        rows = []
+        if os.path.exists(metrics):
+            with open(metrics) as f:
+                rows = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in rows]
+    if rc != 0 or len(rows) != 3 or not all(math.isfinite(x)
+                                            for x in losses):
+        raise AssertionError(f"data: run_trainer rc {rc}, losses {losses} "
+                             "(expected 3 solo epochs)")
+    idle = [k for k in step_kernels if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"data: run_trainer launched no {idle}: "
+                             f"{launches}")
+    if any(generic.values()):
+        raise AssertionError(f"data: generic launches {generic}")
+    emit(phase="data", card=smi, shards=golden["shards"],
+         batch=golden["batch"], write_s=write_s,
+         first_batch_s=first_s, read_tokenize_ms_per_batch=read_s * 1e3,
+         tokenize_us_per_caption=caption_s * 1e6,
+         captions_timed=len(texts), trainer_argv=cli_argv,
+         trainer_s=train_s, epochs=[r["epoch"] for r in rows],
+         losses=losses, launches=launches, generic_launches=generic)
+
+
+def _hrw_home(fingerprint, pids):
+    """The router's affinity home among ``pids``: the highest
+    sha256(fingerprint + peer id) (``Router.candidates``)."""
+    import hashlib
+    return max(pids, key=lambda p: hashlib.sha256(
+        (fingerprint + p).encode()).hexdigest())
+
+
+def router_phase(torch, np, smi, root, make_model, release_memory) -> None:
+    """12b: text prompts through the router. Two ``ServingHTTPServer``
+    engines (phase 5b's serving config, each on its own copy of the
+    phase-3 model, greedy) with the fixture tokenizer, each advertised by
+    a ``ServingAdvertiser`` on a loopback DHT, behind a ``Router`` and
+    ``RouterHTTPServer``. Wave 1 posts three captions through the router
+    together; wave 2 posts their ids (the golden ids) directly to the
+    engine that served each, and the first caption again through the
+    router. Each engine admits a wave's requests at one chunk boundary
+    (its live clamp held at 0 until all are queued), all of them cold
+    (wave 1) or all warm (wave 2: prefix hits), so a request decodes
+    through the buckets it would take alone. Checks: the
+    port's ids equal the golden ids, the two engines' weights are equal,
+    every routed reply's codes equal the direct reply's, each caption
+    (the repeated one twice) lands on its affinity home.
+    Records the router's added ms before the engine's submit (TTFT) and
+    in all (latency), over direct posts."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from dalle_tpu_torch.config import ServingConfig
+    from dalle_tpu_torch.data.tokenizer import CaptionTokenizer
+    from dalle_tpu_torch.models.decode import SamplingConfig
+    from dalle_tpu_torch.ops import GENERIC_LAUNCHES
+    from dalle_tpu_torch.serving import router as prouter
+    from dalle_tpu_torch.serving.engine import DecodeEngine
+    from dalle_tpu_torch.serving.server import ServingHTTPServer
+    from dalle_tpu_torch.swarm.dht import DHT
+    from dalle_tpu_torch.swarm.identity import Identity
+
+    with open(os.path.join(root, DATA_DIR, "golden_ids.json")) as f:
+        golden = json.load(f)
+    captions = golden["captions"][:4]
+    if captions[3] != captions[0]:
+        raise AssertionError("router: golden captions 0 and 3 must repeat")
+    tokenizer = CaptionTokenizer.load(os.path.join(root, DATA_DIR,
+                                                   "tokenizer.json"))
+    release_memory()
+    serving = ServingConfig(n_slots=4, steps_per_call=8, prefix_cache_mb=256)
+    nodes, engines, servers, advs, submits = [], [], [], [], {}
+    router = front = None
+    try:
+        nodes.append(DHT(identity=Identity.generate()))
+        models = [make_model() for _ in range(2)]
+        for (name, a), (_, b) in zip(models[0].state_dict().items(),
+                                     models[1].state_dict().items()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"router: the engines' {name} differ")
+        for e, model in enumerate(models):
+            cfg = model.cfg
+            ids = [tokenizer.encode(c, cfg.text_seq_len)[0].tolist()
+                   for c in captions]
+            if ids != golden["ids_256"][:4]:
+                raise AssertionError("router: the port's caption ids differ "
+                                     "from the golden ids")
+            engine = DecodeEngine(model, cfg, serving,
+                                  sampling=SamplingConfig(temperature=0.0))
+            submit = engine.submit
+
+            def timed_submit(text_tokens, rng=0, *a, _submit=submit, _e=e,
+                             **kw):
+                # every request has its own seed (greedy ignores it): it
+                # names the request at the engine that admits it
+                submits[int(rng)] = (_e, time.monotonic())
+                return _submit(text_tokens, rng, *a, **kw)
+            engine.submit = timed_submit
+            engine.start()
+            httpd = ServingHTTPServer(("127.0.0.1", 0), engine,
+                                      tokenizer=tokenizer,
+                                      request_timeout_s=600.0)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            nodes.append(DHT(initial_peers=[nodes[0].visible_address],
+                             identity=Identity.generate()))
+            adv = prouter.ServingAdvertiser(nodes[-1], ROUTER_PREFIX, engine,
+                                            url)
+            adv.publish_once()
+            adv.start()
+            engines.append(engine)
+            servers.append((httpd, url))
+            advs.append(adv)
+        router = prouter.Router(prouter.dht_fetch_records(
+            nodes[0], ROUTER_PREFIX)).start()
+        deadline = time.perf_counter() + 60
+        while len(router.healthy()) < 2:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"router: {len(router.healthy())} of 2 "
+                                     "engines discovered")
+            router.refresh_once()
+            time.sleep(0.2)
+        by_url = {rec["url"]: pid for pid, rec in router.healthy()}
+        pids = [by_url[url] for _, url in servers]
+        front = prouter.RouterHTTPServer(("127.0.0.1", 0), router,
+                                         request_timeout_s=600.0)
+        threading.Thread(target=front.serve_forever, daemon=True).start()
+        rurl = f"http://127.0.0.1:{front.server_address[1]}"
+
+        def post(url, body, out, key):
+            req = urllib.request.Request(
+                url + "/generate", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            t0 = time.monotonic()
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                reply = json.loads(resp.read())
+            out[key] = dict(t_post=t0, t_recv=time.monotonic(),
+                            row=reply["results"][0], seed=body["seed"])
+
+        def wave(jobs, expect):
+            """Post ``jobs`` together, each engine's live clamp held at 0
+            until it has queued its ``expect`` requests: the requests of
+            an engine decode in lockstep from their first position, as a
+            request alone does (the same buckets, so the same bits)."""
+            base = [e.stats()["submitted"] for e in engines]
+            for e in engines:
+                e.scheduler.max_live = 0
+            out, threads = {}, []
+            for url, body, key in jobs:
+                t = threading.Thread(target=post, args=(url, body, out, key))
+                t.start()
+                threads.append(t)
+            limit = time.monotonic() + 120
+            while any(e.stats()["submitted"] < b + n
+                      for e, b, n in zip(engines, base, expect)):
+                if time.monotonic() > limit:
+                    now = [e.stats()["submitted"] for e in engines]
+                    raise AssertionError(f"router: requests never queued: "
+                                         f"{now} from {base}, expected "
+                                         f"{expect} more")
+                time.sleep(0.002)
+            for e in engines:
+                e.scheduler.max_live = serving.n_slots
+            for t in threads:
+                t.join()
+            return out
+
+        # on an idle fleet every engine predicts the same completion, so
+        # each caption goes to its affinity home
+        homes = [pids.index(_hrw_home(prouter.request_fingerprint(
+            {"text": c}), pids)) for c in captions]
+        # wave 1: the three captions through the router (all cold); wave
+        # 2: the golden ids straight to the engine that served each, and
+        # the first caption again through the router (all warm: the
+        # prefix pool holds each engine's captions). One admission
+        # boundary and one state (cold or warm) an engine and wave: every
+        # request decodes through the buckets it would take alone
+        waves = ([(rurl, {"text": c, "seed": 100 + i}, f"r{i}", homes[i])
+                  for i, c in enumerate(captions[:3])],
+                 [(servers[homes[i]][1], {"tokens": ids[i],
+                                          "seed": 200 + i}, f"d{i}",
+                   homes[i]) for i in range(3)]
+                 + [(rurl, {"text": captions[3], "seed": 103}, "r3",
+                     homes[3])])
+        walls, res = [], {}
+        for jobs in waves:
+            t_wave = time.perf_counter()
+            res.update(wave([j[:3] for j in jobs],
+                            [sum(j[3] == e for j in jobs) for e in range(2)]))
+            walls.append(time.perf_counter() - t_wave)
+        # which engine served each request, and when it was submitted
+        served = {}
+        for key, r in res.items():
+            r["engine"], r["t_submit"] = submits[r["seed"]]
+            served[key] = r["engine"]
+        detail = {k: dict(engine=r["engine"], ttft_s=r["row"]["ttft_s"],
+                          codes_head=r["row"]["codes"][:8])
+                  for k, r in sorted(res.items())}
+        if [served[f"r{i}"] for i in range(4)] != homes:
+            raise AssertionError(f"router: captions served by engines "
+                                 f"{[served[f'r{i}'] for i in range(4)]}, "
+                                 f"their homes are {homes}: {detail}")
+        for i in range(4):
+            codes = res[f"r{i}"]["row"]["codes"]
+            want = res[f"d{i % 3}"]["row"]["codes"]
+            if codes != want:
+                diff = sum(a != b for a, b in zip(codes, want))
+                raise AssertionError(f"router: caption {i}'s routed codes "
+                                     f"differ from the direct tokens post "
+                                     f"at {diff} of {len(codes)} positions:"
+                                     f" {detail}")
+            if len(codes) != cfg.image_seq_len or not all(
+                    0 <= c < cfg.vocab_image for c in codes):
+                raise AssertionError(f"router: caption {i}'s codes out of "
+                                     "range")
+        stats = router.stats()
+
+        # the router's own cost: requests the engine refuses at submit (a
+        # negative temperature, 400) cost no decode, so the host ms from
+        # post to the engine's submit (what the router adds to TTFT) and
+        # from post to reply (to latency) compare routed and direct posts
+        # of the same caption, in turns
+        def probe(url, seed):
+            req = urllib.request.Request(url + "/generate", data=json.dumps(
+                {"text": captions[0], "seed": seed, "temperature": -1.0}
+            ).encode(), headers={"Content-Type": "application/json"})
+            t0 = time.monotonic()
+            try:
+                urllib.request.urlopen(req, timeout=60).close()
+                code = 200
+            except urllib.error.HTTPError as e:
+                e.close()
+                code = e.code
+            t1 = time.monotonic()
+            if code != 400 or seed not in submits:
+                raise AssertionError(f"router: probe {seed} got {code}, "
+                                     "expected the engine's 400")
+            return (submits[seed][1] - t0) * 1e3, (t1 - t0) * 1e3
+        probes = {"router": [], "direct": []}
+        routes = [("router", rurl), ("direct", servers[homes[0]][1])]
+        for k in range(PROBES):
+            for n, (kind, url) in enumerate(routes[::-1] if k % 2
+                                            else routes):
+                probes[kind].append(probe(url, 1000 + 2 * k + n))
+        added_ttft = float(np.median([p for p, _ in probes["router"]])
+                           - np.median([p for p, _ in probes["direct"]]))
+        added_total = float(np.median([t for _, t in probes["router"]])
+                            - np.median([t for _, t in probes["direct"]]))
+        if any(GENERIC_LAUNCHES.values()):
+            raise AssertionError(f"router: generic launches "
+                                 f"{dict(GENERIC_LAUNCHES)}")
+        emit(phase="router", card=smi, engines=2, serving=dict(
+            n_slots=serving.n_slots, steps_per_call=serving.steps_per_call,
+            prefix_cache_mb=serving.prefix_cache_mb), captions=captions,
+            served=served, homes=homes, wave_s=walls,
+            ttft_s={k: r["row"]["ttft_s"] for k, r in res.items()},
+            latency_s={k: r["row"]["latency_s"] for k, r in res.items()},
+            probe_ms={k: [dict(to_submit=p, to_reply=t) for p, t in v]
+                      for k, v in probes.items()},
+            router_added_ttft_ms=added_ttft,
+            router_added_latency_ms=added_total,
+            ledger=stats["ledger"], per_engine=stats["per_engine"])
+    finally:
+        if front is not None:
+            front.shutdown()
+            front.server_close()
+        if router is not None:
+            router.stop()
+        for adv in advs:
+            adv.stop()
+        for httpd, _ in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        for engine in engines:
+            engine.stop()
+        for node in nodes[::-1]:
+            node.shutdown()
+    del engines, models
+    release_memory()
+
+
+def auth_phase(torch, smi, release_memory, dev="cuda",
+               model_overrides=None) -> None:
+    """12c: access tokens. Phase 11a's pair (micro-batch 4 x accumulation
+    2, the 8-bit LAMB) at the default ``audit_frac`` for one epoch, with
+    an ``auth_authority`` and tokens issued by the port's ``issue_token``
+    CLI, and a third peer on the same DHT whose token another authority
+    signed: the pair forms a 2-peer group (the third never enters it),
+    ends ``torch.equal``, finite losses, no generic launch."""
+    import contextlib
+    import io
+    import tempfile
+
+    from dalle_tpu_torch.cli import issue_token
+    from dalle_tpu_torch.config import (CollabConfig, OptimizerConfig,
+                                        PeerConfig, TrainerConfig,
+                                        flagship_model_config)
+    from dalle_tpu_torch.swarm.identity import Identity
+    from dalle_tpu_torch.task import TrainingTask
+
+    model_cfg = flagship_model_config(**(model_overrides or {}))
+    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        def authority_hex(key):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                issue_token.main(["--authority-key", path(key),
+                                  "--print-public-key"])
+            return out.getvalue().strip()
+        authority = authority_hex("authority.pem")
+        authority_hex("rogue.pem")
+        for i, key in enumerate(["authority.pem", "authority.pem",
+                                 "rogue.pem"]):
+            Identity.load_or_create(path(f"peer{i}.pem"))
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = issue_token.main([
+                    "--authority-key", path(key), "--username", f"peer{i}",
+                    "--peer-identity", path(f"peer{i}.pem"), "--ttl", "3600",
+                    "--out", path(f"peer{i}.token")])
+            if rc != 0:
+                raise AssertionError(f"auth: issue_token exited {rc}")
+
+        def make_task(peers, collab_kw, i):
+            if i == 2:
+                # the outsider's rounds never complete: its own budget is
+                # short, so it falls back and stops soon after the pair
+                collab_kw = dict(collab_kw, allreduce_timeout=10)
+            return TrainingTask(
+                model_cfg, opt_cfg,
+                TrainerConfig(per_device_batch=4, grad_accum_steps=2),
+                CollabConfig(run_id="smoke-auth", **collab_kw),
+                PeerConfig(initial_peers=tuple(peers),
+                           experiment_prefix="smoke-auth",
+                           identity_path=path(f"peer{i}.pem"),
+                           auth_authority=authority,
+                           auth_token_path=path(f"peer{i}.token")),
+                device=dev)
+
+        release_memory()
+        run = _peer_pair(torch, make_task, AUTH_COLLAB, trace_round=False,
+                         epochs=1, outsider=True)
+        tasks = run["tasks"] + [run["outsider"]["task"]]
+        try:
+            collabs = _check_pair(torch, run, "auth", epochs=1)
+            rogue = tasks[2].dht.peer_id
+            outsider = run["outsider"]
+            if outsider["errors"]:
+                raise AssertionError(f"auth: the third peer raised "
+                                     f"{outsider['errors'][0]!r}")
+            emit(phase="auth", card=smi, peers=2, outsider=1, epochs=1,
+                 collab=AUTH_COLLAB, wall_s=run["wall_s"],
+                 rounds=_round_rows(run["epochs"],
+                                    lambda w: [w] if w else []),
+                 outsider_steps=outsider["steps"],
+                 outsider_epochs=[dict(epoch=e["epoch"], loss=e["loss"],
+                                       group_size=e["timings"].get(
+                                           "group_size"))
+                                  for e in outsider["epochs"]],
+                 rogue_peer=rogue[:16], launches=run["launches"],
+                 generic_launches=run["generic"],
+                 peak_mem_gb=run["peak"] / 1e9,
+                 robust=[c.robustness_snapshot() for c in collabs])
+        finally:
+            for task in tasks[::-1]:
+                task.shutdown()
+    del run, tasks
     release_memory()
 
 
@@ -2246,7 +2759,16 @@ def main() -> int:
     # -- 11. the trainer peer ---------------------------------------------
     trainer_phase(torch, smi, kernels, release_memory)
 
-    # -- 12. kernels line and the end ------------------------------------
+    # -- 12. real data, text prompts through the router, access tokens ----
+    root = os.path.dirname(os.path.abspath(__file__))
+    data_phase(torch, smi, root)
+    release_memory()
+    router_phase(torch, np, smi, root,
+                 lambda: entry(device="cuda", batch=1, seed=SEED)[1][0],
+                 release_memory)
+    auth_phase(torch, smi, release_memory)
+
+    # -- 13. kernels line and the end ------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_line = {"kernels": [{k: rec[k] for k in keys}

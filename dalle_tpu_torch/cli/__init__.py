@@ -12,10 +12,6 @@ MODEL_PRESETS = {
     "tiny": tiny_model_config,
     "xl": xl_model_config,
 }
-TOKENIZER_UNPORTED = (
-    "--tokenizer-path: the port has no caption tokenizer yet "
-    "(data/tokenizer.py needs the `tokenizers` package); send "
-    "pre-tokenized ids instead")
 
 
 def restore_weights(model, checkpoint_dir: str,

@@ -9,14 +9,16 @@ samples with the noise seed ``--seed + q * images_per_query + j``.
 
 Weights come from the freshest checkpoint under ``--checkpoint-dir`` (the
 port trainer's files and the JAX trainer's), or else from ``--seed``
-(``init_params``); ``--tokenizer-path`` (and so ``--query``) raises until
-the port has a caption tokenizer. Prompts are given
-pre-tokenized with ``--tokens`` (comma-separated ids, zero-padded to
-``text_seq_len``), the counterpart of the server's ``tokens`` body.
+(``init_params``). Prompts are captions (``--query``, tokenized with the
+``tokenizer.json`` at ``--tokenizer-path``) or pre-tokenized ids
+(``--tokens``, comma-separated, zero-padded to ``text_seq_len``, the
+counterpart of the server's ``tokens`` body); queries come first in the
+numbering.
 
 Usage::
 
     python -m dalle_tpu_torch.cli.run_inference --preset tiny --device cpu \\
+        --tokenizer-path tok/tokenizer.json --query "a red cat" \\
         --tokens 5,9,12 --images-per-query 2 --out out.npz
 """
 
@@ -27,8 +29,7 @@ import logging
 import sys
 from typing import Optional, Sequence
 
-from dalle_tpu_torch.cli import (MODEL_PRESETS, TOKENIZER_UNPORTED,
-                                 restore_weights)
+from dalle_tpu_torch.cli import MODEL_PRESETS, restore_weights
 from dalle_tpu_torch.cli._args import add_dataclass_args, dataclass_from_args
 from dalle_tpu_torch.config import ModelConfig
 
@@ -94,10 +95,11 @@ def prompt_ids(spec: str, text_len: int):
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=args.log_level)
-    if args.tokenizer_path or args.query:
-        raise SystemExit(TOKENIZER_UNPORTED)
-    if not args.tokens:
-        raise SystemExit("give at least one prompt with --tokens")
+    if args.query and not args.tokenizer_path:
+        raise SystemExit("--query needs --tokenizer-path")
+    if not (args.tokens or args.query):
+        raise SystemExit("give at least one prompt with --query or "
+                         "--tokens")
     if args.clip_checkpoint and not (args.vqgan_checkpoint
                                      and args.clip_bpe):
         raise SystemExit("--clip-checkpoint requires --vqgan-checkpoint "
@@ -142,26 +144,38 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             allow_unsafe=args.allow_unsafe_pickle).to(device)
         clip_tok = CLIPTokenizer(args.clip_bpe, cl_cfg.context_length)
 
+    prompts = []                  # (caption or None, ids)
+    if args.query:
+        from dalle_tpu_torch.data.tokenizer import CaptionTokenizer
+        tokenizer = CaptionTokenizer.load(args.tokenizer_path)
+        for query in args.query:
+            ids, _ = tokenizer.encode(query, cfg.text_seq_len)
+            prompts.append((query, ids.astype(np.int64)))
+    prompts += [(None, prompt_ids(spec, cfg.text_seq_len))
+                for spec in args.tokens]
+
     n = args.images_per_query
     results = {}
-    for qi, spec in enumerate(args.tokens):
-        ids = prompt_ids(spec, cfg.text_seq_len)
+    for qi, (query, ids) in enumerate(prompts):
         text = torch.from_numpy(np.tile(ids[None], (n, 1))).to(device)
         seeds = [args.seed + qi * n + j for j in range(n)]
         codes = generate_images(model, text, seeds, sampling).cpu().numpy()
         grids = codes.reshape(-1, cfg.image_grid, cfg.image_grid)
         results[f"query_{qi}_codes"] = grids
         results[f"query_{qi}_tokens"] = ids
+        if query is not None:
+            results[f"query_{qi}_text"] = np.asarray(query)
         logger.info("prompt %d -> %d code grids (%dx%d, vocab %d)", qi,
                     grids.shape[0], cfg.image_grid, cfg.image_grid,
                     cfg.vocab_image)
         if vqgan is not None:
             images = decode_codes(vqgan, torch.from_numpy(codes).to(device))
             if clip is not None:
-                # the prompt is ids, not a caption: score against the
-                # empty prompt as a fixed anchor (as the server does; the
-                # rerank across a prompt's images stays meaningful)
-                tok = torch.from_numpy(clip_tok.encode("")[None]).to(device)
+                # a caption scores against itself; ids have no caption, so
+                # they score against the empty prompt as a fixed anchor
+                # (the rerank across a prompt's images stays meaningful)
+                tok = torch.from_numpy(clip_tok.encode(query or "")[None]
+                                       ).to(device)
                 scores = clip_scores(clip, resize_for_clip(images, clip.cfg),
                                      tok)[:, 0].cpu().numpy()
                 order = np.argsort(-scores)

@@ -10,18 +10,20 @@ CUDA graph a prefix bucket, captured at start.
 Usage::
 
     python -m dalle_tpu_torch.cli.run_server --preset tiny --device cpu \\
-        --http-port 8080
+        --tokenizer-path tok/tokenizer.json --http-port 8080
 
-    curl -s localhost:8080/generate -d '{"tokens": [...], \\
+    curl -s localhost:8080/generate -d '{"text": "a red cat", \\
         "n_images": 4, "seed": 7, "temperature": 0.8, "top_k": 64}'
     curl -s localhost:8080/stats
 
 Weights come from the freshest checkpoint under ``--checkpoint-dir``
 (the port trainer's files and the JAX trainer's), or else from ``--seed``
 (``init_params``), as the JAX CLIs serve them with ``--random-init``.
-``--tokenizer-path`` raises until the port has a caption tokenizer, so
-requests carry pre-tokenized ``tokens``. ``--temperature``/``--top-k``/
-``--top-p`` set the engine-wide default; a request body may override any
+With ``--tokenizer-path`` a request may carry a caption (``text``);
+without it, pre-tokenized ``tokens`` only. ``--advertise`` joins the swarm
+DHT (the ``PeerConfig`` flags) and publishes this engine's ``/readyz``
+slice under ``{prefix}_serving`` for ``run_router``.
+``--temperature``/``--top-k``/``--top-p`` set the engine-wide default; a request body may override any
 of them per request (the knobs are per-slot tensors of the chunk, so a
 novel temperature captures nothing new). Ctrl-C and SIGTERM both drain.
 """
@@ -33,16 +35,15 @@ import logging
 import sys
 from typing import Optional, Sequence
 
-from dalle_tpu_torch.cli import (MODEL_PRESETS, TOKENIZER_UNPORTED,
-                                 restore_weights)
+from dalle_tpu_torch.cli import MODEL_PRESETS, restore_weights
 from dalle_tpu_torch.cli._args import (add_dataclass_args,
                                        check_no_collisions,
                                        dataclass_from_args)
-from dalle_tpu_torch.config import ModelConfig, ServingConfig
+from dalle_tpu_torch.config import ModelConfig, PeerConfig, ServingConfig
 
 logger = logging.getLogger("dalle_tpu_torch.server")
 
-CONFIG_CLASSES = (ModelConfig, ServingConfig)
+CONFIG_CLASSES = (ModelConfig, ServingConfig, PeerConfig)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,6 +84,21 @@ def build_parser() -> argparse.ArgumentParser:
         "--allow-unsafe-pickle", action="store_true",
         help="permit torch's full unpickler for VQGAN/CLIP checkpoints "
              "(EXECUTES code from the file — trusted origins only)")
+    parser.add_argument(
+        "--advertise", action="store_true",
+        help="join the swarm DHT (PeerConfig flags: --port, "
+             "--initial-peers, --identity-path, --experiment-prefix) "
+             "and advertise this engine's /readyz slice under "
+             "{prefix}_serving so a run_router front-end places to it")
+    parser.add_argument(
+        "--advertise-url", type=str, default=None,
+        help="the URL OTHER hosts reach this engine at (default "
+             "http://<http-host>:<http-port> — override when bound to "
+             "0.0.0.0 or behind a port map)")
+    parser.add_argument("--advert-ttl", "--advertise-ttl", type=float,
+                        default=None, dest="advert_ttl",
+                        help="serving-record TTL seconds (default "
+                             "router.DEFAULT_SERVING_TTL)")
     parser.add_argument(
         "--prime-service-s", type=float, default=None,
         help="seed the decode service EMA with this calibrated "
@@ -158,14 +174,43 @@ def _build_pixel_fn(args, cfg, device):
     return pixel_fns(vqgan, clip, tokens)
 
 
+def advertise_engine(args, serving, engine, httpd):
+    """``(dht, advertiser)`` for ``--advertise`` (else ``(None, None)``):
+    this engine's ``/readyz`` slice rides a TTL'd DHT record under
+    ``{prefix}_serving``, the router's placement input. The DHT carries
+    the standard validator chain, so the record's subkey has the signed
+    ownership marker that validated swarm peers demand."""
+    if not args.advertise:
+        return None, None
+    from dalle_tpu_torch.serving.router import (DEFAULT_SERVING_TTL,
+                                                ServingAdvertiser)
+    from dalle_tpu_torch.swarm.dht import DHT
+    from dalle_tpu_torch.swarm.identity import Identity
+    from dalle_tpu_torch.swarm.metrics import make_validators
+    peer = dataclass_from_args(PeerConfig, args)
+    ident = Identity.load_or_create(peer.identity_path)
+    dht = DHT(host=peer.host, port=peer.port,
+              initial_peers=list(peer.initial_peers),
+              client_mode=peer.client_mode, identity=ident,
+              record_validators=make_validators(ident,
+                                                peer.experiment_prefix))
+    url = args.advertise_url or (
+        f"http://{serving.http_host}:{httpd.server_address[1]}")
+    advertiser = ServingAdvertiser(
+        dht, peer.experiment_prefix, engine, url,
+        ttl=args.advert_ttl or DEFAULT_SERVING_TTL)
+    advertiser.publish_once()
+    advertiser.start()
+    logger.info("advertising %s under '%s_serving' (peer %s)",
+                url, peer.experiment_prefix, dht.peer_id[:12])
+    return dht, advertiser
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=args.log_level,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    if args.tokenizer_path:
-        raise SystemExit(TOKENIZER_UNPORTED)
-
     import torch
 
     from dalle_tpu_torch import resolve_device
@@ -203,9 +248,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                 top_k=args.top_k, top_p=args.top_p),
         pixel_pipeline=pipeline, metrics=metrics).start()
 
+    tokenizer = None
+    if args.tokenizer_path:
+        from dalle_tpu_torch.data.tokenizer import CaptionTokenizer
+        tokenizer = CaptionTokenizer.load(args.tokenizer_path)
     httpd = ServingHTTPServer((serving.http_host, serving.http_port),
-                              engine,
+                              engine, tokenizer=tokenizer,
                               request_timeout_s=serving.request_timeout_s)
+    dht, advertiser = advertise_engine(args, serving, engine, httpd)
 
     logger.info("=" * 60)
     logger.info("serving %s on http://%s:%d (%s, %d slots, %d-step chunks, "
@@ -213,9 +263,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 httpd.server_address[1], device, serving.n_slots,
                 serving.steps_per_call, engine.n_buckets,
                 ", pixel overlap" if pipeline else "")
-    logger.info("POST /generate {\"tokens\", \"n_images\", \"seed\", "
-                "\"lane\", \"deadline_s\"} | GET /stats | GET /metrics | "
-                "GET /healthz (live) | GET /readyz (placement)")
+    logger.info("POST /generate {\"text\"|\"tokens\", \"n_images\", "
+                "\"seed\", \"lane\", \"deadline_s\"} | GET /stats | "
+                "GET /metrics | GET /healthz (live) | GET /readyz "
+                "(placement)")
     if engine.chaos is not None:
         logger.warning("serve chaos plan ACTIVE (--chaos-plan) — this "
                        "server injects faults on purpose")
@@ -236,8 +287,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "(bounded by drain_timeout_s=%.0fs)",
                     serving.drain_timeout_s)
     finally:
+        # the advertiser stops before the DHT is torn down (a publish
+        # against a dead native node is a use-after-free)
+        if advertiser is not None:
+            advertiser.stop()
         httpd.server_close()
         engine.stop(drain=True)
+        if dht is not None:
+            dht.shutdown()
         logger.info("drained; final stats: %s", engine.stats())
     return 0
 

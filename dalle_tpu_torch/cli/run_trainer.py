@@ -9,9 +9,11 @@ the warmup self-check, then the accumulate -> swarm-step loop (bounded by
 ``--max-epochs``/``--max-steps``). Every field of the config dataclasses
 is a flag (bool fields as ``--x``/``--no-x``); ``--device`` (default
 ``cuda``, raising without a GPU) takes the place of the JAX CLI's
-``--platform``. ``--data-path`` and ``--tokenizer-path`` raise until the
-dataset reader and the tokenizer are ported, and so does every setting
-whose module is not ported yet (``TrainingTask`` lists them). The trust
+``--platform``. ``--data-path`` (msgpack code shards: a directory, a file,
+a shard URL or a manifest URL) with ``--tokenizer-path`` (a
+``tokenizer.json``) trains on real data; without them the peer trains on
+``SyntheticCodes``. Every setting whose module is not ported yet raises
+(``TrainingTask`` lists them). The trust
 plane (``--audit-gather``, ``--repair-convicted`` and the rest) is on by
 default as in the JAX CLI; ``--grad-compression power_sgd`` with
 ``--powersgd-rank`` and ``--[no-]powersgd-host-orthogonalize`` selects
@@ -110,10 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--warmup-batches", type=int, default=3,
                         help="self-check steps before joining")
     parser.add_argument("--data-path", type=str, default=None,
-                        help="codes dataset dir/file (not ported yet: "
-                             "raises; the default is synthetic data)")
+                        help="codes dataset: shard dir/file or URL "
+                             "(default: synthetic data)")
     parser.add_argument("--tokenizer-path", type=str, default=None,
-                        help="tokenizer.json (not ported yet: raises)")
+                        help="tokenizer.json for --data-path")
     parser.add_argument("--metrics-file", type=str, default=None,
                         help="append one JSON line per epoch to this file")
     parser.add_argument("--checkpoint-dir", type=str, default=None,

@@ -504,7 +504,7 @@ class CollabConfig:
         if self.chaos_plan is not None:
             raise NotImplementedError(
                 "CollabConfig.chaos_plan: fault injection (swarm/chaos.py) "
-                "is not ported yet (ROADMAP, Queue 1 item 3.4)")
+                "is not ported yet (ROADMAP, Queue 1, fault injection)")
 
 
 @dataclass(frozen=True)
@@ -534,13 +534,8 @@ class PeerConfig:
 
 
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for access-token authorization,
-        which the port does not have yet (ROADMAP: swarm/auth.py)."""
-        if self.auth_authority is not None or \
-                self.auth_token_path is not None:
-            raise NotImplementedError(
-                "PeerConfig.auth_authority/auth_token_path: access-token "
-                "authorization (swarm/auth.py) is not ported yet (ROADMAP)")
+        """Every PeerConfig setting is ported (access tokens since
+        swarm/auth.py); kept so that each config class answers alike."""
 
 
 @dataclass(frozen=True)

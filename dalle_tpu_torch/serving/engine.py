@@ -180,6 +180,9 @@ class ChunkRunner:
         self.n_steps, self.bounds = n_steps, list(bounds)
         self.device = state.pos.device
         self.tables = decode_tables(model.cfg, self.device)
+        # filled by capture(), which DecodeEngine.start() runs before it
+        # starts the engine thread; the thread only reads it after that
+        # graftlint: handoff=captured-before-engine-thread-start
         self.graphs: Dict[int, "torch.cuda.CUDAGraph"] = {}
 
     def eager(self, visible: int) -> None:
@@ -188,10 +191,16 @@ class ChunkRunner:
 
     def capture(self) -> None:
         """One graph a bucket, into one shared pool, each after one eager
-        warm-up chunk on the capture stream (every slot is free at
-        capture, so the warm-up changes nothing a request reads: it
+        warm-up chunk on this runner's capture stream (every slot is free
+        at capture, so the warm-up changes nothing a request reads: it
         writes cache row T-1 of free slots). Call before any other thread
-        uses the card."""
+        uses the card.
+
+        The capture stream is the runner's own: cuBLAS keeps a workspace a
+        stream, and a graph replays with the workspace of the stream it
+        was captured on. On torch's default capture stream, one for the
+        process, two engines' graphs would share one workspace and
+        corrupt each other's products when they replay at once."""
         if self.device.type != "cuda":
             raise RuntimeError("CUDA graphs need the model on the card")
         pool = torch.cuda.graph_pool_handle()
@@ -202,7 +211,7 @@ class ChunkRunner:
                 self.eager(visible)
             torch.cuda.current_stream(self.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool,
+            with torch.cuda.graph(graph, pool=pool, stream=side,
                                   capture_error_mode="thread_local"):
                 self.eager(visible)
             self.graphs[visible] = graph
@@ -436,17 +445,20 @@ class DecodeEngine:
         self._pos_host = np.full((s,), total, np.int32)
         # engine-thread-only slot table: _Pending per occupied slot;
         # readiness()/snapshot() take benign stale reads (telemetry)
+        # graftlint: handoff=engine-thread-owned
         self._slots: List[Optional[_Pending]] = [None] * s
         # completions whose code rows are still in flight to the host:
         # copied (non-blocking, behind an event) right after the chunk
         # that finished them and resolved one iteration later, so the
         # device never idles while the host turns a row into a response;
         # engine-thread-owned, foreign reads are telemetry
+        # graftlint: handoff=engine-thread-owned
         self._harvests: List[Tuple[_Pending, torch.Tensor,
                                    Optional[torch.cuda.Event]]] = []
         # engine-thread-only: requests popped from the queue but not yet
         # landed in _slots (the admission window) — swept by the crash-
         # path cancel so a mid-admission failure can't orphan a handle
+        # graftlint: handoff=engine-thread-owned
         self._admitting: List[_Pending] = []
         self._cv = threading.Condition()
         # per-lane FIFO queues, priority order (scheduler.LANES)
@@ -457,6 +469,7 @@ class DecodeEngine:
         self._cancel_rids: Dict[int, str] = {}  # guarded by _cv
         # brownout state: engine thread writes, front-end reads (bool —
         # a stale read degrades or upgrades one response, by design)
+        # graftlint: handoff=engine-thread-owned
         self._brownout = False
         self._saturated_since: Optional[float] = None
         self._handles: Dict[int, RequestHandle] = {}   # guarded by _cv
@@ -1093,6 +1106,7 @@ class DecodeEngine:
         # single-writer stale read on the zero-sync loop: stop() sets
         # _stopping under _cv, this thread only ever observes it late
         # by one chunk — taking _cv here would serialize the hot loop
+        # graftlint: disable=lock-inconsistent-access
         if self._chaos is None or self._stopping:
             # no synthetic load once a drain has begun: the fault
             # harness must exercise shutdown, not extend it

@@ -75,8 +75,11 @@ class PixelPipeline:
         # (None -> engine's instance) right after construction; the
         # worker tolerates the brief None window, so the unsynchronized
         # single-transition publication is deliberate
+        # graftlint: handoff=bind-once-wiring
         self._metrics = metrics
+        # graftlint: handoff=bind-once-wiring
         self._chaos = chaos
+        # graftlint: handoff=bind-once-wiring
         self._tracer = None
         self._q: "queue.Queue" = queue.Queue(maxsize=maxsize)
         self._thread = threading.Thread(target=self._run,

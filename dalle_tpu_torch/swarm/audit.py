@@ -496,6 +496,7 @@ def open_transcript(blob: bytes, prefix: str, epoch: int, part: int,
         }
     # the transcript plane is attacker-writable (any peer can stuff a
     # mailbox); unparseable content is exactly "unserved"
+    # graftlint: disable=silent-except
     except Exception:  # noqa: BLE001 - any parse failure = no transcript
         return None
 
@@ -887,6 +888,7 @@ def parse_evidence_ref(obj: dict, max_bytes: int) -> Optional[dict]:
         chunk = int(obj["chunk"])
         addr = str(obj["addr"])
     # attacker-writable plane: malformed is exactly "unverifiable"
+    # graftlint: disable=silent-except
     except Exception:  # noqa: BLE001 - any parse failure = reject
         return None
     if len(digest) != 32 or not 0 < size <= max_bytes:
@@ -1036,6 +1038,7 @@ class EvidencePlane:
                                     exp) and ok
             # a raising post is a failing post: the descriptor must
             # not name chunks nobody can fetch
+            # graftlint: disable=silent-except
             except Exception:  # noqa: BLE001 - degrade, don't die
                 ok = False
         return ok
@@ -1049,6 +1052,7 @@ class EvidencePlane:
                 expiration_time=get_dht_time() + self.serve_ttl)
         # advertisement is best-effort: the issuer addr in the
         # descriptor still serves
+        # graftlint: disable=silent-except
         except Exception:  # noqa: BLE001
             pass
 
@@ -1141,6 +1145,7 @@ class EvidencePlane:
         try:
             ads = self._dht.get(evidence_servers_key(self.prefix)) or {}
         # the advert plane is best-effort; the issuer addr remains
+        # graftlint: disable=silent-except
         except Exception:  # noqa: BLE001
             ads = {}
         want = ref["digest"].hex() + "."
@@ -1196,6 +1201,7 @@ class EvidencePlane:
                         timeout=min(self.fetch_timeout,
                                     max(0.1, left)))
                 # a raising transport is a missing chunk (retry/fail)
+                # graftlint: disable=silent-except
                 except Exception:  # noqa: BLE001
                     raw = None
                 if raw is not None and len(raw) >= _TCHDR.size:

@@ -118,9 +118,15 @@ def member_authorized(member: GroupMember, authorizer) -> bool:
     be re-attached to another roster entry."""
     if authorizer is None:
         return True
-    raise NotImplementedError(
-        "access-token authorization (swarm/auth.py) is not ported yet; "
-        "see ROADMAP")
+    from dalle_tpu_torch.swarm.auth import AccessToken
+
+    token = AccessToken.from_bytes(bytes(member.token or b""))
+    if token is None:
+        return False
+    if hashlib.sha256(token.peer_public_key).hexdigest() != member.peer_id:
+        return False
+    return authorizer.validate_token(
+        token, token.peer_public_key) is not None
 
 
 def verify_confirmation(raw: bytes, prefix: str, epoch: int,
@@ -171,6 +177,32 @@ def choose_leader(members: List[GroupMember]) -> GroupMember:
     return next((m for m in members if m.weight > 0), members[0])
 
 
+def _recv_leader_confirmation(dht: DHT, tag: int, prefix: str, epoch: int,
+                              leader_peer_id: str, authorizer,
+                              wait: float) -> Optional[bytes]:
+    """The first confirmation on this follower's tag that its leader
+    signed, or None when ``wait`` runs out. Any peer can send to the tag:
+    a peer whose own view of the group differs (an unauthorized peer
+    counts itself in, and confirms as leader when its view makes it one)
+    sends its confirmation there too. The JAX package reads one message
+    and, when it is not the leader's, sits the round out without a group
+    key, so such a peer can keep honest followers out of a round; here
+    other messages are skipped and the wait goes on."""
+    deadline = time.monotonic() + wait
+    while True:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            return None
+        raw = dht.recv(tag, timeout=remaining)
+        if raw is None:
+            return None
+        if verify_confirmation(raw, prefix, epoch, leader_peer_id,
+                               authorizer) is not None:
+            return raw
+        logger.debug("matchmaking: skipped a confirmation not signed by "
+                     "leader %s", leader_peer_id[:16])
+
+
 def make_group(dht: DHT, prefix: str, epoch: int, weight: float,
                matchmaking_time: float = 15.0,
                min_group_size: int = 1,
@@ -213,9 +245,7 @@ def make_group(dht: DHT, prefix: str, epoch: int, weight: float,
     announce = {"addr": addr, "weight": float(weight),
                 "kx": dht.kx.public_bytes}
     if authorizer is not None:
-        raise NotImplementedError(
-            "access-token authorization (swarm/auth.py) is not ported "
-            "yet; see ROADMAP")
+        announce["tok"] = authorizer.local_token_bytes()
     dht.store(key, my_id, announce,
               expiration_time=get_dht_time() + matchmaking_time * 4 + 60)
 
@@ -339,8 +369,9 @@ def make_group(dht: DHT, prefix: str, epoch: int, weight: float,
                     time.sleep(min(0.2, max(0.0, confirm_deadline
                                             - time.monotonic())))
         else:
-            raw = dht.recv(_confirm_tag(prefix, epoch, my_id),
-                           timeout=confirm_wait)
+            raw = _recv_leader_confirmation(
+                dht, _confirm_tag(prefix, epoch, my_id), prefix, epoch,
+                leader.peer_id, authorizer, confirm_wait)
         if raw is not None:
             verified = verify_confirmation(raw, prefix, epoch,
                                            leader.peer_id, authorizer)

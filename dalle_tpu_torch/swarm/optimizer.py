@@ -44,9 +44,11 @@ The port's seams:
   threads runs on the device's default stream, so a clone is ordered after
   the apply it follows and before the next one.
 
-Not ported yet, and refused: fault injection (``chaos_plan``, by
-``CollabConfig.check_ported``) and access tokens (an ``authorizer``).
-Multi-process peers are refused by
+With an ``authorizer`` (``swarm/auth.py``), every matchmaking round
+(gradients, PowerSGD factors, state) announces this peer's access token
+and admits only peers whose token the experiment authority signed for
+their identity. Not ported yet, and refused: fault injection
+(``chaos_plan``, by ``CollabConfig.check_ported``). Multi-process peers are refused by
 :class:`~dalle_tpu_torch.parallel.multihost.SliceRole`, so every peer is
 one process and repair always runs.
 """
@@ -149,10 +151,6 @@ class CollaborativeOptimizer:
                  role=None):
         from dalle_tpu_torch.parallel.multihost import SliceRole
         cfg.check_ported()
-        if authorizer is not None:
-            raise NotImplementedError(
-                "access-token authorization (swarm/auth.py) is not ported "
-                "yet (ROADMAP)")
         self.role = role or SliceRole()
         if dht is None:
             raise ValueError("a trainer peer needs a DHT")
@@ -162,7 +160,10 @@ class CollaborativeOptimizer:
         self.apply_step = apply_step
         self.client_mode = client_mode
         self.matchmaking_min_group = matchmaking_min_group
-        self.authorizer = None
+        # Optional access-token authorizer (swarm/auth.py): gates group
+        # membership the way the reference's HF authorizer gates the swarm
+        # (huggingface_auth.py:46-193, wired at task.py:95-99).
+        self.authorizer = authorizer
         # held by the training thread while it changes the state, and by
         # readers on other threads while they take their device copy
         self.state_lock = threading.RLock()
@@ -205,55 +206,11 @@ class CollaborativeOptimizer:
         if mpw is None:
             mpw = float(cfg.target_batch_size)
         self._max_peer_weight = mpw if mpw > 0 else None
-        self._gossip = None
-        if cfg.gossip_strikes:
-            self._gossip = StrikeGossip(dht, self.ledger, cfg.run_id,
-                                        period=cfg.strike_gossip_period)
-            self._gossip.start()
-        # Verified aggregation: the worker drains completed rounds'
-        # RoundAudit retention off the training thread (fetch, replay,
-        # bit-compare, strike); its ring is byte-bounded. Repair queues a
-        # conviction's honest - served correction for the phase it
-        # belongs to. shutdown() stops the worker before the DHT goes.
-        self._auditor = None
-        self._audit_policy = None
-        self._repair = None
-        self._evidence = None
-        if cfg.audit_gather:
-            from dalle_tpu_torch.swarm.audit import (AuditPolicy, AuditWorker,
-                                                     EvidencePlane)
-            self._audit_policy = AuditPolicy(frac=cfg.audit_frac,
-                                             ttl=cfg.audit_ttl)
-            if cfg.repair_convicted:
-                from dalle_tpu_torch.swarm.repair import RepairPlane
-                prefixes = [f"{cfg.run_id}_grads"]
-                if cfg.repair_aux_phases:
-                    # factor and state corrections drain at their own
-                    # phase's application site, never into gradients
-                    prefixes += [f"{cfg.run_id}_grads_p",
-                                 f"{cfg.run_id}_grads_q",
-                                 f"{cfg.run_id}_state"]
-                self._repair = RepairPlane(accept_prefix=tuple(prefixes))
-            if cfg.proof_by_reference and self._gossip is not None:
-                # evidence past PROOF_MAX_BYTES rides the receipt as a
-                # digest and mailbox reference: this plane serves ours
-                # and fetches theirs (budgeted, hash-checked)
-                self._evidence = EvidencePlane(
-                    dht, cfg.run_id, max_bytes=cfg.proof_fetch_max_bytes,
-                    budget_s=cfg.proof_fetch_budget_s,
-                    retries=cfg.proof_fetch_retries, tracer=self.tracer)
-                self._gossip.evidence_store = self._evidence
-            self._auditor = AuditWorker(
-                dht, self.ledger, repair=self._repair,
-                max_bytes=cfg.audit_ring_bytes,
-                # with the by-reference plane, evidence has no inline cap
-                evidence_limit=0 if self._evidence is not None else None)
-            self._auditor.start()
-        self.on_after_global_step: List[Callable[[], None]] = []
-        self.on_load_state_from_peers: List[Callable[[], None]] = []
-        # Wire-codec execution backend (swarm/device_codec.py): "device"
-        # quantizes on the GPU and keeps gradients there until the codec
-        # consumes them; the wire bytes are identical either way.
+        # The round config below is set before the first worker thread
+        # of this peer starts. Wire-codec execution backend
+        # (swarm/device_codec.py): "device" quantizes on the GPU and keeps
+        # gradients there until the codec consumes them; the wire bytes
+        # are identical either way.
         from dalle_tpu_torch.swarm.device_codec import resolve_backend
         self._codec_backend = resolve_backend(cfg.wire_codec_backend)
         self._device_grad_handoff = (
@@ -304,6 +261,58 @@ class CollaborativeOptimizer:
         else:
             self._ef_scatter = None
             self._ef_gather = None
+        self._gossip = None
+        if cfg.gossip_strikes:
+            self._gossip = StrikeGossip(dht, self.ledger, cfg.run_id,
+                                        period=cfg.strike_gossip_period)
+            self._gossip.start()
+        # Verified aggregation: the worker drains completed rounds'
+        # RoundAudit retention off the training thread (fetch, replay,
+        # bit-compare, strike); its ring is byte-bounded. Repair queues a
+        # conviction's honest - served correction for the phase it
+        # belongs to. shutdown() stops the worker before the DHT goes.
+        # audit plane wiring: created here before the round worker
+        # exists; shutdown() clears them only AFTER auditor.stop()
+        # joins (the dht ordering contract) — the in-between reads
+        # from the worker see either None or a live worker
+        # graftlint: handoff=init-then-joined-teardown
+        self._auditor = None
+        # graftlint: handoff=init-then-joined-teardown
+        self._audit_policy = None
+        self._repair = None
+        self._evidence = None
+        if cfg.audit_gather:
+            from dalle_tpu_torch.swarm.audit import (AuditPolicy, AuditWorker,
+                                                     EvidencePlane)
+            self._audit_policy = AuditPolicy(frac=cfg.audit_frac,
+                                             ttl=cfg.audit_ttl)
+            if cfg.repair_convicted:
+                from dalle_tpu_torch.swarm.repair import RepairPlane
+                prefixes = [f"{cfg.run_id}_grads"]
+                if cfg.repair_aux_phases:
+                    # factor and state corrections drain at their own
+                    # phase's application site, never into gradients
+                    prefixes += [f"{cfg.run_id}_grads_p",
+                                 f"{cfg.run_id}_grads_q",
+                                 f"{cfg.run_id}_state"]
+                self._repair = RepairPlane(accept_prefix=tuple(prefixes))
+            if cfg.proof_by_reference and self._gossip is not None:
+                # evidence past PROOF_MAX_BYTES rides the receipt as a
+                # digest and mailbox reference: this plane serves ours
+                # and fetches theirs (budgeted, hash-checked)
+                self._evidence = EvidencePlane(
+                    dht, cfg.run_id, max_bytes=cfg.proof_fetch_max_bytes,
+                    budget_s=cfg.proof_fetch_budget_s,
+                    retries=cfg.proof_fetch_retries, tracer=self.tracer)
+                self._gossip.evidence_store = self._evidence
+            self._auditor = AuditWorker(
+                dht, self.ledger, repair=self._repair,
+                max_bytes=cfg.audit_ring_bytes,
+                # with the by-reference plane, evidence has no inline cap
+                evidence_limit=0 if self._evidence is not None else None)
+            self._auditor.start()
+        self.on_after_global_step: List[Callable[[], None]] = []
+        self.on_load_state_from_peers: List[Callable[[], None]] = []
         # Proof-carrying receipts: a gossiped owner-audit-fail receipt
         # with evidence is replayed under THIS peer's round config
         # (codec, pin, screen, clamp); a verified proof convicts alone,
@@ -624,7 +633,7 @@ class CollaborativeOptimizer:
                 weight=pending.weight,
                 matchmaking_time=self.cfg.matchmaking_time,
                 min_group_size=self.matchmaking_min_group,
-                client_mode=self.client_mode, authorizer=None,
+                client_mode=self.client_mode, authorizer=self.authorizer,
                 encrypt=self.cfg.encrypt_data_plane, ledger=self.ledger)
             t_match = time.monotonic()
             pending.timings["matchmaking_s"] = round(t_match - t0, 4)
@@ -648,6 +657,7 @@ class CollaborativeOptimizer:
         # the error crosses threads on the round object and
         # _finish_pending logs it on the training thread, where the
         # apply-local-grads fallback runs
+        # graftlint: disable=silent-except
         except BaseException as e:  # noqa: BLE001 - reported at reconcile
             pending.error = e
         finally:
@@ -735,7 +745,7 @@ class CollaborativeOptimizer:
             self.dht, f"{self.cfg.run_id}_grads", self.local_epoch,
             weight=weight, matchmaking_time=self.cfg.matchmaking_time,
             min_group_size=self.matchmaking_min_group,
-            client_mode=self.client_mode, authorizer=None,
+            client_mode=self.client_mode, authorizer=self.authorizer,
             encrypt=self.cfg.encrypt_data_plane, ledger=self.ledger)
         t_match = time.monotonic()
         if self.tracer is not None:
@@ -875,7 +885,7 @@ class CollaborativeOptimizer:
             self.dht, f"{self.cfg.run_id}_state", self.local_epoch,
             weight=1.0, matchmaking_time=self.cfg.matchmaking_time,
             min_group_size=self.matchmaking_min_group,
-            client_mode=self.client_mode, authorizer=None,
+            client_mode=self.client_mode, authorizer=self.authorizer,
             encrypt=self.cfg.encrypt_data_plane)
         if group is None or group.size <= 1:
             return

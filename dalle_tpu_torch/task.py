@@ -9,10 +9,9 @@ GPU unless the caller asks for the CPU), one GPU per peer (no mesh), and
 the optimizer step runs on that device.
 
 Settings whose modules are not ported yet raise ``NotImplementedError``
-when the task is built: ``data_path``/``tokenizer_path`` (the streaming
-dataset and the caption tokenizer), access tokens, ``chaos_plan``,
-optimizer offload and meshes other than one device (each names its
-ROADMAP item).
+when the task is built: ``chaos_plan``, optimizer offload, a
+``dense_scan`` model whose blocks the JAX package stacks, and meshes other
+than one device (each names its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import functools
 import logging
 from typing import Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
 from dalle_tpu_torch import resolve_device
@@ -45,11 +45,15 @@ class TrainingTask:
                  tokenizer_path: Optional[str] = None,
                  device="cuda"):
         model.validate()
-        if data_path is not None or tokenizer_path is not None:
+        if model.dense_scan_reps() > 0:
+            # the JAX package stacks such a model's blocks into
+            # per-repetition leaves; the port's leaf order is unrolled, so
+            # a mixed swarm would average vectors in different orders
             raise NotImplementedError(
-                "data_path/tokenizer_path: the codes dataset and the caption "
-                "tokenizer (data/dataset.py, data/tokenizer.py) are not "
-                "ported yet (ROADMAP); the port trains on SyntheticCodes")
+                "dense_scan with stacked blocks (dense_scan_reps() > 0): the "
+                "port's parameter, moment and checkpoint layout is unrolled "
+                "where the JAX package stacks it (ROADMAP Queue 1, the "
+                "stacked dense_scan layout)")
         if model.sequence_parallel != SP_NONE:
             raise NotImplementedError(
                 "sequence_parallel: ring/ulysses attention needs a mesh; "
@@ -120,11 +124,13 @@ class TrainingTask:
                     dht.peer_id[:16], dht.visible_address)
         return dht
 
-    @property
+    @functools.cached_property
     def authorizer(self):
-        """The experiment authorizer: None (access tokens are refused at
-        construction until swarm/auth.py is ported)."""
-        return None
+        """Optional experiment authorizer (reference ``task.py:95-99``:
+        built only when auth is configured)."""
+        from dalle_tpu_torch.swarm.auth import make_authorizer
+        return make_authorizer(self.peer_cfg.auth_authority,
+                               self.peer_cfg.auth_token_path)
 
     @functools.cached_property
     def slice_role(self):
@@ -138,7 +144,8 @@ class TrainingTask:
         from dalle_tpu_torch.swarm.optimizer import CollaborativeOptimizer
         return CollaborativeOptimizer(
             self.dht, self.collab_cfg, self.train_state, self.apply_step,
-            client_mode=self.peer_cfg.client_mode, role=self.slice_role)
+            client_mode=self.peer_cfg.client_mode,
+            authorizer=self.authorizer, role=self.slice_role)
 
     # -- compute ----------------------------------------------------------
 
@@ -208,6 +215,18 @@ class TrainingTask:
 
     @functools.cached_property
     def dataset(self):
+        """The shards under ``data_path`` read with the caption tokenizer
+        at ``tokenizer_path`` (``data.dataset.CodesDataset``), or else
+        ``SyntheticCodes``."""
+        if self.data_path is not None:
+            from dalle_tpu_torch.data.dataset import CodesDataset
+            dataset = CodesDataset(self.data_path, self.model_cfg,
+                                   tokenizer_path=self.tokenizer_path)
+            if dataset.tokenizer.vocab_size > self.model_cfg.vocab_text:
+                raise ValueError(
+                    f"tokenizer vocab {dataset.tokenizer.vocab_size} "
+                    f"exceeds model vocab_text {self.model_cfg.vocab_text}")
+            return dataset
         from dalle_tpu_torch.data.synthetic import SyntheticCodes
         return SyntheticCodes(
             self.model_cfg,
@@ -215,10 +234,12 @@ class TrainingTask:
             seed=self.trainer_cfg.seed)
 
     def batches(self) -> Iterator[Dict[str, torch.Tensor]]:
-        """Batches as int64 tensors on :attr:`device`."""
+        """Batches on :attr:`device`: ids as int64, the loss mask (real
+        data) as float32."""
         for batch in self.dataset.batches(self.local_batch_size,
                                           seed=self.data_seed):
-            yield {k: torch.from_numpy(v).long().to(self.device)
+            yield {k: (torch.from_numpy(v) if v.dtype == np.float32
+                       else torch.from_numpy(v).long()).to(self.device)
                    for k, v in batch.items()}
 
     # -- lifecycle --------------------------------------------------------

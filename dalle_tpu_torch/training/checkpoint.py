@@ -148,6 +148,7 @@ def _read_header(path: str) -> Optional[int]:
             return int(msgpack.Unpacker(f).unpack()["epoch"])
     # header PEEK over every restore candidate: None just excludes the
     # file; the restore of the winning candidate logs its own failure
+    # graftlint: disable=silent-except
     except Exception:  # noqa: BLE001 - corrupt/missing file
         return None
 

@@ -300,8 +300,9 @@ def unpackb(packed, raw: bool = False, strict_map_key: bool = True,
 
 class Unpacker:
     """Streaming reader (``msgpack.Unpacker(file_like, raw=False)``):
-    objects from a file or from :meth:`feed`, one per :meth:`unpack`;
-    :meth:`tell` is the count of bytes consumed so far."""
+    objects from a file or from :meth:`feed`, one per :meth:`unpack` or
+    per step of iteration (which ends where the bytes end, as the
+    package's does); :meth:`tell` is the count of bytes consumed so far."""
 
     def __init__(self, file_like=None, raw: bool = False,
                  strict_map_key: bool = True,
@@ -310,21 +311,26 @@ class Unpacker:
         if raw:
             raise ValueError("only raw=False is supported")
         self._file = file_like
-        self._buf = bytearray()
+        # unread bytes are self._buf[self._pos:]; decoding reads them in
+        # place, so a shard of many small records is not copied per record
+        self._buf = b""
+        self._pos = 0
         self._consumed = 0
         self._strict = strict_map_key
         self._ext_hook = ext_hook
         self._read_size = read_size
 
     def feed(self, data) -> None:
-        self._buf += bytes(data)
+        self._buf = self._buf[self._pos:] + bytes(data)
+        self._pos = 0
 
     def tell(self) -> int:
         return self._consumed
 
     def unpack(self):
         while True:
-            reader = _Reader(bytes(self._buf), self._strict, self._ext_hook)
+            reader = _Reader(self._buf, self._strict, self._ext_hook)
+            reader.pos = self._pos
             try:
                 obj = reader.read()
             except _Incomplete:
@@ -332,8 +338,17 @@ class Unpacker:
                          if self._file is not None else b"")
                 if not chunk:
                     raise OutOfData from None
-                self._buf += chunk
+                self.feed(chunk)
                 continue
-            del self._buf[:reader.pos]
-            self._consumed += reader.pos
+            self._consumed += reader.pos - self._pos
+            self._pos = reader.pos
             return obj
+
+    def __iter__(self) -> "Unpacker":
+        return self
+
+    def __next__(self):
+        try:
+            return self.unpack()
+        except OutOfData:
+            raise StopIteration from None

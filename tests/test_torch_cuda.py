@@ -693,6 +693,51 @@ def test_cuda_engine_greedy_codes_equal_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_two_engines_at_once_equal_one_at_a_time(cuda_device):
+    """Two engines in one process (the flagship's widths in bf16, 8
+    layers, 4 slots) decoding greedy at the same time give the codes each
+    gives alone: each runner captures its graphs on its own stream, so
+    their cuBLAS workspaces differ (on torch's one default capture stream
+    they shared one, and concurrent replays corrupted each other)."""
+    from dalle_tpu_torch import resolve_device
+    from dalle_tpu_torch.config import ServingConfig, flagship_model_config
+    from dalle_tpu_torch.models.decode import SamplingConfig
+    from dalle_tpu_torch.serving.engine import DecodeEngine
+
+    dev = resolve_device("cuda")
+    cfg = flagship_model_config(param_dtype="bfloat16", depth=8)
+    engines = []
+    for _ in range(2):
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        engines.append(DecodeEngine(model.eval(), cfg, ServingConfig(
+            n_slots=4, steps_per_call=8, prefix_cache_mb=None),
+            sampling=SamplingConfig(0.0)).start())
+    texts = [np.random.default_rng(i).integers(2, cfg.vocab_text,
+                                               cfg.text_seq_len)
+             for i in range(2)]
+    try:
+        alone = [[np.asarray(engines[e].submit(t, 0).result(
+            timeout=600)["codes"]).tolist() for t in texts]
+            for e in range(2)]
+        assert alone[0] == alone[1]
+        for _ in range(2):
+            # both texts on both engines, each engine admitting its two
+            # at one chunk boundary (a lockstep pair decodes as a request
+            # alone does), the two engines at once
+            for e in engines:
+                e.scheduler.max_live = 0
+            handles = [[e.submit(t, 1) for t in texts] for e in engines]
+            for e in engines:
+                e.scheduler.max_live = 4
+            out = [[np.asarray(h.result(timeout=600)["codes"]).tolist()
+                    for h in hs] for hs in handles]
+            assert out == alone
+    finally:
+        for e in engines:
+            e.stop()
+
+
+@pytest.mark.cuda
 def test_cuda_pixels_match_cpu(cuda_device):
     """VQGAN decode and CLIP scores on the card against the same weights
     on the CPU, in f32 (TF32 off), at 1e-4."""

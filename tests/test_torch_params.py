@@ -103,9 +103,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax',"
-        " 'msgpack', 'pydantic')"
+        " 'msgpack', 'pydantic', 'tokenizers')"
         " or m.startswith(('jax.', 'flax.', 'optax.', 'msgpack.',"
-        " 'pydantic.'))"
+        " 'pydantic.', 'tokenizers.'))"
         " or m == 'dalle_tpu' or m.startswith('dalle_tpu.'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
@@ -156,7 +156,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "dalle_tpu_torch.swarm.optimizer",
                 "dalle_tpu_torch.swarm.audit",
                 "dalle_tpu_torch.swarm.repair",
-                "dalle_tpu_torch.swarm.powersgd"):
+                "dalle_tpu_torch.swarm.powersgd",
+                "dalle_tpu_torch.swarm.auth",
+                "dalle_tpu_torch.serving.router",
+                "dalle_tpu_torch.data.tokenizer",
+                "dalle_tpu_torch.data.dataset",
+                "dalle_tpu_torch.data.remote",
+                "dalle_tpu_torch.cli.prepare_data",
+                "dalle_tpu_torch.cli.run_router",
+                "dalle_tpu_torch.cli.issue_token"):
         assert mod in mods, mod
     # chip_smoke.py imports inside main(): read every import it names
     tree = ast.parse((root / "chip_smoke.py").read_text())
@@ -166,7 +174,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               if isinstance(n, ast.ImportFrom) and n.module}
     bad = sorted(n for n in names
                  if n.split(".")[0] in ("jax", "flax", "optax", "dalle_tpu",
-                                        "msgpack", "pydantic"))
+                                        "msgpack", "pydantic", "tokenizers"))
     assert not bad, bad
     assert {"dalle_tpu_torch.training.steps",
             "dalle_tpu_torch.serving.engine",

@@ -254,10 +254,10 @@ def test_run_trainer_cli_trains_and_writes_metrics(tmp_path):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--data-path", "x"], "data_path"),
-    (["--tokenizer-path", "x"], "data_path"),
+    (["--dense-scan"], "dense_scan"),
+    (["--dense-scan", "--depth", "8"], "dense_scan"),
     (["--chaos-plan", "{}"], "chaos"),
-    (["--auth-authority", "ab"], "auth"),
+    (["--remat", "--remat-policy", "save_ctx"], "save_ctx"),
     (["--offload"], "offload"),
     (["--stacked-reps", "2"], "stacked_reps"),
     (["--fsdp", "2"], "one GPU"),
