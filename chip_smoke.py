@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship inference and training paths, the
 8-bit LAMB, a swarm round's device codec, the generic kernel route, the
-collaborative trainer peer, real data, the serving router and access
-tokens on one NVIDIA GPU.
+collaborative trainer peer, real data, the serving router, access tokens,
+the stacked ``dense_scan`` model, the averaging assistant and fault
+injection on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out RECORDS.json] [--profile TABLE.txt]
 
@@ -137,7 +138,29 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    the port's ``issue_token``, and a third peer whose token another
    authority signed: the pair forms its 2-peer group without it and ends
    ``torch.equal``;
-13. the ``kernels`` line (the eleven ported kernels and the six generic
+13. the stacked ``dense_scan`` layout, the averaging assistant and fault
+   injection: (a) the dense flagship (64 independent layers, the body's 63
+   in 16 stacked repetitions of 4 with one overhang slice, 1,133,068,288
+   parameters) through ``train_entry`` with the 8-bit LAMB (micro-batch 4
+   x accumulation 2): 45 quantized leaves, the stacked FF biases among
+   them, the overhang slices' gradient exactly 0, four steps with the
+   schedule's exact launch counts (2 x 45 ``quantize_blockwise`` a step),
+   no generic launch, finite losses that fall, no layer view holding its
+   slices between steps (the memory allocated then is recorded beside the
+   state's bytes); teacher-forced cached decode over the text and two
+   image rows within phase 4's tolerance;
+   a stepped 8-bit state of the same layout at depth 8 through a
+   checkpoint, restored ``torch.equal``; (b) 12c's pair plus an
+   ``AveragingAssistant`` on an aux peer's task, one epoch: a 3-member
+   group, the assistant owns a part, the pair ends ``torch.equal``, and
+   the aux peer's archive of the swarm state restores ``torch.equal``;
+   the round's seconds and bytes a leg beside 12c's; (c) the pair under
+   seeded fault plans (delay and duplicate on the leader's sends, corrupt
+   on the other's) with an honest assistant and one whose transport
+   crashes after matchmaking: both trainers end the epoch, the crashed
+   assistant's round ends, the leader's round names the corrupt sender
+   and strikes it, and every fault fired;
+14. the ``kernels`` line (the eleven ported kernels and the six generic
    instances).
 
 With ``--profile``, one flagship forward and one training micro-batch are
@@ -570,13 +593,15 @@ AUDIT_WAIT_S = 240             # the last rounds' audits after the loops
 
 
 def _peer_pair(torch, make_task, collab_kw, trace_round, epochs=2,
-               outsider=False):
+               outsider=False, helpers=None):
     """Two peers (threads of this process, loopback DHT) train ``epochs``
     epochs through ``train_loop``; with ``trace_round``, peer 0's second
     round is traced. ``make_task(peers, collab_kw, i)`` builds peer ``i``;
     with ``outsider``, a third peer (``i == 2``) joins the same DHT and
     trains as long as the pair, its rounds, reports and errors kept apart
-    (``run["outsider"]``). Returns the run's record: the tasks, per-epoch
+    (``run["outsider"]``). ``helpers(address)``, when given, starts
+    non-training members (averaging assistants) bootstrapped from peer 0
+    before the peers train. Returns the run's record: the tasks, per-epoch
     reports, step end times, launches, peak memory and the traced
     round."""
     import threading
@@ -593,6 +618,8 @@ def _peer_pair(torch, make_task, collab_kw, trace_round, epochs=2,
                                i))
     for task in tasks:
         task.collab_optimizer          # model, optimizer state, swarm
+    if helpers is not None:
+        helpers(tasks[0].dht.visible_address)
     torch.cuda.synchronize()
     if trace_round:
         with profile(activities=[ProfilerActivity.CPU,
@@ -670,10 +697,11 @@ def _peer_pair(torch, make_task, collab_kw, trace_round, epochs=2,
     return run_rec
 
 
-def _check_pair(torch, run, where, epochs=2):
+def _check_pair(torch, run, where, epochs=2, group=2, equal=True):
     """The checks every two-peer run shares: ``epochs`` epochs on both
-    peers, a 2-peer group in each, finite losses, params and moments
-    ``torch.equal`` and no generic kernel."""
+    peers, a ``group``-member group in each (assistants count), finite
+    losses, params and moments ``torch.equal`` (unless not ``equal``) and
+    no generic kernel."""
     from dalle_tpu_torch.params import state_leaf_tensors
     collabs = [t.collab_optimizer for t in run["tasks"]]
     if [c.local_epoch for c in collabs] != [epochs, epochs]:
@@ -682,15 +710,17 @@ def _check_pair(torch, run, where, epochs=2):
                              f"expected {epochs} on both peers")
     groups = [[e["timings"].get("group_size") for e in ep]
               for ep in run["epochs"]]
-    if any(g != [2] * epochs for g in groups):
+    if any(g != [group] * epochs for g in groups):
         raise AssertionError(f"{where}: group sizes {groups}, expected a "
-                             "2-peer group in every epoch on both peers")
+                             f"{group}-member group in every epoch on both "
+                             "peers")
     losses = [e["loss"] for ep in run["epochs"] for e in ep]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{where}: non-finite losses {losses}")
     a, b = (state_leaf_tensors(c.state.model, c.state.opt_state)
             for c in collabs)
-    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+    if equal and (len(a) != len(b)
+                  or not all(torch.equal(x, y) for x, y in zip(a, b))):
         raise AssertionError(f"{where}: the peers' params or moments "
                              "differ")
     if any(run["generic"].values()):
@@ -1374,15 +1404,14 @@ def auth_phase(torch, smi, release_memory, dev="cuda",
         tasks = run["tasks"] + [run["outsider"]["task"]]
         try:
             collabs = _check_pair(torch, run, "auth", epochs=1)
+            rounds = _round_rows(run["epochs"], lambda w: [w] if w else [])
             rogue = tasks[2].dht.peer_id
             outsider = run["outsider"]
             if outsider["errors"]:
                 raise AssertionError(f"auth: the third peer raised "
                                      f"{outsider['errors'][0]!r}")
             emit(phase="auth", card=smi, peers=2, outsider=1, epochs=1,
-                 collab=AUTH_COLLAB, wall_s=run["wall_s"],
-                 rounds=_round_rows(run["epochs"],
-                                    lambda w: [w] if w else []),
+                 collab=AUTH_COLLAB, wall_s=run["wall_s"], rounds=rounds,
                  outsider_steps=outsider["steps"],
                  outsider_epochs=[dict(epoch=e["epoch"], loss=e["loss"],
                                        group_size=e["timings"].get(
@@ -1395,6 +1424,521 @@ def auth_phase(torch, smi, release_memory, dev="cuda",
         finally:
             for task in tasks[::-1]:
                 task.shutdown()
+    del run, tasks
+    release_memory()
+    return rounds
+
+
+# -- 13: the stacked dense_scan layout, the averaging assistant and the aux
+# peer, fault injection ------------------------------------------------------
+
+#: the dense flagship (``scripts/config_bench.py``'s "dense" row): 64
+#: independent layers, the body's 63 in 16 stacked repetitions of 4 (the
+#: last repetition's block_3 slice is the overhang) plus block_wconv
+DENSE_FLAGSHIP = dict(shared_block_cycle=0, remat_skip_blocks=0,
+                      scan_unroll=1, dense_scan=True)
+DENSE_STEPS = 4                # 8-bit LAMB steps of the dense flagship
+DENSE_QUANTIZED = 45           # its leaves with >= 65536 elements, of 81
+DENSE_PARAMS = 1_133_068_288
+DENSE_DECODE_ROWS = 2          # image rows decoded after the text in 13a
+#: the checkpoint round trip runs at this depth (body 7: two repetitions
+#: of 4 with one overhang slice, and block_wconv): the full dense state's
+#: ~5.7 GB file would take much of the script's time limit to write and read
+DENSE_CKPT_DEPTH = 8
+#: 13b: phase 12c's pair settings; the state server sends f32 leaves, so
+#: that the aux peer's archive equals the trainers' state bit for bit
+ASSIST_COLLAB = dict(AUTH_COLLAB, state_compression="none")
+#: 13c: the pair and two assistants under fault plans, one epoch; a
+#: shorter all-reduce budget bounds the wait on the crashed assistant
+CHAOS_COLLAB = dict(AUTH_COLLAB, allreduce_timeout=30)
+DELAY_DUP_PLAN = {"seed": 5, "rules": [{"ops": ["send"], "duplicate": 1.0,
+                                        "delay_s": [0.0, 0.02]}]}
+CORRUPT_PLAN = {"seed": 9, "rules": [{"ops": ["send"], "corrupt": 1.0}]}
+CRASH_PLAN = {"seed": 1, "crash_at_epoch": 0}
+
+
+def dense_phase(torch, smi, release_memory, dev="cuda", model_overrides=None,
+                decode_rows=DENSE_DECODE_ROWS) -> dict:
+    """13a: the dense flagship in the stacked ``dense_scan`` layout at
+    full width and depth through ``train_entry`` (random weights from the
+    seed, micro-batch 4 x accumulation 2, the 8-bit LAMB): its 8-bit state
+    quantizes the 45 leaves of at least ``min_8bit_size`` elements, the
+    stacked FF biases among them (2 x 45 ``quantize_blockwise`` at init and
+    a step); one ``grad_step``'s gradient of the overhang slices is
+    exactly 0 and every other slice's is not; ``DENSE_STEPS`` steps with
+    the exact launch counts of the schedule and no generic launch, finite
+    losses that fall once the learning rate leaves 0, and no layer view
+    holding its slices between steps (the memory allocated after each step
+    is recorded beside the state's bytes); teacher-forced
+    cached decode of the trained model over the text and
+    ``decode_rows`` image rows within phase 4's 2^-4 of the logit range;
+    and, at ``DENSE_CKPT_DEPTH``, a checkpoint of a stepped 8-bit state
+    that restores ``torch.equal``. Returns the launch counts of the
+    steps."""
+    import tempfile
+
+    from dalle_tpu_torch.config import OptimizerConfig, flagship_model_config
+    from dalle_tpu_torch.entry import train_entry
+    from dalle_tpu_torch.models.decode import (decode_step, decode_tables,
+                                               init_cache)
+    from dalle_tpu_torch.models.transformer import wrapper_calls
+    from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, reset_launches
+    from dalle_tpu_torch.ops.quant import Quantized
+    from dalle_tpu_torch.optim import apply_updates, make_optimizer
+    from dalle_tpu_torch.params import state_leaf_tensors
+    from dalle_tpu_torch.training.checkpoint import CheckpointManager
+    from dalle_tpu_torch.training.steps import TrainState, grad_step
+
+    overrides = dict(DENSE_FLAGSHIP, **(model_overrides or {}))
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    step, (state, batch) = train_entry(device=dev, micro=MICRO, accum=ACCUM,
+                                       seed=SEED, state_bits=8, **overrides)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = state.model
+    cfg = model.cfg
+    reps, group = cfg.dense_scan_reps(), len(cfg.attn_types)
+    body = cfg.depth - (1 if cfg.final_conv_block else 0)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_leaves = len(list(model.parameters()))
+    quantized = sorted(n for n, m in state.opt_state.mu.items()
+                       if isinstance(m, Quantized))
+    n_q = len(quantized)
+    if model_overrides is None and (reps != 16 or n_params != DENSE_PARAMS
+                                    or n_q != DENSE_QUANTIZED):
+        raise AssertionError(f"dense: {reps} repetitions, {n_params} "
+                             f"parameters, {n_q} quantized leaves; expected "
+                             f"16, {DENSE_PARAMS}, {DENSE_QUANTIZED}")
+    stacked_biases = [n for n in quantized if n.endswith(("ff.wi.bias",
+                                                          "ff.gate.bias"))]
+    if model_overrides is None and len(stacked_biases) != 2 * group:
+        raise AssertionError(f"dense: quantized FF biases {stacked_biases}")
+    if dict(LAUNCHES) != dict.fromkeys(LAUNCHES, 0) | {
+            "quantize_blockwise": 2 * n_q}:
+        raise AssertionError(f"dense: 8-bit LAMB init launches "
+                             f"{dict(LAUNCHES)}, expected 2 x {n_q}")
+
+    # the overhang: slices of the last repetition no layer reads
+    overhang = [u for u in range(group) if (reps - 1) * group + u >= body]
+    _, _, grads = grad_step(model, batch, ACCUM)
+    zero, live = [], []       # per stacked leaf: overhang nonzero, live ok
+    for name, g in grads.items():
+        if not name.startswith("transformer.blocks.block_") \
+                or "wconv" in name:
+            continue
+        if int(name.split(".")[2].split("_")[1]) in overhang:
+            zero.append(bool(g[reps - 1].any()))
+        live.append(all(bool(g[r].any()) for r in range(reps - 1)))
+    if not overhang or any(zero) or not all(live):
+        raise AssertionError(f"dense: overhang blocks {overhang}: nonzero "
+                             f"{sum(zero)} of {len(zero)} overhang "
+                             f"gradients, {live.count(False)} stacked "
+                             "leaves with an all-zero live slice")
+    del grads
+
+    per_micro = wrapper_calls(cfg, training=True)
+    expected = {k: ACCUM * v for k, v in per_micro.items()} | {
+        "quantize_blockwise": 2 * n_q}
+    losses, norms, step_s, between = [], [], [], []
+    for i in range(DENSE_STEPS):
+        torch.cuda.synchronize()
+        if i == 0:
+            reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        between.append(torch.cuda.memory_allocated())
+        if i == 0:
+            launches = dict(LAUNCHES)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    if launches != expected:
+        raise AssertionError(f"dense: launch counts {launches} != "
+                             f"{expected}")
+    if LAUNCHES["quantize_blockwise"] != DENSE_STEPS * 2 * n_q:
+        raise AssertionError(f"dense: {LAUNCHES['quantize_blockwise']} "
+                             f"quantize_blockwise launches in {DENSE_STEPS} "
+                             f"steps, expected {DENSE_STEPS} x 2 x {n_q}")
+    if any(GENERIC_LAUNCHES.values()):
+        raise AssertionError(f"dense: generic launches "
+                             f"{dict(GENERIC_LAUNCHES)}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"dense: non-finite loss or grad_norm: "
+                             f"{losses}, {norms}")
+    # step 1 has learning rate 0: steps 1 and 2 see the same weights
+    if not (abs(losses[1] - losses[0]) <= SAME_LOSS * abs(losses[0])
+            and all(losses[i + 1] < losses[i]
+                    for i in range(1, DENSE_STEPS - 1))):
+        raise AssertionError(f"dense: the loss does not fall: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    steady = step_s[1:]
+    all_launches = dict(LAUNCHES)
+    # between steps only the state (and the batch) is allocated: no layer
+    # view keeps its slices, nor the cast copy they view
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      state_leaf_tensors(model, state.opt_state))
+    held = [n for views in model.transformer._views for v in views
+            for n, _ in v.named_parameters()]
+    if held:
+        raise AssertionError(
+            f"dense: the layer views hold {len(held)} slices between steps;"
+            f" allocated between steps {[b / 1e9 for b in between]} GB, "
+            f"the state {state_bytes / 1e9} GB")
+
+    # teacher-forced cached decode of the trained stacked model
+    T, TT, G = cfg.total_seq_len, cfg.text_seq_len, cfg.image_grid
+    n_pos = min(T, TT + decode_rows * G)
+    text, image = batch["text"][:1], batch["image"][:1]
+    with torch.inference_mode():
+        _, _, logits = model(text, image, return_logits=True)
+        logits = logits[:, :n_pos]
+        labels = torch.cat([text, image + cfg.vocab_text], 1)
+        inputs = torch.cat([torch.full((1, 1), cfg.vocab_total, device=dev,
+                                       dtype=labels.dtype),
+                            labels[:, :-1]], 1)
+        cache = init_cache(cfg, 1, dev)
+        tables = decode_tables(cfg, dev)
+        t0 = time.perf_counter()
+        got = torch.stack([decode_step(model, cache, inputs[:, p], p,
+                                       tables)[0]
+                           for p in range(n_pos)], 1)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+    valid = logits > -1e8
+    diff = (got - logits).abs()[valid].max().item()
+    scale = logits[valid].abs().max().item()
+    dec_tol = 2 ** -4 * scale
+    agree = (got.argmax(-1) == logits.argmax(-1)).float().mean().item()
+    if not (diff <= dec_tol and agree >= ARGMAX_AGREE):
+        raise AssertionError(f"dense: cached decode vs forward: max |diff| "
+                             f"{diff} (tolerance {dec_tol}), argmax "
+                             f"agreement {agree:.3f}")
+    del state, step, batch, model, cache, logits, got, metrics
+    release_memory()
+
+    # a stepped 8-bit state through a checkpoint, at DENSE_CKPT_DEPTH
+    small = dict(overrides, depth=DENSE_CKPT_DEPTH)
+    _, (ck_state, ck_batch) = train_entry(device=dev, micro=1, accum=1,
+                                          seed=SEED, state_bits=8, **small)
+    ck_cfg = ck_state.model.cfg
+    tx = make_optimizer(OptimizerConfig(
+        warmup_steps=2, total_steps=100,
+        stacked_reps=ck_cfg.dense_scan_reps()))
+    for _ in range(2):
+        _, _, g = grad_step(ck_state.model, ck_batch, 1)
+        updates, ck_state.opt_state = tx.update(g, ck_state.opt_state,
+                                                ck_state.model)
+        apply_updates(ck_state.model, updates)
+        ck_state.step += 1
+    with tempfile.TemporaryDirectory(dir=os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "build")) as tmp:
+        mgr = CheckpointManager(tmp, async_writes=False)
+        t0 = time.perf_counter()
+        path = mgr.save(ck_state, 2)
+        save_s = time.perf_counter() - t0
+        ck_bytes = os.path.getsize(path)
+        _, (template, _) = train_entry(device=dev, micro=1, accum=1,
+                                       seed=SEED + 1, state_bits=8, **small)
+        t0 = time.perf_counter()
+        restored = mgr.restore_latest(template)
+        restore_s = time.perf_counter() - t0
+    if restored is None or restored[1] != 2 or restored[0].step != 2:
+        raise AssertionError(f"dense: checkpoint restored "
+                             f"{restored and (restored[1], restored[0].step)}"
+                             ", expected epoch 2, step 2")
+    a = state_leaf_tensors(ck_state.model, ck_state.opt_state)
+    b = state_leaf_tensors(restored[0].model, restored[0].opt_state)
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("dense: the restored checkpoint differs")
+    emit(phase="dense_scan", card=smi, config=overrides,
+         stacked_reps=reps, overhang_blocks=[f"block_{u}" for u in overhang],
+         params=n_params, leaves=n_leaves,
+         quantized_leaves=n_q, stacked_quantized_biases=stacked_biases,
+         micro=MICRO, accum=ACCUM, steps=DENSE_STEPS, init_s=init_s,
+         losses=losses, grad_norms=norms, launches=launches,
+         launches_all_steps=all_launches, step_s=step_s,
+         step_s_mean=sum(steady) / len(steady),
+         img_per_s=MICRO * ACCUM * len(steady) / sum(steady),
+         peak_mem_gb=peak / 1e9,
+         between_steps_gb=[b / 1e9 for b in between],
+         state_gb=state_bytes / 1e9, decode_positions=n_pos,
+         decode_max_abs_err=diff, decode_tolerance=dec_tol,
+         decode_argmax_agreement=agree, decode_s=dec_s,
+         checkpoint_depth=DENSE_CKPT_DEPTH, checkpoint_bytes=ck_bytes,
+         checkpoint_save_s=save_s, checkpoint_restore_s=restore_s)
+    del ck_state, template, restored, a, b
+    release_memory()
+    return launches
+
+
+def _crashing_assistant(dht, cfg, n_elements, epoch, out):
+    """An assistant whose transport dies at ``epoch`` (its ``ChaosDHT``'s
+    ``crash_at_epoch``) right after it joined the round's group: it owns a
+    part it never serves, as a dead owner does."""
+    import numpy as np
+
+    from dalle_tpu_torch.swarm.allreduce import run_allreduce
+    from dalle_tpu_torch.swarm.matchmaking import make_group
+
+    prefix = f"{cfg.run_id}_grads"
+    group = make_group(dht, prefix, epoch, weight=0.0,
+                       matchmaking_time=cfg.matchmaking_time,
+                       min_group_size=2, encrypt=cfg.encrypt_data_plane)
+    out["group_size"] = group.size if group is not None else 1
+    out["crashed"] = dht.note_epoch(epoch)
+    if group is not None and group.size > 1:
+        report = {}
+        run_allreduce(dht, group, prefix, epoch,
+                      [np.zeros(n_elements, np.float32)], weight=0.0,
+                      allreduce_timeout=cfg.allreduce_timeout,
+                      report=report)
+        out["reduced_senders"] = report.get("reduced_senders")
+
+
+def assist_chaos_phase(torch, smi, release_memory, without_rounds,
+                       dev="cuda", model_overrides=None) -> None:
+    """13b: phase 12c's pair (the phase 8 step, the device codec) plus an
+    ``AveragingAssistant`` on an aux peer's ``TrainingTask`` (as
+    ``run_aux_peer --assist-in-averaging`` builds it), one epoch: both
+    trainers form a 3-member group whose parts the assistant shares, the
+    assistant assists, the pair ends ``torch.equal``, and the aux peer's
+    archive of the swarm state (``run_aux_peer.archive_state``) restores
+    ``torch.equal`` to the trainers' state; the round's all-reduce seconds
+    and bytes a leg are recorded beside 12c's (``without_rounds``). 13c:
+    the pair under seeded fault plans with an honest assistant and one
+    whose transport crashes at epoch 0 after matchmaking, one epoch:
+    delay and duplicate on the lower peer's sends (the leader), corrupt on
+    the higher's; both trainers and the crashed assistant's round end the
+    epoch (no hang), the leader's
+    round names the corrupt sender and its ledger strikes it, the round
+    reports incomplete, and every fault fired."""
+    import tempfile
+
+    from dalle_tpu_torch.cli.run_aux_peer import archive_state
+    from dalle_tpu_torch.config import (CollabConfig, OptimizerConfig,
+                                        PeerConfig, TrainerConfig,
+                                        flagship_model_config)
+    from dalle_tpu_torch.models.dalle import init_params
+    from dalle_tpu_torch.optim import make_optimizer
+    from dalle_tpu_torch.params import state_leaf_tensors
+    from dalle_tpu_torch.swarm.assist import (AveragingAssistant,
+                                              grad_flat_elements)
+    from dalle_tpu_torch.swarm.chaos import ChaosDHT, FaultPlan
+    from dalle_tpu_torch.swarm.dht import DHT
+    from dalle_tpu_torch.swarm.identity import Identity
+    from dalle_tpu_torch.swarm.metrics import make_validators
+    from dalle_tpu_torch.task import TrainingTask
+    from dalle_tpu_torch.training.checkpoint import CheckpointManager
+    from dalle_tpu_torch.training.steps import TrainState
+
+    model_cfg = flagship_model_config(**(model_overrides or {}))
+    opt_cfg = OptimizerConfig(warmup_steps=2, total_steps=100)
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    # -- 13b. the averaging assistant and the aux peer's archive ----------
+    run_id = "smoke-assist"
+    collab_cfg = CollabConfig(run_id=run_id, **ASSIST_COLLAB)
+
+    def make_task(peers, collab_kw, i):
+        return TrainingTask(
+            model_cfg, opt_cfg,
+            TrainerConfig(per_device_batch=4, grad_accum_steps=2),
+            CollabConfig(run_id=run_id, **collab_kw),
+            PeerConfig(initial_peers=tuple(peers), experiment_prefix=run_id),
+            device=dev)
+
+    helpers = {}
+
+    def start_aux(address):
+        aux = TrainingTask(model_cfg, opt_cfg, TrainerConfig(), collab_cfg,
+                           PeerConfig(initial_peers=(address,),
+                                      experiment_prefix=run_id),
+                           device=dev)
+        helpers["aux"] = aux
+        helpers["assistant"] = AveragingAssistant(
+            aux.dht, collab_cfg, model_cfg, authorizer=aux.authorizer)
+        helpers["assistant"].start()
+
+    release_memory()
+    run = _peer_pair(torch, make_task, ASSIST_COLLAB, trace_round=False,
+                     epochs=1, helpers=start_aux)
+    tasks = run["tasks"]
+    aux, assistant = helpers["aux"], helpers["assistant"]
+    try:
+        collabs = _check_pair(torch, run, "assist", epochs=1, group=3)
+        deadline = time.perf_counter() + 60
+        while assistant.rounds_assisted < 1 \
+                and time.perf_counter() < deadline:
+            time.sleep(0.25)
+        if assistant.rounds_assisted < 1:
+            raise AssertionError("assist: the assistant never assisted")
+        parts = [sorted({row["part"] for row in
+                         (c.last_wire_report or {}).get("phases", {})
+                         .get("hops", [])}) for c in collabs]
+        if any(len(p) != 3 for p in parts):
+            raise AssertionError(f"assist: the trainers' rounds touched "
+                                 f"parts {parts}, expected 3 (the "
+                                 "assistant owns one)")
+        assistant.stop(join_timeout=collab_cfg.matchmaking_time
+                       + collab_cfg.allreduce_timeout + 5)
+        with tempfile.TemporaryDirectory(dir=os.path.join(root,
+                                                          "build")) as tmp:
+            mgr = CheckpointManager(tmp, async_writes=False)
+            t0 = time.perf_counter()
+            epoch = archive_state(aux, collab_cfg, mgr)
+            archive_s = time.perf_counter() - t0
+            if epoch != 1:
+                raise AssertionError(f"assist: the aux peer archived epoch "
+                                     f"{epoch}, expected 1")
+            archive_bytes = sum(os.path.getsize(os.path.join(tmp, n))
+                                for n in os.listdir(tmp))
+            template = TrainState.create(
+                init_params(model_cfg, torch.Generator(
+                    device=dev).manual_seed(SEED + 2)),
+                make_optimizer(opt_cfg))
+            restored = mgr.restore_latest(template)
+        if restored is None or restored[1] != 1:
+            raise AssertionError("assist: the archive does not restore")
+        got = state_leaf_tensors(restored[0].model, restored[0].opt_state)
+        want = state_leaf_tensors(collabs[0].state.model,
+                                  collabs[0].state.opt_state)
+        if len(got) != len(want) or not all(
+                torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError("assist: the archive differs from the "
+                                 "trainers' state")
+        emit(phase="assist", card=smi, peers=2, assistants=1, epochs=1,
+             collab=ASSIST_COLLAB, wall_s=run["wall_s"],
+             grad_elements=grad_flat_elements(model_cfg),
+             rounds_assisted=assistant.rounds_assisted, parts=parts,
+             rounds=_round_rows(run["epochs"], lambda w: [w] if w else []),
+             rounds_without_assistant=without_rounds,
+             archive_s=archive_s, archive_bytes=archive_bytes,
+             launches=run["launches"], generic_launches=run["generic"],
+             peak_mem_gb=run["peak"] / 1e9)
+    finally:
+        assistant.stop(join_timeout=collab_cfg.matchmaking_time
+                       + collab_cfg.allreduce_timeout + 5)
+        for task in tasks[::-1] + [aux]:
+            task.shutdown()
+    del run, tasks, aux, assistant, collabs, got, want, restored, template
+    release_memory()
+
+    # -- 13c. fault injection ----------------------------------------------
+    run_id = "smoke-chaos"
+    collab_cfg = CollabConfig(run_id=run_id, **CHAOS_COLLAB)
+    with tempfile.TemporaryDirectory() as tmp:
+        pems = [os.path.join(tmp, f"peer{i}.pem") for i in range(2)]
+        pids = [Identity.load_or_create(p).node_id.hex() for p in pems]
+        bad = pids.index(max(pids))     # the leader (lowest id) is honest
+        plans = [json.dumps(CORRUPT_PLAN if i == bad else DELAY_DUP_PLAN)
+                 for i in range(2)]
+
+        def make_chaos_task(peers, collab_kw, i):
+            return TrainingTask(
+                model_cfg, opt_cfg,
+                TrainerConfig(per_device_batch=4, grad_accum_steps=2),
+                CollabConfig(run_id=run_id, chaos_plan=plans[i],
+                             **collab_kw),
+                PeerConfig(initial_peers=tuple(peers),
+                           experiment_prefix=run_id, identity_path=pems[i]),
+                device=dev)
+
+        helpers = {}
+
+        def assistant_dht(address):
+            # the trainers sign their records: read them as a TrainingTask
+            # peer does, through the record validators
+            ident = Identity.generate()
+            return DHT(initial_peers=[address], identity=ident,
+                       record_validators=make_validators(ident, run_id))
+
+        def start_assistants(address):
+            import threading
+            honest = assistant_dht(address)
+            crash = ChaosDHT(assistant_dht(address),
+                             FaultPlan.from_dict(CRASH_PLAN))
+            helpers["dhts"] = [honest, crash]
+            helpers["assistant"] = AveragingAssistant(honest, collab_cfg,
+                                                      model_cfg)
+            helpers["assistant"].start()
+            helpers["crash"] = {}
+            helpers["crash_thread"] = threading.Thread(
+                target=_crashing_assistant,
+                args=(crash, collab_cfg, grad_flat_elements(model_cfg), 0,
+                      helpers["crash"]))
+            helpers["crash_thread"].start()
+
+        release_memory()
+        t0 = time.perf_counter()
+        run = _peer_pair(torch, make_chaos_task, CHAOS_COLLAB,
+                         trace_round=False, epochs=1,
+                         helpers=start_assistants)
+        tasks = run["tasks"]
+        try:
+            helpers["crash_thread"].join(timeout=120)
+            if helpers["crash_thread"].is_alive() \
+                    or "reduced_senders" not in helpers["crash"]:
+                raise AssertionError(
+                    "chaos: the crashed assistant's round did not end "
+                    f"within 120 s: {helpers['crash']}")
+            chaos_s = time.perf_counter() - t0
+            collabs = _check_pair(torch, run, "chaos", epochs=1, group=4,
+                                  equal=False)
+            good = 1 - bad
+            report = collabs[good].last_wire_report or {}
+            blamed = (set(report.get("corrupt_senders", []))
+                      | set(report.get("timeout_senders", [])))
+            if report.get("complete") is not False or pids[bad] not in blamed:
+                raise AssertionError(
+                    f"chaos: the leader's round {dict(complete=report.get('complete'), corrupt=report.get('corrupt_senders'), timeout=report.get('timeout_senders'))}"
+                    f" does not name the corrupt sender {pids[bad][:16]}")
+            strike = collabs[good].ledger.score(pids[bad])
+            if not strike > 0:
+                raise AssertionError("chaos: the corrupt sender was not "
+                                     "struck")
+            injected = [dict(t.dht.injected) for t in tasks]
+            crash_dht = helpers["dhts"][1]
+            if not (injected[good].get("delay") and
+                    injected[good].get("duplicate") and
+                    injected[bad].get("corrupt") and
+                    crash_dht.injected.get("crash") == 1 and
+                    helpers["crash"].get("group_size") == 4):
+                raise AssertionError(f"chaos: faults injected {injected}, "
+                                     f"crash {crash_dht.injected}, the "
+                                     f"crashed assistant {helpers['crash']}")
+            emit(phase="chaos", card=smi, peers=2, assistants=2, epochs=1,
+                 collab=CHAOS_COLLAB, plans=dict(
+                     leader=DELAY_DUP_PLAN, corrupt=CORRUPT_PLAN,
+                     assistant=CRASH_PLAN),
+                 wall_s=chaos_s, injected=injected,
+                 crashed_assistant=dict(helpers["crash"],
+                                        injected=crash_dht.injected),
+                 honest_assistant_rounds=helpers["assistant"]
+                 .rounds_assisted,
+                 leader_report=dict(
+                     complete=report.get("complete"),
+                     corrupt_senders=[p[:16] for p in
+                                      report.get("corrupt_senders", [])],
+                     timeout_senders=[p[:16] for p in
+                                      report.get("timeout_senders", [])]),
+                 strike_score=strike,
+                 rounds=_round_rows(run["epochs"],
+                                    lambda w: [w] if w else []),
+                 launches=run["launches"], generic_launches=run["generic"],
+                 peak_mem_gb=run["peak"] / 1e9)
+        finally:
+            helpers["assistant"].stop(join_timeout=collab_cfg
+                                      .matchmaking_time
+                                      + collab_cfg.allreduce_timeout + 5)
+            helpers["crash_thread"].join(timeout=120)
+            for task in tasks[::-1]:
+                task.shutdown()
+            for node in helpers["dhts"][::-1]:
+                node.shutdown()
     del run, tasks
     release_memory()
 
@@ -2766,9 +3310,13 @@ def main() -> int:
     router_phase(torch, np, smi, root,
                  lambda: entry(device="cuda", batch=1, seed=SEED)[1][0],
                  release_memory)
-    auth_phase(torch, smi, release_memory)
+    auth_rounds = auth_phase(torch, smi, release_memory)
 
-    # -- 13. kernels line and the end ------------------------------------
+    # -- 13. the stacked dense_scan layout, the assistant, fault injection --
+    dense_phase(torch, smi, release_memory)
+    assist_chaos_phase(torch, smi, release_memory, auth_rounds)
+
+    # -- 14. kernels line and the end ------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_line = {"kernels": [{k: rec[k] for k in keys}

@@ -3,14 +3,15 @@
 The port's own copy of ``dalle_tpu/config.py`` (``ModelConfig``, the
 attention-type names, ``tiny_model_config``, the flagship and XL presets,
 ``OptimizerConfig``, the trainer peer's ``TrainerConfig``, ``CollabConfig``
-and ``PeerConfig``, and ``ServingConfig``): the port imports nothing of
-``dalle_tpu``. The trainer peer's dataclasses carry every JAX field with
-its default, because the CLIs derive their flags from them; the settings
-whose modules are not ported yet raise ``NotImplementedError`` from
-``check_ported()``. Field names, defaults and the derived schedule are
-identical, so one set of keyword arguments builds the same model in either
-package, and the parameter converter (``params.py``) can map one tree onto
-the other.
+and ``PeerConfig``, the aux peer's ``AuxConfig``, and ``ServingConfig``):
+the port imports nothing of ``dalle_tpu``. The trainer peer's dataclasses
+carry every JAX field with its default, because the CLIs derive their
+flags from them; the settings whose modules are not ported yet raise
+``NotImplementedError`` from ``OptimizerConfig.check_ported()`` and
+``TrainerConfig.check_ported()``. Field names, defaults and the derived
+schedule are identical, so one set of keyword arguments builds the same
+model in either package, and the parameter converter (``params.py``) can
+map one tree onto the other.
 
 The training knobs ``remat``, ``remat_policy``, ``remat_skip_blocks`` and
 ``param_cast_hoist`` shape the port's training step as they shape the JAX
@@ -100,8 +101,11 @@ class ModelConfig:
 
     def plain_block_ids(self) -> Tuple[int, ...]:
         """Unique body block ids the JAX model leaves un-rematerialised: the
-        highest ``remat_skip_blocks`` ids of the body (``w_conv`` never)."""
-        if not (self.remat and self.remat_skip_blocks):
+        highest ``remat_skip_blocks`` ids of the body (``w_conv`` never);
+        none in the stacked ``dense_scan`` layout, whose scan rematerialises
+        every block."""
+        if not (self.remat and self.remat_skip_blocks) \
+                or self.dense_scan_reps():
             return ()
         body = sorted({u for u, _ in self.layer_schedule() if u != -1})
         return tuple(body[len(body) - self.remat_skip_blocks:])
@@ -196,9 +200,8 @@ class OptimizerConfig:
     package) is the 8-bit LAMB: moments of tensors with at least
     ``min_8bit_size`` elements block-quantized in blocks of ``block_size``;
     32 is the fp32 clipped LAMB. ``max_grad_norm`` None turns the global
-    clip off. ``offload`` and a nonzero ``stacked_reps`` are kept so that
-    both packages take the same flags; the port refuses them
-    (:meth:`check_ported`)."""
+    clip off. ``offload`` is kept so that both packages take the same
+    flags; the port refuses it (:meth:`check_ported`)."""
 
     learning_rate: float = 2.5e-3
     warmup_steps: int = 3125
@@ -215,8 +218,10 @@ class OptimizerConfig:
     # host-resident optimizer state (the JAX package's training/offload.py);
     # not ported: True raises (ROADMAP)
     offload: bool = False
-    # dense_scan stacked-leaf leading-axis size; the port keeps every
-    # layer's weights as their own tensors, so only None/0 are accepted
+    # dense_scan stacked-leaf leading-axis size (ModelConfig
+    # .dense_scan_reps()), threaded in by the task wiring so LAMB's
+    # per-slice trust ratios are config-derived. 0 = the model has no
+    # stacked leaves; None = infer from the parameter names and ranks.
     stacked_reps: "int | None" = None
 
     def check_ported(self) -> None:
@@ -225,11 +230,8 @@ class OptimizerConfig:
         if self.offload:
             raise NotImplementedError(
                 "OptimizerConfig.offload: host-resident optimizer state "
-                "(training/offload.py) is not ported yet; see ROADMAP")
-        if self.stacked_reps:
-            raise NotImplementedError(
-                "OptimizerConfig.stacked_reps: the port has no dense_scan "
-                "(stacked per-layer) parameter layout")
+                "(training/offload.py) is not ported yet (ROADMAP, Queue 1, "
+                "host offload)")
 
 
 @dataclass(frozen=True)
@@ -498,15 +500,6 @@ class CollabConfig:
     trace_ring_kb: int = 256
 
 
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a setting whose module the port
-        does not have yet (ROADMAP lists each)."""
-        if self.chaos_plan is not None:
-            raise NotImplementedError(
-                "CollabConfig.chaos_plan: fault injection (swarm/chaos.py) "
-                "is not ported yet (ROADMAP, Queue 1, fault injection)")
-
-
 @dataclass(frozen=True)
 class PeerConfig:
     """Peer identity and networking (reference ``arguments.py:81-137``)."""
@@ -531,11 +524,6 @@ class PeerConfig:
     # list find their first contact; peers also advertise in the DHT
     # under {prefix}_rendezvous for list-repair after first contact.
     rendezvous_path: Optional[str] = None
-
-
-    def check_ported(self) -> None:
-        """Every PeerConfig setting is ported (access tokens since
-        swarm/auth.py); kept so that each config class answers alike."""
 
 
 @dataclass(frozen=True)
@@ -681,6 +669,22 @@ class ServingConfig:
             raise ValueError(
                 f"prefix_cache_mb must be > 0 or None "
                 f"(got {self.prefix_cache_mb})")
+
+
+@dataclass(frozen=True)
+class AuxConfig:
+    """Aux (monitor/checkpoint) peer knobs (the JAX package's
+    ``AuxConfig``, reference ``arguments.py:140-165``)."""
+
+    refresh_period: float = 10.0
+    checkpoint_dir: Optional[str] = None
+    upload_interval: Optional[float] = None
+    store_checkpoints: bool = True
+    # join every gradient round as a weight-0 part owner (swarm/assist.py):
+    # reduce/gather capacity for the trainers, no data. Refused with
+    # grad_compression="power_sgd", whose wire shapes an aux peer without
+    # a model cannot reproduce.
+    assist_in_averaging: bool = False
 
 
 def xl_model_config(**overrides: Any) -> ModelConfig:

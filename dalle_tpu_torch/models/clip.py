@@ -268,15 +268,16 @@ def resize_for_clip(images: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
 def load_openai_checkpoint(path: str, cfg: CLIPConfig,
                            allow_unsafe: bool = False) -> CLIPModel:
     """A :class:`CLIPModel` from an openai/CLIP checkpoint (a TorchScript
-    archive, or a pickled model or state dict: weights-only unless
-    ``allow_unsafe``, for trusted files only). Extra entries of the
+    archive, or a pickled model or state dict through the gated load of
+    :func:`~dalle_tpu_torch.utils.torch_io.torch_load_trusted`:
+    ``allow_unsafe`` for trusted files only). Extra entries of the
     released state dict (``input_resolution``, ``context_length``,
     ``vocab_size``) are dropped."""
+    from dalle_tpu_torch.utils.torch_io import torch_load_trusted
     try:
         sd = torch.jit.load(path, map_location="cpu").state_dict()
     except RuntimeError:
-        ckpt = torch.load(path, map_location="cpu",
-                          weights_only=not allow_unsafe)
+        ckpt = torch_load_trusted(path, allow_unsafe=allow_unsafe)
         sd = (ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict)
               else ckpt.state_dict())
     model = CLIPModel(cfg)

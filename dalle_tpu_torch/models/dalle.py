@@ -140,7 +140,8 @@ class DALLE(nn.Module):
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> DALLE:
     """A DALLE on the generator's device with random weights drawn from
     ``generator``: embeddings N(0, 0.02),
-    dense kernels lecun-normal (truncated normal, std 1/sqrt(fan_in)),
+    dense kernels lecun-normal (truncated normal, std 1/sqrt(fan_in), each
+    slice of a stacked kernel with its own draws),
     biases zero, LayerNorm scale 1 and bias 0 -- the flax initialisers."""
     model = DALLE(cfg).to(generator.device)
     for name, p in model.named_parameters():
@@ -155,5 +156,5 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> DALLE:
             w = torch.empty(p.shape, device=generator.device)
             nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
                                   generator=generator)
-            p.copy_(w / 0.87962566103423978 / math.sqrt(p.shape[0]))
+            p.copy_(w / 0.87962566103423978 / math.sqrt(p.shape[-2]))
     return model

@@ -3,7 +3,9 @@
 
 The incremental math mirrors the blocks of ``transformer.py`` on one
 position (LayerNorm -> q/k/v -> rotary -> masked single-query attention
-against the cache -> out -> GEGLU FF) and reads the same parameters. As in
+against the cache -> out -> GEGLU FF) and reads the same parameters (a
+stacked ``dense_scan`` model's layer its repetition's slice, as JAX
+``decode.layer_params`` does). As in
 the JAX decode it runs no kernel: the LayerNorm here is the two-pass
 variance of ``decode._ln`` and the FF is the unfused ``h * gelu(gate)``.
 
@@ -36,7 +38,7 @@ from dalle_tpu_torch.models.attention import (NEG_INF, apply_rotary,
                                               rotary_cos_sin,
                                               zoo_attention_mask)
 from dalle_tpu_torch.models.dalle import DALLE
-from dalle_tpu_torch.models.transformer import block_name, torch_dtype
+from dalle_tpu_torch.models.transformer import bound, torch_dtype
 
 LN_EPS = 1e-6
 
@@ -164,11 +166,13 @@ def decode_step(model: DALLE, cache: Dict[str, torch.Tensor],
         cos, sin = tables["cos"][pos], tables["sin"][pos]
         rot = ((cos[None, None], sin[None, None]) if scalar
                else (cos[:, None], sin[:, None]))
-    blocks = model.transformer.blocks
-    for li, (uid, attn_type) in enumerate(cfg.layer_schedule()):
-        x = _apply_block(x, blocks[block_name(uid)], li, cache, pos, vis,
-                         rot, tables["masks"][attn_type][pos][..., :vis],
-                         cfg, dtype)
+    layers = model.transformer.layers()
+    for li, (_, attn_type) in enumerate(cfg.layer_schedule()):
+        blk, params = layers[li]
+        with bound(params):
+            x = _apply_block(x, blk, li, cache, pos, vis, rot,
+                             tables["masks"][attn_type][pos][..., :vis],
+                             cfg, dtype)
     x = _ln(x, model.transformer.final_norm, dtype)
     if cfg.tied_embeddings:
         logits = x.float() @ model.token_emb[:cfg.vocab_total].to(

@@ -8,6 +8,21 @@ GEGLU kernel takes ``Wi`` as (d, K) as the TPU kernel does. Blocks that
 share an id are one module; the depth is a Python loop over
 ``cfg.layer_schedule()`` (no scan).
 
+A dense model that the JAX package stacks (``cfg.dense_scan_reps() > 0``,
+its ``dense_scan`` layout) holds one module a position of the attention-type
+group, ``block_{u}`` for ``u`` in ``range(len(attn_types))``, each of whose
+parameters has a leading axis of ``reps``: body layer ``i`` reads slice ``i
+// group`` of ``block_{i % group}``. Each forward unbinds every stacked
+parameter once (:meth:`Transformer.layers`), so autograd gives the stacked
+gradient in one ``stack`` and every slice is contiguous. The slices go to
+per-layer views that hold no parameters of their own: :func:`bound` puts
+them in a view only while a part of it runs, and a rematerialised view's
+checkpoint keeps them for its replay, so no slice (nor the cast copy it
+views) outlives the step's autograd graph. Where the body is not a
+multiple of the group (the flagship's 63 = 15 x 4 + 3), the last repetition
+has slices that no layer reads: the JAX scan applies them and discards the
+result, the port never applies them, and in both their gradient is zero.
+
 Remat, as the JAX package configures it (``cfg.remat``, the highest
 ``remat_skip_blocks`` body block ids left plain, ``w_conv`` always
 rematerialised), applies only while autograd records: under ``no_grad`` or
@@ -31,7 +46,8 @@ rematerialised block is ``torch.utils.checkpoint`` (non-reentrant):
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,11 +75,12 @@ class Dense(nn.Module):
     both operands to ``dtype``."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool,
-                 param_dtype: torch.dtype):
+                 param_dtype: torch.dtype, stack: Tuple[int, ...] = ()):
         super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(in_features, out_features,
-                                               dtype=param_dtype))
-        self.bias = (nn.Parameter(torch.zeros(out_features, dtype=param_dtype))
+        self.kernel = nn.Parameter(torch.zeros(
+            *stack, in_features, out_features, dtype=param_dtype))
+        self.bias = (nn.Parameter(torch.zeros(*stack, out_features,
+                                              dtype=param_dtype))
                      if bias else None)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -81,11 +98,12 @@ class LayerNorm(nn.Module):
     flax's ``nn.LayerNorm``: ``(x - mean) * (rstd * scale) + bias``. Both
     take f32 statistics with the fast variance."""
 
-    def __init__(self, dim: int, fused: bool, param_dtype: torch.dtype):
+    def __init__(self, dim: int, fused: bool, param_dtype: torch.dtype,
+                 stack: Tuple[int, ...] = ()):
         super().__init__()
         self.fused = fused
-        self.scale = nn.Parameter(torch.ones(dim, dtype=param_dtype))
-        self.bias = nn.Parameter(torch.zeros(dim, dtype=param_dtype))
+        self.scale = nn.Parameter(torch.ones(*stack, dim, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(*stack, dim, dtype=param_dtype))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         shape = x.shape
@@ -106,14 +124,15 @@ class ZooAttention(nn.Module):
     three steps, which :class:`TransformerBlock` chains (and checkpoints
     apart under ``save_attn``)."""
 
-    def __init__(self, cfg: ModelConfig, attn_type: str):
+    def __init__(self, cfg: ModelConfig, attn_type: str,
+                 stack: Tuple[int, ...] = ()):
         super().__init__()
         self.cfg, self.attn_type = cfg, attn_type
         pd = torch_dtype(cfg.param_dtype)
-        self.q = Dense(cfg.dim, cfg.dim, False, pd)
-        self.k = Dense(cfg.dim, cfg.dim, False, pd)
-        self.v = Dense(cfg.dim, cfg.dim, False, pd)
-        self.out = Dense(cfg.dim, cfg.dim, True, pd)
+        self.q = Dense(cfg.dim, cfg.dim, False, pd, stack)
+        self.k = Dense(cfg.dim, cfg.dim, False, pd, stack)
+        self.v = Dense(cfg.dim, cfg.dim, False, pd, stack)
+        self.out = Dense(cfg.dim, cfg.dim, True, pd, stack)
 
     def qkv(self, x: torch.Tensor, rot):
         """The rotated (B, T, H, d) q, k and v of the normed input."""
@@ -148,14 +167,15 @@ class GEGLUFeedForward(nn.Module):
     unfused ``h * gelu(gate)`` in the computation dtype, as the JAX
     package computes it on the blocks it does not fuse."""
 
-    def __init__(self, cfg: ModelConfig, fuse: bool):
+    def __init__(self, cfg: ModelConfig, fuse: bool,
+                 stack: Tuple[int, ...] = ()):
         super().__init__()
         self.cfg, self.fuse = cfg, fuse
         pd = torch_dtype(cfg.param_dtype)
         inner = cfg.ff_mult * cfg.dim
-        self.wi = Dense(cfg.dim, inner, True, pd)
-        self.gate = Dense(cfg.dim, inner, True, pd)
-        self.wo = Dense(inner, cfg.dim, True, pd)
+        self.wi = Dense(cfg.dim, inner, True, pd, stack)
+        self.gate = Dense(cfg.dim, inner, True, pd, stack)
+        self.wo = Dense(inner, cfg.dim, True, pd, stack)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = torch_dtype(self.cfg.dtype)
@@ -174,17 +194,20 @@ class GEGLUFeedForward(nn.Module):
 
 class TransformerBlock(nn.Module):
     """Pre-norm attention + GEGLU FF with residuals. ``remat``: checkpoint
-    the block (by ``cfg.remat_policy``) while autograd records."""
+    the block (by ``cfg.remat_policy``) while autograd records. ``stack``:
+    the leading axes of every parameter (``(reps,)`` for a stacked
+    ``dense_scan`` block, which only holds the parameters: its layers
+    apply them, :meth:`Transformer.layers`)."""
 
     def __init__(self, cfg: ModelConfig, attn_type: str, fuse_ff: bool,
-                 remat: bool = False):
+                 remat: bool = False, stack: Tuple[int, ...] = ()):
         super().__init__()
         self.cfg, self.remat = cfg, remat
         pd = torch_dtype(cfg.param_dtype)
-        self.attn_norm = LayerNorm(cfg.dim, cfg.ln_fusion, pd)
-        self.attn = ZooAttention(cfg, attn_type)
-        self.ff_norm = LayerNorm(cfg.dim, cfg.ln_fusion, pd)
-        self.ff = GEGLUFeedForward(cfg, fuse_ff)
+        self.attn_norm = LayerNorm(cfg.dim, cfg.ln_fusion, pd, stack)
+        self.attn = ZooAttention(cfg, attn_type, stack)
+        self.ff_norm = LayerNorm(cfg.dim, cfg.ln_fusion, pd, stack)
+        self.ff = GEGLUFeedForward(cfg, fuse_ff, stack)
 
     def _pre(self, x, rot):
         return self.attn.qkv(self.attn_norm(x, torch_dtype(self.cfg.dtype)),
@@ -197,19 +220,44 @@ class TransformerBlock(nn.Module):
     def _block(self, x, rot):
         return self._post(x, *self.attn.attend(*self._pre(x, rot)))
 
-    def forward(self, x: torch.Tensor, rot) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rot, params=None) -> torch.Tensor:
+        """``params``: a stacked layer view's slices (:meth:`Transformer.
+        layers`), bound while each part runs; a checkpoint holds them in
+        its closure for the replay."""
+        def run(fn, *args):
+            with bound(params):
+                return fn(*args)
+
         if not (self.remat and torch.is_grad_enabled()):
-            return self._block(x, rot)
+            return run(self._block, x, rot)
         policy = self.cfg.remat_policy
         if policy is None:
-            return checkpoint(self._block, x, rot, use_reentrant=False)
+            return checkpoint(run, self._block, x, rot, use_reentrant=False)
         if policy == "save_attn":
-            q, k, v = checkpoint(self._pre, x, rot, use_reentrant=False)
+            q, k, v = checkpoint(run, self._pre, x, rot, use_reentrant=False)
             halves = self.attn.attend(q, k, v)
-            return checkpoint(self._post, x, *halves, use_reentrant=False)
+            return checkpoint(run, self._post, x, *halves,
+                              use_reentrant=False)
         raise NotImplementedError(
             f"remat_policy={policy!r} is not ported; ROADMAP.md Queue 1 "
             "lists it (remat_policy='save_ctx')")
+
+
+Slices = List[Tuple[nn.Module, str, torch.Tensor]]
+
+
+@contextlib.contextmanager
+def bound(params: Optional[Slices]):
+    """Within the block, each ``(module, name, tensor)`` of ``params`` is
+    that module's parameter ``name``; after it, None again."""
+    params = params or ()
+    for module, name, tensor in params:
+        module._parameters[name] = tensor
+    try:
+        yield
+    finally:
+        for module, name, _ in params:
+            module._parameters[name] = None
 
 
 def block_name(uid: int) -> str:
@@ -217,22 +265,47 @@ def block_name(uid: int) -> str:
 
 
 class Transformer(nn.Module):
-    """The depth-``cfg.depth`` stack: one module per unique block id, applied
-    in ``cfg.layer_schedule()`` order, then the final norm."""
+    """The depth-``cfg.depth`` stack: one module per unique block id (or per
+    group position of the stacked ``dense_scan`` layout), applied in
+    ``cfg.layer_schedule()`` order, then the final norm."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         plain = set(cfg.plain_block_ids())
+        reps = cfg.dense_scan_reps()
+        group = len(cfg.attn_types)
         self.blocks = nn.ModuleDict()
         for uid, attn_type in cfg.layer_schedule():
-            name = block_name(uid)
+            stacked = reps > 0 and uid != -1
+            name = block_name(uid % group if stacked else uid)
             if name not in self.blocks:
                 self.blocks[name] = TransformerBlock(
                     cfg, attn_type, cfg.fuse_ff(uid in plain),
-                    remat=cfg.remat and uid not in plain)
+                    remat=cfg.remat and uid not in plain,
+                    stack=(reps,) if stacked else ())
         self.final_norm = LayerNorm(cfg.dim, cfg.ln_fusion,
                                     torch_dtype(cfg.param_dtype))
+        # the stacked layout's layers: modules without storage of their
+        # own (built on the meta device, never registered, so they are
+        # neither parameters nor moved by ``to``), whose parameters are
+        # None but while :func:`bound` puts a repetition's slices in;
+        # _slots lists (group position, block module, parameter name, the
+        # layers' modules)
+        self._views, self._slots = [], []
+        for u in range(group if reps else 0):
+            block = self.blocks[block_name(u)]
+            with torch.device("meta"):
+                views = [TransformerBlock(cfg, cfg.attn_types[u],
+                                          block.ff.fuse, block.remat)
+                         for _ in range(reps)]
+            self._views.append(views)
+            for mod_name, mod in block.named_modules():
+                for leaf in mod._parameters:
+                    subs = [v.get_submodule(mod_name) for v in views]
+                    for sub in subs:
+                        sub._parameters[leaf] = None
+                    self._slots.append((u, mod, leaf, subs))
 
     def rotary(self, device) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         if not self.cfg.rotary:
@@ -240,10 +313,32 @@ class Transformer(nn.Module):
         return rotary_cos_sin(torch.arange(self.cfg.total_seq_len,
                                            device=device), self.cfg.head_dim)
 
+    def layers(self) -> List[Tuple[nn.Module, Optional[Slices]]]:
+        """``(module, params)`` for each ``cfg.layer_schedule()`` position:
+        params None for a block with parameters of its own. In the stacked
+        layout the module is a storage-free view and params its
+        repetition's slices of every stacked parameter as it is now (a
+        cast copy under ``cast_parameters`` included), which the module
+        binds (:func:`bound`) while it runs. Call it once per forward."""
+        slices = [[[] for _ in views] for views in self._views]
+        for u, block_param, leaf, subs in self._slots:
+            parts = block_param._parameters[leaf].unbind(0)
+            for rep, (sub, part) in enumerate(zip(subs, parts)):
+                slices[u][rep].append((sub, leaf, part))
+        group = len(self.cfg.attn_types)
+        out = []
+        for uid, _ in self.cfg.layer_schedule():
+            if self._views and uid != -1:
+                rep, u = divmod(uid, group)
+                out.append((self._views[u][rep], slices[u][rep]))
+            else:
+                out.append((self.blocks[block_name(uid)], None))
+        return out
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rot = self.rotary(x.device)
-        for uid, _ in self.cfg.layer_schedule():
-            x = self.blocks[block_name(uid)](x, rot)
+        for layer, params in self.layers():
+            x = layer(x, rot, params)
         return self.final_norm(x, torch_dtype(self.cfg.dtype))
 
 

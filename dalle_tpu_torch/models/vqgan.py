@@ -230,10 +230,12 @@ def taming_decoder_state(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def load_taming_checkpoint(path: str, cfg: VQGANConfig,
                            allow_unsafe: bool = False) -> VQGANDecoder:
     """A :class:`VQGANDecoder` from a taming-transformers ``.ckpt``: the
-    weights-only ``torch.load`` (``allow_unsafe``: the full unpickler,
-    which executes code from the file, for trusted files only), then
-    ``load_state_dict`` of the decoder half."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=not allow_unsafe)
+    gated load of :func:`~dalle_tpu_torch.utils.torch_io.torch_load_trusted`
+    (``allow_unsafe``: the full unpickler, which executes code from the
+    file, for trusted files only), then ``load_state_dict`` of the decoder
+    half."""
+    from dalle_tpu_torch.utils.torch_io import torch_load_trusted
+    ckpt = torch_load_trusted(path, allow_unsafe=allow_unsafe)
     model = VQGANDecoder(cfg)
     model.load_state_dict(taming_decoder_state(ckpt.get("state_dict", ckpt)))
     return model.eval()

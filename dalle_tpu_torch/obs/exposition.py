@@ -1,8 +1,8 @@
 """Unified metrics exposition: one registry, Prometheus text format.
 
 The port's copy of ``dalle_tpu/obs/exposition.py`` (stdlib only), with
-the serving and tracer sources; the swarm and aux-peer sources and the
-standalone server wait for the swarm slice.
+the serving, tracer and aux-peer sources and the standalone server; the
+trainer's swarm source is not copied (no port entry point serves it).
 
 Before this module each plane had its own reporting dialect — the
 serving ledger spoke JSON on ``/stats``, the swarm robustness counters
@@ -31,10 +31,11 @@ ServingMetrics ledger, so their values agree.
 
 from __future__ import annotations
 
+import json
 import logging
 import math
 import threading
-from http.server import BaseHTTPRequestHandler
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Tuple
 
 logger = logging.getLogger(__name__)
@@ -199,6 +200,28 @@ def serving_source(engine) -> Source:
     return collect
 
 
+def aggregate_source(read_stats: Callable[[], Dict[str, object]]) -> Source:
+    """Aux-peer source: the latest swarm-wide aggregate (the dict
+    ``run_aux_peer.aggregate`` computes each refresh round) as gauges —
+    ``read_stats`` returns the most recent aggregate (or {})."""
+
+    def collect() -> List[Family]:
+        stats = read_stats() or {}
+        fams: List[Family] = []
+        for key, value in sorted(stats.items()):
+            if not isinstance(value, (int, float)) or isinstance(
+                    value, bool):
+                continue
+            fams.append({"name": f"dalle_swarm_agg_{key}",
+                         "type": "gauge",
+                         "help": f"aux aggregate over live peer "
+                                 f"records: {key}",
+                         "samples": [("", {}, value)]})
+        return fams
+
+    return collect
+
+
 def tracer_source(tracer) -> Source:
     """Span-derived per-phase latency histograms + recorder health
     counters from a :class:`~dalle_tpu_torch.obs.trace.Tracer`."""
@@ -243,3 +266,47 @@ def write_metrics_response(handler: BaseHTTPRequestHandler,
     handler.send_header("Content-Length", str(len(body)))
     handler.end_headers()
     handler.wfile.write(body)
+
+
+# -- the standalone exposition server (aux peer flag) ---------------------
+
+class _MetricsHandler(BaseHTTPRequestHandler):
+    server: "MetricsHTTPServer"
+
+    def log_message(self, fmt, *args):  # noqa: A003 - route to logging
+        logger.debug("%s " + fmt, self.client_address[0], *args)
+
+    def do_GET(self):  # noqa: N802 - stdlib handler contract
+        if self.path == "/metrics":
+            write_metrics_response(self, self.server.registry)
+        elif self.path == "/healthz":
+            body = json.dumps({"ok": True}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        else:
+            self.send_response(404)
+            self.end_headers()
+
+
+class MetricsHTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+
+    def __init__(self, address, registry: MetricsRegistry):
+        super().__init__(address, _MetricsHandler)
+        self.registry = registry
+
+
+def start_metrics_server(registry: MetricsRegistry,
+                         host: str = "127.0.0.1", port: int = 0
+                         ) -> Tuple[MetricsHTTPServer, threading.Thread]:
+    """Serve ``registry`` at ``/metrics`` on a daemon thread; returns
+    (server, thread). Callers stop it with ``server.shutdown();
+    server.server_close(); thread.join(timeout=...)``."""
+    server = MetricsHTTPServer((host, port), registry)
+    thread = threading.Thread(target=server.serve_forever,
+                              name="obs-metrics-http", daemon=True)
+    thread.start()
+    return server, thread

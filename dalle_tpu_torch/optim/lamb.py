@@ -10,11 +10,11 @@ The step's learning rate comes from ``make_lr_schedule`` at the state's
 count, so the first update (count 0) has learning rate 0, as in JAX.
 
 Parameters, gradients and moments are dicts keyed by the port's parameter
-names (``model.named_parameters()``). The JAX optimizer's per-slice trust
-ratio for ``dense_scan``'s stacked leaves has no counterpart: the port
-keeps every layer's weights as their own tensors (it never stacks them,
-and ``params.py`` refuses the stacked layout), so every trust ratio is
-per tensor, and :meth:`Lamb.init` refuses a stacked parameter.
+names (``model.named_parameters()``). The global norm sums the leaves in
+the JAX package's leaf order (``params.jax_leaf_names``). The stacked
+leaves of the ``dense_scan`` layout (:func:`default_stacked_mask`) take a
+trust ratio per slice, so each stacked layer is updated as its unrolled
+twin would be.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from dalle_tpu_torch.config import OptimizerConfig
-from dalle_tpu_torch.params import flax_path
+from dalle_tpu_torch.params import flax_path, jax_leaf_names
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -56,44 +56,62 @@ def default_wd_mask(model: nn.Module) -> Dict[str, bool]:
     return out
 
 
+def default_stacked_mask(model: nn.Module, reps=None) -> Dict[str, bool]:
+    """True for the ``dense_scan`` layout's stacked leaves, by the rule of
+    the JAX package's ``default_stacked_mask``: a leaf under the scanned
+    ``cycle`` whose rank exceeds its kind's (kernel 2, bias/scale 1). With
+    ``reps`` (``OptimizerConfig.stacked_reps``) 0 nothing is stacked, and
+    a positive ``reps`` also requires rank = canonical + 1 and a leading
+    axis of ``reps``; None keeps the name and rank rule alone."""
+    out = {}
+    for name, p in model.named_parameters():
+        keys = [k.lower() for k in flax_path(name, model.cfg)]
+        canonical = 2 if keys[-1] == "kernel" else 1
+        stacked = "cycle" in keys and p.dim() > canonical
+        if reps is not None:
+            stacked = (stacked and reps > 0 and p.dim() == canonical + 1
+                       and p.shape[0] == reps)
+        out[name] = stacked
+    return out
+
+
 def lamb_leaf_update(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                      decay: bool, lr: float, *, eps: float,
-                     weight_decay: float,
-                     clamp_value: float) -> torch.Tensor:
+                     weight_decay: float, clamp_value: float,
+                     stacked: bool = False) -> torch.Tensor:
     """The per-tensor LAMB update (``lamb.lamb_leaf_update``):
     adam_step = m/(sqrt(v)+eps) + wd*p; trust = clamp(||p||, clamp_value) /
     ||adam_step|| (1.0 where either norm is 0); update = -lr*trust*adam_step,
-    in p's dtype."""
+    in p's dtype. ``stacked``: the norms and the trust ratio are taken per
+    slice of the leading axis."""
     p32 = p.float()
     adam_step = m / (torch.sqrt(v) + eps)
     if weight_decay:
         adam_step = adam_step + (weight_decay if decay else 0.0) * p32
-    wnorm = torch.clamp(torch.sqrt(torch.sum(p32 * p32)), max=clamp_value)
-    anorm = torch.sqrt(torch.sum(adam_step * adam_step))
+
+    def sumsq(t):
+        if stacked:
+            return torch.sum(t * t, dim=tuple(range(1, t.dim())),
+                             keepdim=True)
+        return torch.sum(t * t)
+
+    wnorm = torch.clamp(torch.sqrt(sumsq(p32)), max=clamp_value)
+    anorm = torch.sqrt(sumsq(adam_step))
     trust = torch.where((wnorm > 0) & (anorm > 0), wnorm / (anorm + 1e-12),
                         torch.ones_like(wnorm))
     return (-lr * trust * adam_step).to(p.dtype)
 
 
-def check_unstacked(model: nn.Module) -> None:
-    """Refuse stacked per-layer parameters, by the rule of
-    ``lamb.default_stacked_mask``: a block leaf above its kind's rank
-    (kernel 2, bias/scale 1) would be stacked."""
-    for name, p in model.named_parameters():
-        canonical = 2 if name.endswith("kernel") else 1
-        if name.startswith("transformer.blocks.") and p.dim() > canonical:
-            raise ValueError(f"{name}: stacked per-layer parameters are "
-                             "not supported")
-
-
-def clip_grads(grads: Tensors, max_grad_norm) -> Tensors:
+def clip_grads(grads: Tensors, max_grad_norm, order) -> Tensors:
     """The gradients in f32, scaled by ``min(1, max_grad_norm / (global
-    norm + 1e-12))``; unscaled when ``max_grad_norm`` is None."""
+    norm + 1e-12))``; unscaled when ``max_grad_norm`` is None. ``order``:
+    the names in the order the norm sums them (the JAX leaf order,
+    ``params.jax_leaf_names``)."""
     grads = {n: g.float() for n, g in grads.items()}
     if max_grad_norm is None:
         return grads
-    scale = torch.clamp(max_grad_norm / (global_norm(grads.values()) + 1e-12),
-                        max=1.0)
+    norm = global_norm(grads[n] for n in order)
+    scale = torch.clamp(max_grad_norm / (norm + 1e-12), max=1.0)
     return {n: g * scale for n, g in grads.items()}
 
 
@@ -134,7 +152,6 @@ class Lamb:
         self.schedule, self.cfg = schedule, cfg
 
     def init(self, model: nn.Module) -> LambState:
-        check_unstacked(model)
         zeros = {name: torch.zeros_like(p, dtype=torch.float32)
                  for name, p in model.named_parameters()}
         return LambState(0, zeros,
@@ -144,17 +161,20 @@ class Lamb:
     def update(self, grads: Tensors, state: LambState,
                model: nn.Module) -> Tuple[Tensors, LambState]:
         cfg = self.cfg
-        grads = clip_grads(grads, cfg.max_grad_norm)
+        grads = clip_grads(grads, cfg.max_grad_norm,
+                           jax_leaf_names(model.cfg))
         mu = {n: cfg.beta1 * state.mu[n] + (1 - cfg.beta1) * g
               for n, g in grads.items()}
         nu = {n: cfg.beta2 * state.nu[n] + (1 - cfg.beta2) * g * g
               for n, g in grads.items()}
         lr = self.schedule(state.count)
         decay = default_wd_mask(model)
+        stacked = default_stacked_mask(model, cfg.stacked_reps)
         params = dict(model.named_parameters())
         updates = {n: lamb_leaf_update(
             params[n], mu[n], nu[n], decay[n], lr, eps=cfg.eps,
-            weight_decay=cfg.weight_decay, clamp_value=cfg.clamp_value)
+            weight_decay=cfg.weight_decay, clamp_value=cfg.clamp_value,
+            stacked=stacked[n])
             for n in grads}
         return updates, LambState(state.count + 1, mu, nu)
 

@@ -28,9 +28,11 @@ from torch import nn
 from dalle_tpu_torch.config import OptimizerConfig
 from dalle_tpu_torch.ops.quant import (Quantized, dequantize_blockwise,
                                        quantize_blockwise)
-from dalle_tpu_torch.optim.lamb import (Tensors, check_unstacked, clip_grads,
+from dalle_tpu_torch.optim.lamb import (Tensors, clip_grads,
+                                        default_stacked_mask,
                                         default_wd_mask, lamb_leaf_update,
                                         make_lr_schedule)
+from dalle_tpu_torch.params import jax_leaf_names
 
 Moment = Union[Quantized, torch.Tensor]
 
@@ -57,8 +59,8 @@ class Lamb8bit:
         return x
 
     def init(self, model: nn.Module) -> Lamb8bitState:
-        """Quantized zeros (dense f32 zeros below ``min_8bit_size``)."""
-        check_unstacked(model)
+        """Quantized zeros (dense f32 zeros below ``min_8bit_size``; a
+        stacked leaf counts all of its slices)."""
         mu, nu = {}, {}
         for name, p in model.named_parameters():
             zeros = torch.zeros_like(p, dtype=torch.float32)
@@ -70,9 +72,11 @@ class Lamb8bit:
     def update(self, grads: Tensors, state: Lamb8bitState,
                model: nn.Module) -> Tuple[Tensors, Lamb8bitState]:
         cfg = self.cfg
-        grads = clip_grads(grads, cfg.max_grad_norm)
+        grads = clip_grads(grads, cfg.max_grad_norm,
+                           jax_leaf_names(model.cfg))
         lr = self.schedule(state.count)
         decay = default_wd_mask(model)
+        stacked = default_stacked_mask(model, cfg.stacked_reps)
         params = dict(model.named_parameters())
         updates, mu, nu = {}, {}, {}
         for n, g in grads.items():
@@ -81,7 +85,8 @@ class Lamb8bit:
             v = cfg.beta2 * _dequantize(v_s) + (1 - cfg.beta2) * g * g
             updates[n] = lamb_leaf_update(
                 params[n], m, v, decay[n], lr, eps=cfg.eps,
-                weight_decay=cfg.weight_decay, clamp_value=cfg.clamp_value)
+                weight_decay=cfg.weight_decay, clamp_value=cfg.clamp_value,
+                stacked=stacked[n])
             mu[n] = (quantize_blockwise(m, cfg.block_size, signed=True)
                      if isinstance(m_s, Quantized) else m)
             nu[n] = (quantize_blockwise(v, cfg.block_size, signed=False)

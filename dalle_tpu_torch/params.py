@@ -7,13 +7,13 @@ out) kernel layout, so the mapping is by path:
   ``vocab_total``), ``text_pos_emb``, ``img_row_emb``, ``img_col_emb``,
   ``lm_head/kernel`` when the head is untied;
 - the blocks: ``transformer/cycle/block_{uid}`` (the weight-shared
-  ``nn.scan`` layout) or ``transformer/block_{uid}`` (unrolled), plus
+  ``nn.scan`` layout, or the ``dense_scan`` layout's stacked blocks, one a
+  position of the attention-type group with a leading axis of
+  ``dense_scan_reps()``) or ``transformer/block_{uid}`` (unrolled), plus
   ``transformer/block_wconv`` and ``transformer/final_norm``, all onto
   ``transformer.blocks.block_*`` / ``transformer.final_norm``;
 - inside a block: ``attn/{q,k,v}/kernel`` (bias-free), ``attn/out/{kernel,
   bias}``, ``ff/{wi,gate,wo}/{kernel,bias}``, ``{attn,ff}_norm/{scale,bias}``.
-
-The ``dense_scan`` layout (stacked per-repetition leaves) is not taken.
 
 :func:`opt_state_from_jax` carries the 8-bit LAMB's state across the same
 way, so that both optimizers can step from one state.
@@ -33,8 +33,11 @@ from dalle_tpu_torch.ops.quant import Quantized
 
 
 def jax_layout_scanned(cfg: ModelConfig) -> bool:
-    """Whether the JAX model stores its shared blocks under
-    ``transformer/cycle`` (its stack ran as an ``nn.scan``)."""
+    """Whether the JAX model stores its body blocks under
+    ``transformer/cycle`` (its stack ran as an ``nn.scan``: the shared
+    blocks, or the stacked ``dense_scan`` ones)."""
+    if cfg.dense_scan_reps() > 0:
+        return True
     cycle = cfg.shared_block_cycle
     if not cycle:
         return False
@@ -80,10 +83,6 @@ def params_from_jax(tree, cfg: ModelConfig) -> DALLE:
     """A port ``DALLE`` (on the CPU) holding the flax tree's weights.
     ``tree``: the flax variables as nested dicts of numpy arrays (with or
     without the top-level ``params`` key)."""
-    if cfg.dense_scan_reps() > 0:
-        raise ValueError("params_from_jax: the dense_scan layout (stacked "
-                         "per-repetition block leaves) is not supported; "
-                         "convert an unrolled or weight-shared tree")
     root = tree["params"] if "params" in tree else tree
     state = {_port_name(tuple(path)): _to_torch(leaf)
              for path, leaf in _flatten(root)}
@@ -125,9 +124,6 @@ def opt_state_from_jax(state, cfg: ModelConfig):
     (codes (n_blocks, block) u8, absmax (n_blocks, 1) f32) or dense f32
     moments, in the flax layout of ``cfg``'s model."""
     from dalle_tpu_torch.optim.lamb8bit import Lamb8bitState
-    if cfg.dense_scan_reps() > 0:
-        raise ValueError("opt_state_from_jax: the dense_scan layout is not "
-                         "supported")
     expected = set(DALLE(cfg).state_dict())
     mu, nu = _moments_from_jax(state.mu), _moments_from_jax(state.nu)
     for moments in (mu, nu):

@@ -15,7 +15,10 @@
 - the trust plane and PowerSGD: ``audit.py`` (verified aggregation:
   challenges, signed transcripts, replay, proofs), ``repair.py`` (the
   corrections a conviction queues) and ``powersgd.py`` (rank-r factor
-  rounds, their products on torch).
+  rounds, their products on torch);
+- around the protocol: ``assist.py`` (the averaging assistant, a weight-0
+  part owner) and ``chaos.py`` (seeded fault injection at the transport
+  seam and the byzantine seams of the all-reduce).
 
 A torch peer and a JAX peer in one run speak the same protocol and average
 the same coordinates (``params.jax_leaf_names``).

@@ -47,8 +47,9 @@ The port's seams:
 With an ``authorizer`` (``swarm/auth.py``), every matchmaking round
 (gradients, PowerSGD factors, state) announces this peer's access token
 and admits only peers whose token the experiment authority signed for
-their identity. Not ported yet, and refused: fault injection
-(``chaos_plan``, by ``CollabConfig.check_ported``). Multi-process peers are refused by
+their identity. A fault-injection DHT (``swarm/chaos.py``) hears each
+epoch advance (``ChaosDHT.note_epoch``: its crash-at-epoch). Multi-process
+peers are refused by
 :class:`~dalle_tpu_torch.parallel.multihost.SliceRole`, so every peer is
 one process and repair always runs.
 """
@@ -150,7 +151,6 @@ class CollaborativeOptimizer:
                  authorizer=None,
                  role=None):
         from dalle_tpu_torch.parallel.multihost import SliceRole
-        cfg.check_ported()
         self.role = role or SliceRole()
         if dht is None:
             raise ValueError("a trainer peer needs a DHT")
@@ -778,8 +778,13 @@ class CollaborativeOptimizer:
                     group.size if group else 1, self.last_timings)
 
     def _note_epoch_advanced(self) -> None:
-        """Every epoch advance drives the health ledger's strike decay."""
+        """Every epoch advance drives the health ledger's strike decay and
+        the fault injector's crash-at-epoch (``ChaosDHT.note_epoch``; a
+        plain DHT has no such attribute)."""
         self.ledger.advance_epoch(self.local_epoch)
+        note = getattr(self.dht, "note_epoch", None)
+        if note is not None:
+            note(self.local_epoch)
 
     def _apply_averaged(self, averaged,
                         preserve_accumulator: bool = False) -> None:

@@ -8,10 +8,13 @@ The port's differences: the model is a PyTorch module on ``device`` (the
 GPU unless the caller asks for the CPU), one GPU per peer (no mesh), and
 the optimizer step runs on that device.
 
-Settings whose modules are not ported yet raise ``NotImplementedError``
-when the task is built: ``chaos_plan``, optimizer offload, a
-``dense_scan`` model whose blocks the JAX package stacks, and meshes other
-than one device (each names its ROADMAP item).
+A ``dense_scan`` model that the JAX package stacks keeps that layout here
+(``models/transformer.py``), and the task threads its ``dense_scan_reps()``
+into the optimizer as JAX ``task.py`` does. ``CollabConfig.chaos_plan``
+wraps the DHT in the fault injector (``swarm/chaos.py``) before anything
+else uses it. Settings whose modules are not ported yet raise
+``NotImplementedError`` when the task is built: optimizer offload and
+meshes other than one device (each names its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -45,23 +48,12 @@ class TrainingTask:
                  tokenizer_path: Optional[str] = None,
                  device="cuda"):
         model.validate()
-        if model.dense_scan_reps() > 0:
-            # the JAX package stacks such a model's blocks into
-            # per-repetition leaves; the port's leaf order is unrolled, so
-            # a mixed swarm would average vectors in different orders
-            raise NotImplementedError(
-                "dense_scan with stacked blocks (dense_scan_reps() > 0): the "
-                "port's parameter, moment and checkpoint layout is unrolled "
-                "where the JAX package stacks it (ROADMAP Queue 1, the "
-                "stacked dense_scan layout)")
         if model.sequence_parallel != SP_NONE:
             raise NotImplementedError(
                 "sequence_parallel: ring/ulysses attention needs a mesh; "
                 "meshes wait for the multi-GPU slice (ROADMAP)")
         optimizer.check_ported()
         trainer.check_ported()
-        collab.check_ported()
-        peer.check_ported()
         self.model_cfg = model
         self.opt_cfg = optimizer
         self.trainer_cfg = trainer
@@ -105,6 +97,13 @@ class TrainingTask:
                   identity=self.identity,
                   record_validators=make_validators(
                       self.identity, self.peer_cfg.experiment_prefix))
+        # deterministic fault injection (swarm/chaos.py): wrap the
+        # transport before anything else touches it, so matchmaking,
+        # all-reduce, state transfer, progress and rendezvous all run
+        # through the faulted seam; without a plan the node is returned
+        # untouched
+        from dalle_tpu_torch.swarm.chaos import maybe_wrap
+        dht = maybe_wrap(dht, self.collab_cfg.chaos_plan)
         # advertise now and RE-advertise on a background cadence:
         # rendezvous records expire, so a one-shot publish would strand
         # joiners arriving later than the TTL
@@ -162,8 +161,16 @@ class TrainingTask:
 
     @functools.cached_property
     def tx(self):
+        import dataclasses
+
         from dalle_tpu_torch.optim import make_optimizer
-        return make_optimizer(self.opt_cfg)
+        # the model's stacked-axis size, so that the per-slice trust ratio
+        # mask is derived from the config (JAX task.py)
+        cfg = self.opt_cfg
+        if cfg.stacked_reps is None:
+            cfg = dataclasses.replace(
+                cfg, stacked_reps=self.model_cfg.dense_scan_reps())
+        return make_optimizer(cfg)
 
     @functools.cached_property
     def train_state(self):

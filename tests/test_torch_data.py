@@ -395,7 +395,7 @@ def test_task_refuses_a_tokenizer_larger_than_the_vocabulary(tmp_path):
         task.dataset
 
 
-@pytest.mark.parametrize("model, refused", [
+@pytest.mark.parametrize("model, stacked", [
     (dict(dense_scan=True), True),
     (dict(dense_scan=True, depth=8, attn_types=("full", "axial_row")),
      True),
@@ -403,15 +403,20 @@ def test_task_refuses_a_tokenizer_larger_than_the_vocabulary(tmp_path):
     (dict(dense_scan=True, shared_block_cycle=2, depth=4), False),
     (dict(dense_scan=False), False),
 ])
-def test_dense_scan_with_stacked_blocks_is_refused(model, refused):
-    """A stacked ``dense_scan`` layout (``dense_scan_reps() > 0``) raises,
-    naming the ROADMAP item; shared blocks or one repetition build."""
+def test_dense_scan_with_stacked_blocks_is_refused(model, stacked):
+    """A stacked ``dense_scan`` layout (``dense_scan_reps() > 0``) was
+    refused until the port took it; now every case builds a task. The
+    stacked ones hold their blocks as stacked leaves and thread
+    ``dense_scan_reps()`` into LAMB's ``stacked_reps``, as JAX ``task.py``
+    does; shared blocks or one repetition stay unstacked."""
     cfg = tiny_model_config(**model)
     args = (cfg, OptimizerConfig(), TrainerConfig(), CollabConfig(),
             PeerConfig())
-    assert (cfg.dense_scan_reps() > 0) == refused
-    if refused:
-        with pytest.raises(NotImplementedError, match="dense_scan"):
-            TrainingTask(*args, device="cpu")
-    else:
-        TrainingTask(*args, device="cpu").shutdown()
+    reps = cfg.dense_scan_reps()
+    assert (reps > 0) == stacked
+    with TrainingTask(*args, device="cpu") as task:
+        assert task.tx.cfg.stacked_reps == reps
+        leading = {p.shape[0] for n, p in task.model.named_parameters()
+                   if n.startswith("transformer.blocks.block_")
+                   and p.dim() > (2 if n.endswith("kernel") else 1)}
+        assert leading == ({reps} if stacked else set())

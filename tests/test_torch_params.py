@@ -83,12 +83,21 @@ def test_bf16_params_round_trip():
 
 
 def test_mismatched_tree_and_dense_scan_raise():
+    """A tree of another layout raises. The ``dense_scan`` layout was
+    refused until the port took the stacked leaves: its stacked tree now
+    converts both ways, and the unrolled tree of the same blocks is a
+    mismatch for it."""
     tree = _jax_tree(LAYOUTS["dense"])
     with pytest.raises(ValueError, match="does not match"):
         params_from_jax(tree, tiny_model_config(**LAYOUTS["scan_unroll1"]))
-    with pytest.raises(ValueError, match="dense_scan"):
-        params_from_jax(tree, tiny_model_config(
-            attn_types=("axial_row", "axial_col"), depth=4, dense_scan=True))
+    stacked = dict(LAYOUTS["dense"], dense_scan=True)
+    cfg = tiny_model_config(**stacked)
+    assert cfg.dense_scan_reps() == 2 and jax_layout_scanned(cfg)
+    stacked_tree = _jax_tree(stacked)
+    _assert_trees_equal(params_to_jax(params_from_jax(stacked_tree, cfg)),
+                        stacked_tree)
+    with pytest.raises(ValueError, match="does not match"):
+        params_from_jax(tree, cfg)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -98,6 +107,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for p in (root / "dalle_tpu_torch").rglob("*.py"))
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
+    assert {"dalle_tpu_torch.swarm.chaos", "dalle_tpu_torch.swarm.assist",
+            "dalle_tpu_torch.training.remote_sink",
+            "dalle_tpu_torch.cli.run_aux_peer",
+            "dalle_tpu_torch.utils.torch_io"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -383,3 +383,127 @@ def test_mixed_powersgd_epoch_has_identical_factor_bytes():
     finally:
         second.shutdown()
         first.shutdown()
+
+
+# -- the stacked dense_scan layout over the wire ----------------------------
+
+DENSE = dict(depth=5, attn_types=("full", "axial_row"), dense_scan=True,
+             shared_block_cycle=0, final_conv_block=False)
+
+
+def _dense_grads():
+    """One gradient of a ``dense_scan`` model (body 5: three repetitions
+    of two, one overhang slice) from each package, each on its own batch
+    and the same converted weights, as wire leaf lists: the JAX tree's
+    leaves, and the port's gradients in ``jax_leaf_names`` order."""
+    import jax
+    import jax.numpy as jnp
+
+    from dalle_tpu import config as jconfig
+    from dalle_tpu.models.dalle import DALLE as JaxDALLE
+    from dalle_tpu.models.dalle import init_params as jax_init
+    from dalle_tpu.training import steps as jsteps
+    from dalle_tpu_torch import config as tconfig
+    from dalle_tpu_torch.params import jax_leaf_names, params_from_jax
+    from dalle_tpu_torch.training.steps import grad_step
+
+    jcfg, tcfg = (jconfig.tiny_model_config(**DENSE),
+                  tconfig.tiny_model_config(**DENSE))
+    assert tcfg.dense_scan_reps() == 3
+    params = jax.tree.map(np.asarray, jax_init(JaxDALLE(jcfg),
+                                               jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(5)
+    batches = [{"text": rng.integers(2, jcfg.vocab_text,
+                                     (2, jcfg.text_seq_len)),
+                "image": rng.integers(0, jcfg.vocab_image,
+                                      (2, jcfg.image_seq_len))}
+               for _ in range(2)]
+    jgrads = jax.grad(lambda p: jsteps._loss_fn(
+        JaxDALLE(jcfg), p, {k: jnp.asarray(v, jnp.int32)
+                            for k, v in batches[0].items()})[0])(params)
+    jleaves = [np.asarray(g) for g in jax.tree.leaves(jgrads)]
+    _, _, tgrads = grad_step(params_from_jax(params, tcfg),
+                             {k: torch.from_numpy(v)
+                              for k, v in batches[1].items()})
+    tleaves = [tgrads[n].numpy() for n in jax_leaf_names(tcfg)]
+    assert [a.shape for a in jleaves] == [a.shape for a in tleaves]
+    return jleaves, tleaves
+
+
+@pytest.mark.parametrize("codec", ["uniform8bit", "power_sgd"])
+def test_mixed_dense_scan_pair_averages_identically(pems, codec):
+    """A JAX peer and a port peer of a ``dense_scan`` model exchange real
+    gradients of the stacked layout: with u8 the averaged gradients are
+    byte-identical on both; with PowerSGD (a stacked kernel is one
+    (reps, in x out) matrix in both plans) the averaged factor bytes are,
+    and the reconstructions agree within the f32 tolerance of
+    tests/test_torch_powersgd.py."""
+    jleaves, tleaves = _dense_grads()
+    if codec == "uniform8bit":
+        (out,) = _pair(("jax", "torch"), pems, "mx_dense",
+                       dict(codec=tcomp.UNIFORM8BIT), [[jleaves, tleaves]],
+                       [2.0, 3.0])
+        got = [np.asarray(a.numpy() if isinstance(a, torch.Tensor) else a)
+               for a in out[1]]
+        assert len(got) == len(out[0])
+        for a, b in zip(got, out[0]):
+            assert a.tobytes() == np.asarray(b).tobytes()
+        return
+    from dalle_tpu.swarm import powersgd as jps
+    from dalle_tpu_torch.swarm import powersgd as tps
+    mods = [KINDS[k] for k in ("jax", "torch")]
+    comps = [jps.PowerSGDCompressor(rank=1), tps.PowerSGDCompressor(rank=1)]
+    plans = [c.plan(g) for c, g in zip(comps, (jleaves, tleaves))]
+    assert [(p.index, p.m, p.n) for p in plans[0]] \
+        == [(p.index, p.m, p.n) for p in plans[1]]
+    assert any(p.m == 3 and len(p.shape) == 3 for p in plans[1])
+    averaging = [jps.average_with_powersgd, tps.average_with_powersgd]
+    ids = [m["identity"].load_or_create(p) for m, p in zip(mods, pems)]
+    first = mods[0]["dht"](identity=ids[0], rpc_timeout=2.0)
+    second = mods[1]["dht"](initial_peers=[first.visible_address],
+                            identity=ids[1], rpc_timeout=2.0)
+    nodes = [first, second]
+    seen, outs, errors = [{}, {}], [None, None], []
+
+    def peer(i):
+        m = mods[i]
+
+        def reduce_fn(tensors, phase):
+            prefix = f"mxd_psgd_grads_{phase}"
+            g = m["group"](nodes[i], prefix, epoch=2, weight=2.0,
+                           matchmaking_time=3.0, min_group_size=2,
+                           encrypt=True)
+            assert g is not None and g.size == 2
+            out = m["allreduce"](nodes[i], g, prefix, 2, tensors,
+                                 weight=2.0, allreduce_timeout=15.0,
+                                 codec=tcomp.FLOAT16,
+                                 codec_backend=m["backend"])
+            seen[i][phase] = [np.array(a, copy=True) for a in out]
+            return out
+
+        try:
+            leaves = [m["tensor"](a.copy()) for a in (jleaves, tleaves)[i]]
+            outs[i] = averaging[i](comps[i], leaves, reduce_fn, epoch=2)
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=peer, args=(i,)) for i in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        if errors:
+            raise errors[0]
+        for phase in ("p", "q"):
+            assert len(seen[0][phase]) == len(seen[1][phase])
+            for a, b in zip(seen[0][phase], seen[1][phase]):
+                assert a.tobytes() == b.tobytes()
+        for a, b in zip(outs[1], outs[0]):
+            got = a.numpy() if isinstance(a, torch.Tensor) else a
+            want = np.asarray(b)
+            scale = max(float(np.abs(want).max()), 1e-30)
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+    finally:
+        second.shutdown()
+        first.shutdown()

@@ -265,11 +265,46 @@ def test_run_trainer_cli_trains_and_writes_metrics(tmp_path):
     (["--sequence-parallel", "ring"], "sequence_parallel"),
 ])
 def test_unported_flags_raise(tmp_path, argv, match):
+    """A flag whose module the port lacks raises, naming it. The
+    ``dense_scan`` layout, ``--stacked-reps`` and ``--chaos-plan`` raised
+    until the port took them: with them the CLI now trains one epoch."""
     from dalle_tpu_torch.cli import run_trainer
     base = ["--preset", "tiny", "--device", "cpu", "--max-epochs", "1",
             "--identity-path", str(tmp_path / "id.pem")]
+    if match in ("dense_scan", "chaos", "stacked_reps"):
+        metrics = tmp_path / "m.jsonl"
+        assert run_trainer.main(base + argv + [
+            "--per-device-batch", "4", "--target-batch-size", "4",
+            "--matchmaking-time", "0.3", "--no-audit-gather",
+            "--no-delay-optimizer-step", "--warmup-batches", "1",
+            "--metrics-file", str(metrics),
+            "--log-level", "WARNING"]) == 0
+        rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+        assert [r["epoch"] for r in rows] == [1]
+        assert np.isfinite(rows[0]["loss"])
+        return
     with pytest.raises(NotImplementedError, match=match):
         run_trainer.main(base + argv)
+
+
+def test_run_trainer_cli_runs_under_an_active_chaos_plan(tmp_path):
+    """``--chaos-plan`` with faults that fire (delays and duplicates on
+    every send, dropped DHT gets) still trains: the wrapper sits under
+    the whole peer."""
+    from dalle_tpu_torch.cli import run_trainer
+    metrics = tmp_path / "m.jsonl"
+    plan = ('{"seed": 3, "rules": [{"ops": ["send"], "duplicate": 1.0, '
+            '"delay_s": [0.0, 0.01]}, {"ops": ["get"], "drop": 0.2}]}')
+    assert run_trainer.main([
+        "--preset", "tiny", "--device", "cpu", "--max-epochs", "2",
+        "--identity-path", str(tmp_path / "id.pem"),
+        "--chaos-plan", plan, "--per-device-batch", "4",
+        "--target-batch-size", "4", "--matchmaking-time", "0.3",
+        "--no-audit-gather", "--no-delay-optimizer-step",
+        "--warmup-batches", "1", "--metrics-file", str(metrics),
+        "--log-level", "WARNING"]) == 0
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert [r["epoch"] for r in rows] == [1, 2]
 
 
 @pytest.mark.parametrize("argv, plane", [
