@@ -2,8 +2,9 @@
 """Drive the PyTorch port's flagship inference and training paths, the
 8-bit LAMB, a swarm round's device codec, the generic kernel route, the
 collaborative trainer peer, real data, the serving router, access tokens,
-the stacked ``dense_scan`` model, the averaging assistant and fault
-injection on one NVIDIA GPU.
+the stacked ``dense_scan`` model, the averaging assistant, fault
+injection, ``save_ctx`` remat on the XL model, the offloaded optimizer
+state and a multi-process peer on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out RECORDS.json] [--profile TABLE.txt]
 
@@ -160,7 +161,31 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    crashes after matchmaking: both trainers end the epoch, the crashed
    assistant's round ends, the leader's round names the corrupt sender
    and strikes it, and every fault fired;
-14. the ``kernels`` line (the eleven ported kernels and the six generic
+14. ``save_ctx`` remat, the offloaded optimizer state and a peer of two
+   processes: (a) one ``grad_step`` under ``save_attn`` and one under
+   ``save_ctx`` on the same weights, on the flagship of phase 7 and on
+   ``xl_model_config()`` at full width and depth (344,537,088
+   parameters): the loss and every gradient ``torch.equal``, the exact
+   launch counts (the attention forward once a layer and micro-batch),
+   each one's peak memory; then four XL steps with the 8-bit LAMB under
+   ``save_ctx`` (step s, img/s, peak memory, a falling loss); (b) phase
+   8's and phase 7's steps, four updates each, on the device and then
+   offloaded (moments in pinned host memory): every parameter and moment
+   ``torch.equal`` after each update, the memory between steps lower by
+   the state's bytes within 0.05 GB, ``quantize_blockwise`` on the card
+   and never its plain version, each update's s; (c) ``python -m
+   dalle_tpu_torch.cli.run_trainer --preset xl --remat-policy save_ctx
+   --offload`` solo for four epochs with a checkpoint directory: exit 0,
+   finite losses, a lower loss over its data than at step 0, the
+   checkpoint restored into an offloaded and an on-device state
+   ``torch.equal``, each serializing to the file's bytes; (d) a ``gloo``
+   group of two processes (``dp=2``, phase 8's step on each process's 8
+   rows) as one peer beside a one-process peer, two epochs at
+   ``target_batch_size=16`` and the JAX defaults otherwise: all three
+   bitwise equal after every epoch, every round a 2-peer group, each
+   child within its timeout; recorded: the slice's gradient mean s a
+   step, the rounds' s, the swarm's samples/s;
+15. the ``kernels`` line (the eleven ported kernels and the six generic
    instances).
 
 With ``--profile``, one flagship forward and one training micro-batch are
@@ -1943,6 +1968,644 @@ def assist_chaos_phase(torch, smi, release_memory, without_rounds,
     release_memory()
 
 
+# -- 14: save_ctx remat, host-offloaded optimizer state, multi-process peers
+# ---------------------------------------------------------------------------
+
+XL_STEPS = 4                   # 8-bit steps of XL under save_ctx (14a)
+OFFLOAD_UPDATES = 4            # updates with and without offload (14b)
+OFFLOAD_MEM_TOL = 0.05e9       # 14b: the between-steps memory saving
+                               # against the state's bytes, in bytes
+#: 14c: the CLI on XL with both memory switches, solo: every grad step of
+#: 8 samples is an epoch; the schedule leaves lr 0 after the first update
+XL_CLI = ["--preset", "xl", "--remat-policy", "save_ctx", "--offload",
+          "--per-device-batch", str(MICRO), "--grad-accum-steps",
+          str(ACCUM), "--max-epochs", "4", "--target-batch-size", "8",
+          "--matchmaking-time", "3", "--warmup-batches", "1",
+          "--warmup-steps", "2", "--total-steps", "100",
+          "--backup-every-epochs", "2"]
+#: 14d: the slice's processes and the one-process peer, with the JAX
+#: defaults but the target (16 for 4096) and the run id
+SLICE_COLLAB = dict(run_id="slice", target_batch_size=16)
+SLICE_EPOCHS = 2
+SLICE_TIMEOUT_S = 600          # each child of 14d, start to exit
+
+SLICE_CHILD = r"""
+import datetime, hashlib, json, os, sys, time
+import torch
+role, gloo_port, dht_port, tmp, dev = sys.argv[1:6]
+overrides, collab_kw = json.loads(sys.argv[6]), json.loads(sys.argv[7])
+epochs = int(sys.argv[8])
+
+
+def wait_for(path, timeout=240):
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise SystemExit(f"{role}: no {path} after {timeout} s")
+        time.sleep(0.1)
+
+
+if role != "peer":
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{gloo_port}", world_size=2,
+        rank=int(role), timeout=datetime.timedelta(seconds=300))
+from dalle_tpu_torch.config import (CollabConfig, OptimizerConfig,
+                                    PeerConfig, TrainerConfig,
+                                    flagship_model_config)
+from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, reset_launches
+from dalle_tpu_torch.params import state_leaf_tensors
+from dalle_tpu_torch.task import TrainingTask
+from dalle_tpu_torch.training.loop import train_loop
+
+coordinator = role == "0"
+peer = PeerConfig(port=int(dht_port) if coordinator else 0,
+                  initial_peers=((f"127.0.0.1:{dht_port}",)
+                                 if role == "peer" else ()),
+                  identity_path=f"{tmp}/id_{role}.pem",
+                  experiment_prefix="smoke")
+task = TrainingTask(flagship_model_config(**overrides),
+                    OptimizerConfig(warmup_steps=2, total_steps=100),
+                    TrainerConfig(per_device_batch=4, grad_accum_steps=2),
+                    CollabConfig(**collab_kw), peer, device=dev)
+collab = task.collab_optimizer
+open(f"{tmp}/ready_{role}", "w").close()
+wait_for(f"{tmp}/go")
+
+
+def digest():
+    h = hashlib.sha256()
+    with collab.state_lock:
+        for t in state_leaf_tensors(collab.state.model,
+                                    collab.state.opt_state):
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+rows, step_ends, mean_s = [], [], []
+
+
+def on_epoch(report):
+    rows.append(dict(epoch=report.epoch, loss=report.loss,
+                     mini_steps=report.mini_steps, digest=digest(),
+                     timings={k: v for k, v in collab.last_timings.items()
+                              if k != "robust"}))
+
+
+def on_step(n, loss):
+    step_ends.append(time.perf_counter())
+    mean_s.append(task.grad_mean_s)
+
+
+if dev == "cuda":
+    torch.cuda.reset_peak_memory_stats()
+reset_launches()
+train_loop(task, max_epochs=epochs, warmup_steps=1, on_epoch=on_epoch,
+           on_step=on_step)
+out = dict(role=role, epoch=collab.local_epoch, epochs=rows,
+           step_ends=step_ends, grad_mean_s=mean_s,
+           local_batch=task.local_batch_size,
+           processes=collab.role.n_processes, launches=dict(LAUNCHES),
+           generic=dict(GENERIC_LAUNCHES),
+           peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                    if dev == "cuda" else None))
+task.shutdown()
+with open(f"{tmp}/out_{role}.json", "w") as f:
+    json.dump(out, f)
+if role != "peer":
+    dist.destroy_process_group()
+"""
+
+
+def _moment_tensors(opt_state) -> list:
+    """Every tensor of the optimizer state's moments (a quantized moment's
+    codes and absmax)."""
+    from dalle_tpu_torch.ops.quant import Quantized
+    return [t for tree in (opt_state.mu, opt_state.nu)
+            for m in tree.values()
+            for t in ((m.codes, m.absmax) if isinstance(m, Quantized)
+                      else (m,))]
+
+
+def _remat_pair(torch, name, make_cfg, release_memory, dev):
+    """One ``grad_step`` of ``make_cfg(remat_policy)``'s model (weights and
+    batch from the seed) under ``save_attn``, then one under ``save_ctx``:
+    the loss and every gradient ``torch.equal`` (else the first leaf that
+    differs, in the JAX leaf order, fails the phase), the exact launch
+    counts of ``wrapper_calls`` and no generic launch. Returns ``(record
+    per policy, the save_ctx model, the batch)``; a record holds the loss,
+    the step's s, its peak memory and the peak above what was allocated
+    before it (the parameters and the batch)."""
+    from dalle_tpu_torch.data.synthetic import SyntheticCodes
+    from dalle_tpu_torch.models.dalle import init_params
+    from dalle_tpu_torch.models.transformer import wrapper_calls
+    from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, reset_launches
+    from dalle_tpu_torch.params import jax_leaf_names
+    from dalle_tpu_torch.training.steps import grad_step
+
+    release_memory()
+    n = MICRO * ACCUM
+    cfgs = {p: make_cfg(p) for p in ("save_attn", "save_ctx")}
+    data = next(SyntheticCodes(cfgs["save_ctx"], num_samples=n,
+                               seed=SEED).batches(n))
+    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in data.items()}
+    policies, host = {}, {}
+    for policy, cfg in cfgs.items():
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED))
+        model.train()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, _, grads = grad_step(model, batch, ACCUM)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        expected = {k: ACCUM * v
+                    for k, v in wrapper_calls(cfg, training=True).items()}
+        if dict(LAUNCHES) != expected:
+            raise AssertionError(f"{name} {policy}: launch counts "
+                                 f"{dict(LAUNCHES)} != {expected}")
+        if any(GENERIC_LAUNCHES.values()):
+            raise AssertionError(f"{name} {policy}: generic launches "
+                                 f"{dict(GENERIC_LAUNCHES)}")
+        policies[policy] = dict(
+            loss=float(loss), grad_step_s=secs, peak_gb=peak / 1e9,
+            peak_above_start_gb=(peak - base) / 1e9,
+            launches=dict(LAUNCHES))
+        host[policy] = (loss.cpu(), {k: g.cpu() for k, g in grads.items()},
+                        {k: p.detach().cpu()
+                         for k, p in model.named_parameters()})
+        del loss, grads
+        if policy == "save_attn":
+            del model
+            release_memory()
+    (loss_a, g_a, p_a), (loss_c, g_c, p_c) = host.values()
+    if not all(torch.equal(p_a[k], p_c[k]) for k in p_a):
+        raise AssertionError(f"{name}: the two models' weights differ")
+    got, want = dict(g_c, loss=loss_c), dict(g_a, loss=loss_a)
+    differ = [k for k in ["loss"] + list(jax_leaf_names(cfgs["save_ctx"]))
+              if not torch.equal(got[k], want[k])]
+    if differ:
+        k = differ[0]
+        raise AssertionError(
+            f"{name}: save_ctx differs from save_attn in {len(differ)} "
+            f"tensors, first {k}: max |diff| "
+            f"{(got[k] - want[k]).abs().max().item()}")
+    policies["save_ctx_saving_gb"] = (
+        policies["save_attn"]["peak_above_start_gb"]
+        - policies["save_ctx"]["peak_above_start_gb"])
+    return policies, model, batch
+
+
+def xl_phase(torch, smi, release_memory, dev="cuda",
+             model_overrides=None) -> None:
+    """14a: ``save_ctx`` against ``save_attn`` (:func:`_remat_pair`) on the
+    flagship of phase 7 (``FLAGSHIP_TUNED``: ``block_3`` plain) and on
+    ``xl_model_config()`` at full width and depth (dim 1792, 28 heads of
+    64, 64 layers over 4 shared blocks and ``w_conv``, all
+    rematerialised, 16384 image codes, the plain LayerNorm; f32
+    parameters, micro-batch 4 x accumulation 2); then ``XL_STEPS`` XL steps
+    with the 8-bit LAMB under ``save_ctx``: the exact launch counts,
+    finite losses that fall once the learning rate leaves 0, step s,
+    img/s and peak memory."""
+    from dalle_tpu_torch.config import (OptimizerConfig,
+                                        flagship_model_config,
+                                        xl_model_config)
+    from dalle_tpu_torch.models.transformer import wrapper_calls
+    from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, reset_launches
+    from dalle_tpu_torch.ops.quant import Quantized
+    from dalle_tpu_torch.optim import make_optimizer, optimizer_state_bytes
+    from dalle_tpu_torch.training.steps import TrainState, train_step
+
+    overrides = dict(model_overrides or {})
+    flagship, model, batch = _remat_pair(
+        torch, "flagship", lambda p: flagship_model_config(
+            remat_policy=p, **overrides), release_memory, dev)
+    del model, batch
+    policies, model, batch = _remat_pair(
+        torch, "xl", lambda p: xl_model_config(remat_policy=p, **overrides),
+        release_memory, dev)
+    n = MICRO * ACCUM
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # XL_STEPS 8-bit steps under save_ctx
+    cfg = model.cfg
+    tx = make_optimizer(OptimizerConfig(state_bits=8, warmup_steps=2,
+                                        total_steps=100))
+    state = TrainState.create(model, tx)
+    n_q = sum(isinstance(m, Quantized) for m in state.opt_state.mu.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_s = [], []
+    for _ in range(XL_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, tx, ACCUM)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    expected = {k: XL_STEPS * ACCUM * v
+                for k, v in wrapper_calls(cfg, training=True).items()} | {
+        "quantize_blockwise": XL_STEPS * 2 * n_q}
+    if dict(LAUNCHES) != expected:
+        raise AssertionError(f"xl: 8-bit steps' launch counts "
+                             f"{dict(LAUNCHES)} != {expected}")
+    if any(GENERIC_LAUNCHES.values()):
+        raise AssertionError(f"xl: generic launches "
+                             f"{dict(GENERIC_LAUNCHES)}")
+    if not (all(math.isfinite(x) for x in losses)
+            and abs(losses[1] - losses[0]) <= SAME_LOSS * abs(losses[0])
+            and all(losses[i + 1] < losses[i]
+                    for i in range(1, XL_STEPS - 1))):
+        raise AssertionError(f"xl: the loss does not fall: {losses}")
+    steady = step_s[1:]
+    emit(phase="xl", card=smi, config=dict(
+        dim=cfg.dim, depth=cfg.depth, heads=cfg.heads,
+        head_dim=cfg.head_dim, vocab_image=cfg.vocab_image,
+        remat_skip_blocks=cfg.remat_skip_blocks, ln_fusion=cfg.ln_fusion),
+        overrides=overrides, params=n_params, micro=MICRO, accum=ACCUM,
+        policies=policies, flagship_policies=flagship, grads_equal=True,
+        quantized_leaves=n_q,
+        state_gb=optimizer_state_bytes(state.opt_state) / 1e9,
+        steps=XL_STEPS, losses=losses, step_s=step_s,
+        step_s_mean=sum(steady) / len(steady),
+        img_per_s=n * len(steady) / sum(steady),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=dict(LAUNCHES))
+    del state, model, batch, metrics
+    release_memory()
+
+
+def offload_phase(torch, smi, release_memory, dev="cuda",
+                  model_overrides=None) -> None:
+    """14b: the flagship's training step of phase 8 (8-bit LAMB) and of
+    phase 7 (fp32), ``OFFLOAD_UPDATES`` updates each, first with the
+    optimizer state on the device, then offloaded
+    (``training/offload.py``) from the same weights: after each update
+    the parameters and every moment tensor are ``torch.equal`` to the
+    on-device run's; the offloaded moments are pinned host tensors; the
+    memory allocated between steps is lower by the state's bytes
+    (``optimizer_state_bytes``) within ``OFFLOAD_MEM_TOL``; the update
+    launches ``quantize_blockwise`` on the card twice a quantized tensor
+    and never its plain version. Records each update's s in both."""
+    from dalle_tpu_torch.config import OptimizerConfig
+    from dalle_tpu_torch.entry import train_entry
+    from dalle_tpu_torch.ops import LAUNCHES, reset_launches
+    from dalle_tpu_torch.ops import quant as quant_ops
+    from dalle_tpu_torch.ops.quant import Quantized
+    from dalle_tpu_torch.optim import make_optimizer, optimizer_state_bytes
+    from dalle_tpu_torch.params import state_leaf_tensors
+    from dalle_tpu_torch.training.offload import (make_offloaded_apply_step,
+                                                  offload_train_state)
+    from dalle_tpu_torch.training.steps import apply_step, grad_step
+
+    plain_calls = []
+    plain = quant_ops.quantize_blockwise_plain
+
+    def counted_plain(*a, **k):
+        plain_calls.append(1)
+        return plain(*a, **k)
+
+    quant_ops.quantize_blockwise_plain = counted_plain
+    try:
+        for bits in (8, 32):
+            tx = make_optimizer(OptimizerConfig(state_bits=bits,
+                                                warmup_steps=2,
+                                                total_steps=100))
+            snaps, runs = [], {}
+            for mode in ("device", "offload"):
+                release_memory()
+                _, (state, batch) = train_entry(
+                    device=dev, micro=MICRO, accum=ACCUM, seed=SEED,
+                    state_bits=bits, **(model_overrides or {}))
+                if mode == "offload":
+                    state = offload_train_state(state)
+                    apply = make_offloaded_apply_step(tx)
+                else:
+                    def apply(s, g):
+                        return apply_step(s, g, tx)
+                state_bytes = optimizer_state_bytes(state.opt_state)
+                n_q = sum(isinstance(m, Quantized)
+                          for m in state.opt_state.mu.values())
+                update_s, between = [], []
+                reset_launches()
+                for i in range(OFFLOAD_UPDATES):
+                    _, _, grads = grad_step(state.model, batch, ACCUM)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state = apply(state, grads)
+                    torch.cuda.synchronize()
+                    update_s.append(time.perf_counter() - t0)
+                    del grads
+                    between.append(torch.cuda.memory_allocated())
+                    leaves = [t.detach().to("cpu", copy=True)
+                              for t in state_leaf_tensors(state.model,
+                                                          state.opt_state)]
+                    if mode == "device":
+                        snaps.append(leaves)
+                        continue
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(leaves, snaps[i])):
+                        raise AssertionError(
+                            f"offload {bits}-bit: update {i + 1} differs "
+                            "from the on-device update")
+                    if dev == "cuda" and not all(
+                            t.is_pinned()
+                            for t in _moment_tensors(state.opt_state)):
+                        raise AssertionError(f"offload {bits}-bit: a "
+                                             "moment is not pinned")
+                want = OFFLOAD_UPDATES * 2 * n_q
+                if LAUNCHES["quantize_blockwise"] != want:
+                    raise AssertionError(
+                        f"offload {bits}-bit {mode}: "
+                        f"{LAUNCHES['quantize_blockwise']} "
+                        f"quantize_blockwise launches, expected {want}")
+                runs[mode] = dict(update_s=update_s,
+                                  between_gb=[b / 1e9 for b in between],
+                                  launches=dict(LAUNCHES))
+                del state, batch, leaves
+            if plain_calls:
+                raise AssertionError(f"offload {bits}-bit: the plain "
+                                     f"quantize ran {len(plain_calls)} "
+                                     "times")
+            saved = [d - o for d, o in zip(runs["device"]["between_gb"],
+                                           runs["offload"]["between_gb"])]
+            if any(abs(s * 1e9 - state_bytes) > OFFLOAD_MEM_TOL
+                   for s in saved):
+                raise AssertionError(
+                    f"offload {bits}-bit: memory between steps lower by "
+                    f"{saved} GB, the state is {state_bytes / 1e9} GB")
+            emit(phase="offload", card=smi, state_bits=bits,
+                 updates=OFFLOAD_UPDATES, state_bytes=state_bytes,
+                 quantized_leaves=n_q, equal=True, pinned=dev == "cuda",
+                 saved_between_steps_gb=saved, **{
+                     f"{mode}_{k}": v for mode, r in runs.items()
+                     for k, v in r.items()},
+                 added_update_s=[o - d for d, o in zip(
+                     runs["device"]["update_s"],
+                     runs["offload"]["update_s"])])
+            del snaps
+    finally:
+        quant_ops.quantize_blockwise_plain = plain
+    release_memory()
+
+
+def xl_cli_phase(torch, smi, release_memory, root, dev="cuda",
+                 cli_argv=XL_CLI, model_overrides=None) -> None:
+    """14c: ``python -m dalle_tpu_torch.cli.run_trainer --preset xl
+    --remat-policy save_ctx --offload`` (``XL_CLI``; no ``--device``, so on
+    the card) solo as a subprocess with a checkpoint directory under
+    ``build/``: it exits 0 and its epochs' losses are finite; its freshest
+    checkpoint, restored here into an offloaded XL state and into one on
+    the device, gives the same state in both (``torch.equal``, the
+    offloaded moments pinned) and serializes to the checkpoint file's
+    bytes from either; and the restored model's mean loss over the CLI's
+    64 synthetic samples is below the same weights' at step 0 (the
+    epochs' own batches differ, so their losses do not show the fall)."""
+    import shutil
+
+    from dalle_tpu_torch.config import OptimizerConfig, xl_model_config
+    from dalle_tpu_torch.data.synthetic import SyntheticCodes
+    from dalle_tpu_torch.models.dalle import init_params
+    from dalle_tpu_torch.optim import make_optimizer
+    from dalle_tpu_torch.params import state_leaf_tensors
+    from dalle_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                     serialize_state_dict,
+                                                     state_to_state_dict)
+    from dalle_tpu_torch.training.offload import offload_train_state
+    from dalle_tpu_torch.training.steps import TrainState
+
+    release_memory()
+    ckpt_dir = os.path.join(root, "build", "dalle_tpu_torch", "smoke_xl")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    os.makedirs(ckpt_dir)
+    metrics = os.path.join(ckpt_dir, "metrics.jsonl")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [env.get("PYTHONPATH")] if p])
+    cmd = [sys.executable, "-m", "dalle_tpu_torch.cli.run_trainer",
+           *cli_argv, "--checkpoint-dir", ckpt_dir, "--metrics-file",
+           metrics, "--identity-path", os.path.join(ckpt_dir, "id.pem"),
+           "--log-level", "WARNING"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"xl run_trainer exited {res.returncode}:\n"
+                             f"{res.stderr[-4000:]}")
+    with open(metrics) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in rows]
+    if len(losses) < 2 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"xl run_trainer: losses {losses}")
+    cfg = xl_model_config(remat_policy="save_ctx",
+                          **(model_overrides or {}))
+
+    def data_loss(model):
+        """The mean loss over the CLI's synthetic data set (its 64
+        samples, every epoch's batches drawn from them): an epoch's own
+        batches differ, so the falling loss is read on the same samples
+        before and after training."""
+        data = SyntheticCodes(cfg, num_samples=64, seed=0)
+        total = 0.0
+        with torch.inference_mode():
+            for b in data.batches(MICRO, loop=False):
+                loss, _ = model(torch.from_numpy(b["text"]).long().to(dev),
+                                torch.from_numpy(b["image"]).long().to(dev))
+                total += float(loss) * MICRO
+        return total / 64
+
+    # the CLI's weights at step 0: trainer seed 0 on the same device
+    loss_init = data_loss(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0)).eval())
+    tx = make_optimizer(OptimizerConfig(warmup_steps=2, total_steps=100))
+    mgr = CheckpointManager(ckpt_dir, async_writes=False)
+    path = mgr._candidates()[0][1]
+    with open(path, "rb") as f:
+        blob = f.read()
+    states = []
+    for i, offload in enumerate((True, False)):
+        state = TrainState.create(init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 1 + i)), tx)
+        if offload:
+            state = offload_train_state(state)
+        t0 = time.perf_counter()
+        restored = mgr.restore_latest(state)
+        restore_s = time.perf_counter() - t0
+        if restored is None or restored[1] != rows[-1]["epoch"]:
+            raise AssertionError(f"xl run_trainer's checkpoint: restored "
+                                 f"{restored and restored[1]}, expected "
+                                 f"epoch {rows[-1]['epoch']}")
+        state, epoch = restored
+        if serialize_state_dict(state_to_state_dict(state), epoch) != blob:
+            raise AssertionError(f"xl: the restored state (offload "
+                                 f"{offload}) does not serialize to "
+                                 f"{os.path.basename(path)}'s bytes")
+        states.append((state, restore_s))
+    (off, off_s), (on, _) = states
+    loss_trained = data_loss(on.model.eval())
+    if not loss_trained < loss_init:
+        raise AssertionError(f"xl run_trainer: the loss on its data went "
+                             f"from {loss_init} to {loss_trained}")
+    a = state_leaf_tensors(off.model, off.opt_state)
+    b = state_leaf_tensors(on.model, on.opt_state)
+    if len(a) != len(b) or not all(torch.equal(x.cpu(), y.cpu())
+                                   for x, y in zip(a, b)):
+        raise AssertionError("xl: the offloaded and the on-device restores "
+                             "differ")
+    if dev == "cuda" and not all(t.is_pinned()
+                                 for t in _moment_tensors(off.opt_state)):
+        raise AssertionError("xl: a restored offloaded moment is not "
+                             "pinned")
+    emit(phase="xl_cli", card=smi, argv=cli_argv, seconds=cli_s,
+         epochs=[r["epoch"] for r in rows], losses=losses,
+         timings=rows[-1]["timings"], checkpoint=os.path.basename(path),
+         checkpoint_bytes=len(blob), restore_offloaded_s=off_s,
+         restored_epoch=rows[-1]["epoch"], data_loss_init=loss_init,
+         data_loss_trained=loss_trained)
+    del states, off, on, a, b, blob
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    release_memory()
+
+
+def slice_phase(torch, smi, release_memory, root, dev="cuda",
+                model_overrides=None, epochs=SLICE_EPOCHS) -> None:
+    """14d: a peer of two processes on the one card (a ``gloo`` group on
+    loopback, ``dp=2``: each trains on its 8 rows of the slice's 16 a step,
+    and the gradients are their mean) and a one-process peer, at flagship
+    width with phase 8's step (8-bit LAMB, micro-batch 4 x accumulation 2)
+    and ``SLICE_COLLAB`` (the JAX defaults otherwise), ``epochs`` epochs
+    through ``train_loop``: every child exits 0 within
+    ``SLICE_TIMEOUT_S``; after every epoch the slice's two processes and
+    the peer hold the same parameters and moments (sha256 of every state
+    leaf), every round is a 2-peer group, the losses are finite and no
+    generic kernel runs. Records the slice's gradient mean s a step, the
+    rounds' s and the swarm's samples/s."""
+    import socket
+    import tempfile
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    release_memory()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [env.get("PYTHONPATH")] if p])
+    gloo_port, dht_port = free_port(), free_port()
+    procs = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(
+            root, "build")) as tmp:
+        def start(role):
+            args = [role, gloo_port, dht_port, tmp, dev,
+                    json.dumps(model_overrides or {}),
+                    json.dumps(SLICE_COLLAB), epochs]
+            log = open(os.path.join(tmp, f"log_{role}.txt"), "w")
+            procs[role] = (subprocess.Popen(
+                [sys.executable, "-c", SLICE_CHILD, *map(str, args)],
+                cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT),
+                log)
+
+        def tail(role):
+            with open(os.path.join(tmp, f"log_{role}.txt")) as f:
+                return f.read()[-3000:]
+
+        def wait_file(name, timeout):
+            deadline = time.perf_counter() + timeout
+            while not os.path.exists(os.path.join(tmp, name)):
+                dead = [r for r, (p, _) in procs.items()
+                        if p.poll() not in (None, 0)]
+                if dead or time.perf_counter() > deadline:
+                    raise AssertionError(
+                        f"slice: no {name} ({dead or 'timeout'}):\n" +
+                        "\n".join(f"[{r}] {tail(r)}" for r in procs))
+                time.sleep(0.1)
+
+        t0 = time.perf_counter()
+        try:
+            start("0")
+            start("1")
+            wait_file("ready_0", 300)
+            start("peer")
+            wait_file("ready_1", 300)
+            wait_file("ready_peer", 300)
+            open(os.path.join(tmp, "go"), "w").close()
+            t_go = time.perf_counter()
+            for role, (p, _) in procs.items():
+                left = SLICE_TIMEOUT_S - (time.perf_counter() - t0)
+                try:
+                    rc = p.wait(timeout=max(left, 1))
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"slice: child {role} hung:\n"
+                                         f"{tail(role)}")
+                if rc != 0:
+                    raise AssertionError(f"slice: child {role} exited "
+                                         f"{rc}:\n{tail(role)}")
+            wall_s = time.perf_counter() - t_go
+            outs = {}
+            for role in procs:
+                with open(os.path.join(tmp, f"out_{role}.json")) as f:
+                    outs[role] = json.load(f)
+        finally:
+            for p, log in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+    for role, out in outs.items():
+        if out["epoch"] != epochs or [r["epoch"] for r in out["epochs"]] \
+                != list(range(1, epochs + 1)):
+            raise AssertionError(f"slice: {role} epochs "
+                                 f"{[r['epoch'] for r in out['epochs']]}")
+        if any(out["generic"].values()):
+            raise AssertionError(f"slice: {role} generic launches "
+                                 f"{out['generic']}")
+        losses = [r["loss"] for r in out["epochs"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"slice: {role} losses {losses}")
+    rounds = {role: [dict(epoch=r["epoch"], loss=r["loss"],
+                          mini_steps=r["mini_steps"], **r["timings"])
+                     for r in out["epochs"]]
+              for role, out in outs.items()}
+    groups = {role: [r["timings"].get("group_size") for r in out["epochs"]]
+              for role, out in outs.items() if role != "1"}
+    if any(g != [2] * epochs for g in groups.values()):
+        raise AssertionError(f"slice: group sizes {groups}, expected two "
+                             f"peers in every round: {rounds}")
+    for e in range(epochs):
+        digests = {role: out["epochs"][e]["digest"]
+                   for role, out in outs.items()}
+        if len(set(digests.values())) != 1:
+            raise AssertionError(f"slice: epoch {e + 1}: states differ "
+                                 f"{digests}: {rounds}")
+    if outs["0"]["processes"] != 2 or outs["0"]["local_batch"] != 16:
+        raise AssertionError(f"slice: {outs['0']['processes']} processes, "
+                             f"local batch {outs['0']['local_batch']}")
+    # the swarm's samples/s between the later first step and the earlier
+    # last: the slice's steps count 16 samples, the peer's 8
+    runs = [(outs["0"]["step_ends"], outs["0"]["local_batch"]),
+            (outs["peer"]["step_ends"], outs["peer"]["local_batch"])]
+    t_a = max(ends[0] for ends, _ in runs)
+    t_b = min(ends[-1] for ends, _ in runs)
+    samples = sum(b for ends, b in runs for t in ends if t_a < t <= t_b)
+    means = outs["0"]["grad_mean_s"][1:] + outs["1"]["grad_mean_s"][1:]
+    emit(phase="slice", card=smi, processes=2, peers=2, epochs=epochs,
+         collab=SLICE_COLLAB, wall_s=wall_s, digests_equal=True,
+         grad_mean_s=dict(per_step=[outs["0"]["grad_mean_s"],
+                                    outs["1"]["grad_mean_s"]],
+                          mean=sum(means) / max(len(means), 1)),
+         rounds=rounds,
+         swarm_samples_per_s=(samples / (t_b - t_a) if t_b > t_a else None),
+         peak_gb={role: out["peak_gb"] for role, out in outs.items()},
+         launches={role: out["launches"] for role, out in outs.items()})
+    release_memory()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None,
@@ -3316,7 +3979,13 @@ def main() -> int:
     dense_phase(torch, smi, release_memory)
     assist_chaos_phase(torch, smi, release_memory, auth_rounds)
 
-    # -- 14. kernels line and the end ------------------------------------
+    # -- 14. save_ctx on XL, offload, the XL CLI, a multi-process peer ----
+    xl_phase(torch, smi, release_memory)
+    offload_phase(torch, smi, release_memory)
+    xl_cli_phase(torch, smi, release_memory, root)
+    slice_phase(torch, smi, release_memory, root)
+
+    # -- 15. kernels line and the end ------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_line = {"kernels": [{k: rec[k] for k in keys}

@@ -12,8 +12,13 @@ is a flag (bool fields as ``--x``/``--no-x``); ``--device`` (default
 ``--platform``. ``--data-path`` (msgpack code shards: a directory, a file,
 a shard URL or a manifest URL) with ``--tokenizer-path`` (a
 ``tokenizer.json``) trains on real data; without them the peer trains on
-``SyntheticCodes``. Every setting whose module is not ported yet raises
-(``TrainingTask`` lists them). The trust
+``SyntheticCodes``. ``--remat-policy save_ctx`` keeps only the attention
+outputs for backward; ``--offload`` keeps the optimizer state in pinned
+host memory between updates. The CLI starts no ``torch.distributed``
+group of its own: a multi-process peer is a launcher that initialises a
+``gloo`` group in each of its processes and then calls :func:`main` there
+with the same flags (``parallel/multihost.py``); ``--fsdp``, ``--tp`` and
+``--sp`` above 1 raise until the multi-GPU slice. The trust
 plane (``--audit-gather``, ``--repair-convicted`` and the rest) is on by
 default as in the JAX CLI; ``--grad-compression power_sgd`` with
 ``--powersgd-rank`` and ``--[no-]powersgd-host-orthogonalize`` selects
@@ -25,6 +30,8 @@ Usage::
         --port 31337                                           # first peer
     python -m dalle_tpu_torch.cli.run_trainer --preset tiny --device cpu \\
         --initial-peers 127.0.0.1:31337                        # joiner
+    python -m dalle_tpu_torch.cli.run_trainer --preset xl \\
+        --remat-policy save_ctx --offload                      # XL, low memory
 """
 
 from __future__ import annotations
@@ -144,7 +151,11 @@ def configs_from_args(args: argparse.Namespace):
 
 
 def banner(task) -> None:
-    """Connection banner with the copyable joiner line (utils.py:39-56)."""
+    """Connection banner with the copyable joiner line (utils.py:39-56),
+    on the coordinator only (the followers of a multi-process peer have no
+    DHT to advertise)."""
+    if not task.slice_role.swarm_enabled:
+        return
     addr = task.dht.visible_address
     logger.info("=" * 60)
     logger.info("peer %s listening on %s", task.dht.peer_id[:16], addr)

@@ -6,10 +6,10 @@ attention-type names, ``tiny_model_config``, the flagship and XL presets,
 and ``PeerConfig``, the aux peer's ``AuxConfig``, and ``ServingConfig``):
 the port imports nothing of ``dalle_tpu``. The trainer peer's dataclasses
 carry every JAX field with its default, because the CLIs derive their
-flags from them; the settings whose modules are not ported yet raise
-``NotImplementedError`` from ``OptimizerConfig.check_ported()`` and
-``TrainerConfig.check_ported()``. Field names, defaults and the derived
-schedule are identical, so one set of keyword arguments builds the same
+flags from them; the mesh axes that shard across devices (``fsdp``,
+``tp``, ``sp`` above 1) raise ``NotImplementedError`` from the port's
+mesh (``parallel/mesh.py``) until the multi-GPU slice. Field names,
+defaults and the derived schedule are identical, so one set of keyword arguments builds the same
 model in either package, and the parameter converter (``params.py``) can
 map one tree onto the other.
 
@@ -200,8 +200,9 @@ class OptimizerConfig:
     package) is the 8-bit LAMB: moments of tensors with at least
     ``min_8bit_size`` elements block-quantized in blocks of ``block_size``;
     32 is the fp32 clipped LAMB. ``max_grad_norm`` None turns the global
-    clip off. ``offload`` is kept so that both packages take the same
-    flags; the port refuses it (:meth:`check_ported`)."""
+    clip off. ``offload`` keeps the optimizer state in (pinned) host
+    memory between updates and streams it through the device for each
+    update (``training/offload.py``)."""
 
     learning_rate: float = 2.5e-3
     warmup_steps: int = 3125
@@ -215,23 +216,13 @@ class OptimizerConfig:
     state_bits: int = 8
     block_size: int = 4096
     min_8bit_size: int = 65536
-    # host-resident optimizer state (the JAX package's training/offload.py);
-    # not ported: True raises (ROADMAP)
+    # host-resident optimizer state (training/offload.py)
     offload: bool = False
     # dense_scan stacked-leaf leading-axis size (ModelConfig
     # .dense_scan_reps()), threaded in by the task wiring so LAMB's
     # per-slice trust ratios are config-derived. 0 = the model has no
     # stacked leaves; None = infer from the parameter names and ranks.
     stacked_reps: "int | None" = None
-
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a setting the port does not
-        take yet (ROADMAP lists each)."""
-        if self.offload:
-            raise NotImplementedError(
-                "OptimizerConfig.offload: host-resident optimizer state "
-                "(training/offload.py) is not ported yet (ROADMAP, Queue 1, "
-                "host offload)")
 
 
 @dataclass(frozen=True)
@@ -242,7 +233,8 @@ class TrainerConfig:
     grad_accum_steps: int = 1
     seed: int = 0
     text_pad_id: int = 1              # T5 pad token (=eos in reference, task.py:58-59)
-    # Mesh axis sizes; -1 means "use all remaining devices" on the dp axis.
+    # Mesh axis sizes; -1 means "use all remaining devices" on the dp axis
+    # (in the port: the peer's processes, one device each, parallel/mesh.py)
     dp: int = -1
     fsdp: int = 1
     tp: int = 1
@@ -251,17 +243,6 @@ class TrainerConfig:
     @property
     def local_batch_per_step(self) -> int:
         return self.per_device_batch * self.grad_accum_steps
-
-
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a layout the port does not
-        take yet: one GPU per peer (``dp`` -1 or 1, no fsdp/tp/sp)."""
-        if self.dp not in (-1, 1) or self.fsdp != 1 or self.tp != 1 \
-                or self.sp != 1:
-            raise NotImplementedError(
-                f"TrainerConfig dp={self.dp} fsdp={self.fsdp} tp={self.tp} "
-                f"sp={self.sp}: the port trains on one GPU per peer; "
-                "meshes wait for the multi-GPU slice (ROADMAP)")
 
 
 @dataclass(frozen=True)

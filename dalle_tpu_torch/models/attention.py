@@ -107,20 +107,24 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def zoo_attention_halves(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, attn_type: str, text_len: int, grid: int,
-                         conv_kernel: int = 11):
+                         conv_kernel: int = 11, saved=None):
     """The kernel calls of one zoo layer: ``(out_text, out_image)``, each
-    (B, H, t, d). q/k/v: (B, T, H, d)."""
+    (B, H, t, d). q/k/v: (B, T, H, d). ``saved``: under
+    ``remat_policy="save_ctx"``, the two calls'
+    :class:`~dalle_tpu_torch.ops.attention.SavedContext` holders."""
+    saved_t, saved_i = saved or (None, None)
     q, k, v = (x.transpose(1, 2) for x in (q, k, v))   # (B, H, T, d) views
     q_t, k_t, v_t = (x[:, :, :text_len] for x in (q, k, v))
     q_i, k_i, v_i = (x[:, :, text_len:] for x in (q, k, v))
     out_t = LineAttention.apply(q_t, k_t, v_t, None, None, text_len, 0,
-                                False)
+                                False, saved_t)
     if attn_type in (ATTN_AXIAL_ROW, ATTN_AXIAL_COL):
         out_i = LineAttention.apply(q_i, k_i, v_i, k_t, v_t, grid, grid,
-                                    attn_type == ATTN_AXIAL_COL)
+                                    attn_type == ATTN_AXIAL_COL, saved_i)
     elif attn_type in (ATTN_CONV_LIKE, ATTN_FULL):
         hw = conv_kernel // 2 if attn_type == ATTN_CONV_LIKE else None
-        out_i = WindowAttention.apply(q_i, k_i, v_i, k_t, v_t, grid, hw)
+        out_i = WindowAttention.apply(q_i, k_i, v_i, k_t, v_t, grid, hw,
+                                      saved_i)
     else:
         raise ValueError(f"unknown attention type {attn_type!r}")
     return out_t, out_i

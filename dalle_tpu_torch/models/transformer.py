@@ -41,7 +41,21 @@ rematerialised block is ``torch.utils.checkpoint`` (non-reentrant):
   forward kernels never run again in backward. The replay of the first
   part recomputes the q/k/v projections, which JAX does not (it needs
   only the norm's output for their weight gradients).
-- ``remat_policy="save_ctx"`` is not ported and raises.
+- ``remat_policy="save_ctx"``: the JAX policy saves only the attention
+  kernels' out/lse, so backward replays the norm, the projections and
+  rotary but never the attention. Here the block is two checkpoints: the
+  first over the part before the attention and the attention Functions
+  together, the second the part after them, as under ``save_attn``. Each
+  block call makes a fresh pair of
+  :class:`~dalle_tpu_torch.ops.attention.SavedContext` holders (text and
+  image call) that the first checkpoint's closure keeps: the forward
+  launches the attention kernels and keeps their out and lse there, and
+  the replay in backward recomputes q/k/v and takes out and lse from the
+  holders instead of launching again. So the block keeps its input, the
+  attention outputs (the second checkpoint's inputs) and the lse, not
+  q/k/v; the attention forward kernels launch once a layer and
+  micro-batch; and the gradients are those of ``save_attn``, whose replay
+  recomputes the same q/k/v.
 """
 
 from __future__ import annotations
@@ -59,6 +73,7 @@ from dalle_tpu_torch.models.attention import (apply_rotary, join_halves,
                                               rotary_cos_sin,
                                               zoo_attention_halves)
 from dalle_tpu_torch.ops import LAUNCHES
+from dalle_tpu_torch.ops.attention import SavedContext
 from dalle_tpu_torch.ops.geglu import GEGLUFn
 from dalle_tpu_torch.ops.layer_norm import LayerNormFn
 
@@ -122,7 +137,7 @@ class LayerNorm(nn.Module):
 class ZooAttention(nn.Module):
     """Bias-free q/k/v projections, rotary, zoo attention, biased out:
     three steps, which :class:`TransformerBlock` chains (and checkpoints
-    apart under ``save_attn``)."""
+    apart under ``save_attn`` and ``save_ctx``)."""
 
     def __init__(self, cfg: ModelConfig, attn_type: str,
                  stack: Tuple[int, ...] = ()):
@@ -146,12 +161,13 @@ class ZooAttention(nn.Module):
             q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
         return q, k, v
 
-    def attend(self, q, k, v):
-        """The attention kernels' (text, image) outputs, (B, H, t, d)."""
+    def attend(self, q, k, v, saved=None):
+        """The attention kernels' (text, image) outputs, (B, H, t, d);
+        ``saved``: the calls' ``save_ctx`` holders."""
         cfg = self.cfg
         return zoo_attention_halves(
             q, k, v, attn_type=self.attn_type, text_len=cfg.text_seq_len,
-            grid=cfg.image_grid, conv_kernel=cfg.conv_kernel)
+            grid=cfg.image_grid, conv_kernel=cfg.conv_kernel, saved=saved)
 
     def project(self, out_t, out_i) -> torch.Tensor:
         """The output projection of the joined halves, (B, T, dim)."""
@@ -217,6 +233,9 @@ class TransformerBlock(nn.Module):
         x = x + self.attn.project(out_t, out_i)
         return x + self.ff(self.ff_norm(x, torch_dtype(self.cfg.dtype)))
 
+    def _pre_attend(self, x, rot, saved):
+        return self.attn.attend(*self._pre(x, rot), saved=saved)
+
     def _block(self, x, rot):
         return self._post(x, *self.attn.attend(*self._pre(x, rot)))
 
@@ -236,11 +255,11 @@ class TransformerBlock(nn.Module):
         if policy == "save_attn":
             q, k, v = checkpoint(run, self._pre, x, rot, use_reentrant=False)
             halves = self.attn.attend(q, k, v)
-            return checkpoint(run, self._post, x, *halves,
-                              use_reentrant=False)
-        raise NotImplementedError(
-            f"remat_policy={policy!r} is not ported; ROADMAP.md Queue 1 "
-            "lists it (remat_policy='save_ctx')")
+        else:                                   # "save_ctx"
+            saved = (SavedContext(), SavedContext())
+            halves = checkpoint(run, self._pre_attend, x, rot, saved,
+                                use_reentrant=False)
+        return checkpoint(run, self._post, x, *halves, use_reentrant=False)
 
 
 Slices = List[Tuple[nn.Module, str, torch.Tensor]]
@@ -347,7 +366,8 @@ def wrapper_calls(cfg: ModelConfig, training: bool) -> Dict[str, int]:
     forward of a (B, T) batch, from the schedule and the remat set; with
     ``training``, also those of its backward: one backward call per forward
     call, and the forward calls a rematerialised block runs again (under
-    ``save_attn`` all but the attention's; under blanket remat all). The
+    ``save_attn`` and ``save_ctx`` all but the attention's; under blanket
+    remat all). The
     wrappers the model never calls (the backward ones without
     ``training``, the quantizers) count 0."""
     plain = set(cfg.plain_block_ids())

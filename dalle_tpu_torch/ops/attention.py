@@ -537,14 +537,45 @@ def _cotangent(dout: torch.Tensor) -> torch.Tensor:
     return dout
 
 
+class SavedContext:
+    """The ``out`` and ``lse`` of one attention call, kept for the replay
+    of a ``remat_policy="save_ctx"`` checkpoint (the JAX policy's
+    ``attn_out`` and ``attn_stats``): the first forward launches the kernel
+    and keeps them here; the checkpoint's replay in backward, which
+    recomputes the norm, the projections and rotary for q/k/v, takes them
+    from here instead of launching the kernel again. One holder serves one
+    call of one layer and micro-batch (``models/transformer.py`` makes a
+    pair a block call), and goes with the checkpoint that holds it."""
+
+    __slots__ = ("out", "lse")
+
+    def __init__(self):
+        self.out = self.lse = None
+
+
+def _attend_once(saved: Optional[SavedContext], fn, *args):
+    """``fn(*args)`` (an ``(out, lse)`` forward), or, when ``saved`` holds
+    them from this call's first forward, its ``out`` (a fresh alias, whose
+    autograd history is the replay's own) and ``lse``."""
+    if saved is None:
+        return fn(*args)
+    if saved.out is None:
+        saved.out, saved.lse = fn(*args)
+        return saved.out, saved.lse
+    return saved.out.detach(), saved.lse
+
+
 class LineAttention(torch.autograd.Function):
     """:func:`line_attention` returning ``out`` only, with
     :func:`line_attention_bwd` as its gradient (the ``custom_vjp`` of
-    ``attention_kernels.line_attention``)."""
+    ``attention_kernels.line_attention``). ``saved``: the call's
+    :class:`SavedContext` under ``save_ctx``."""
 
     @staticmethod
-    def forward(ctx, q, kl, vl, kp, vp, n, grid_side, transpose):
-        out, lse = line_attention(q, kl, vl, kp, vp, n, grid_side, transpose)
+    def forward(ctx, q, kl, vl, kp, vp, n, grid_side, transpose,
+                saved=None):
+        out, lse = _attend_once(saved, line_attention, q, kl, vl, kp, vp,
+                                n, grid_side, transpose)
         ctx.save_for_backward(q, kl, vl, kp, vp, out, lse)
         ctx.line = (n, grid_side, transpose)
         return out
@@ -553,17 +584,19 @@ class LineAttention(torch.autograd.Function):
     def backward(ctx, dout):
         grads = line_attention_bwd(*ctx.saved_tensors, _cotangent(dout),
                                    *ctx.line)
-        return grads + (None, None, None)
+        return grads + (None, None, None, None)
 
 
 class WindowAttention(torch.autograd.Function):
     """:func:`window_attention` returning ``out`` only, with
     :func:`window_attention_bwd` as its gradient (the ``custom_vjp`` of
-    ``attention_kernels.window_attention``)."""
+    ``attention_kernels.window_attention``). ``saved``: the call's
+    :class:`SavedContext` under ``save_ctx``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kp, vp, grid, hw):
-        out, lse = window_attention(q, k, v, kp, vp, grid, hw)
+    def forward(ctx, q, k, v, kp, vp, grid, hw, saved=None):
+        out, lse = _attend_once(saved, window_attention, q, k, v, kp, vp,
+                                grid, hw)
         ctx.save_for_backward(q, k, v, kp, vp, out, lse)
         ctx.window = (grid, hw)
         return out
@@ -572,4 +605,4 @@ class WindowAttention(torch.autograd.Function):
     def backward(ctx, dout):
         grads = window_attention_bwd(*ctx.saved_tensors, _cotangent(dout),
                                      *ctx.window)
-        return grads + (None, None)
+        return grads + (None, None, None)

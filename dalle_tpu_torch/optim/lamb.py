@@ -19,7 +19,7 @@ twin would be.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -140,16 +140,58 @@ def make_lr_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
     return schedule
 
 
-class Lamb:
-    """Clipped LAMB with f32 moments (``lamb.lamb`` as
-    ``make_optimizer_fp32`` builds it): ``init(model)`` -> state;
-    ``update(grads, state, model)`` -> ``(updates, state)``; the updates are
-    applied with :func:`apply_updates`. The hyperparameters are ``cfg``'s,
-    the learning rate is ``schedule(count)``."""
+class LambBase:
+    """The clipped LAMB update of both optimizers, one leaf at a time:
+    ``init(model)`` -> state; ``update(grads, state, model)`` ->
+    ``(updates, state)``, the updates applied with :func:`apply_updates`.
+    :meth:`prepare` clips the gradients by their global norm and gives the
+    step's learning rate and masks; :meth:`leaf_update` (the subclass's)
+    updates one leaf's moments and gives its parameter update. A leaf's
+    update reads nothing of another leaf's but the clip, so a caller may
+    run the leaves one at a time (``training/offload.py``)."""
 
     def __init__(self, schedule: Callable[[int], float],
                  cfg: OptimizerConfig):
         self.schedule, self.cfg = schedule, cfg
+
+    def prepare(self, grads: Tensors, count: int, model: nn.Module):
+        """``(clipped grads, lr, decay mask, stacked mask)`` of the update
+        at step ``count``; the global norm sums the leaves in the JAX leaf
+        order."""
+        cfg = self.cfg
+        grads = clip_grads(grads, cfg.max_grad_norm,
+                           jax_leaf_names(model.cfg))
+        return (grads, self.schedule(count), default_wd_mask(model),
+                default_stacked_mask(model, cfg.stacked_reps))
+
+    def lamb_update(self, p, m, v, lr: float, decay: bool,
+                    stacked: bool) -> torch.Tensor:
+        cfg = self.cfg
+        return lamb_leaf_update(p, m, v, decay, lr, eps=cfg.eps,
+                                weight_decay=cfg.weight_decay,
+                                clamp_value=cfg.clamp_value, stacked=stacked)
+
+    def leaf_update(self, g, m, v, p, lr: float, decay: bool,
+                    stacked: bool):
+        """``(update, new m, new v)`` of one leaf."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state, model: nn.Module):
+        grads, lr, decay, stacked = self.prepare(grads, state.count, model)
+        params = dict(model.named_parameters())
+        updates, mu, nu = {}, {}, {}
+        for n, g in grads.items():
+            updates[n], mu[n], nu[n] = self.leaf_update(
+                g, state.mu[n], state.nu[n], params[n], lr, decay[n],
+                stacked[n])
+        return updates, type(state)(state.count + 1, mu, nu)
+
+
+class Lamb(LambBase):
+    """Clipped LAMB with f32 moments (``lamb.lamb`` as
+    ``make_optimizer_fp32`` builds it). The hyperparameters are ``cfg``'s,
+    the learning rate is ``schedule(count)``."""
 
     def init(self, model: nn.Module) -> LambState:
         zeros = {name: torch.zeros_like(p, dtype=torch.float32)
@@ -157,26 +199,12 @@ class Lamb:
         return LambState(0, zeros,
                          {n: torch.zeros_like(t) for n, t in zeros.items()})
 
-    @torch.no_grad()
-    def update(self, grads: Tensors, state: LambState,
-               model: nn.Module) -> Tuple[Tensors, LambState]:
+    def leaf_update(self, g, m, v, p, lr: float, decay: bool,
+                    stacked: bool):
         cfg = self.cfg
-        grads = clip_grads(grads, cfg.max_grad_norm,
-                           jax_leaf_names(model.cfg))
-        mu = {n: cfg.beta1 * state.mu[n] + (1 - cfg.beta1) * g
-              for n, g in grads.items()}
-        nu = {n: cfg.beta2 * state.nu[n] + (1 - cfg.beta2) * g * g
-              for n, g in grads.items()}
-        lr = self.schedule(state.count)
-        decay = default_wd_mask(model)
-        stacked = default_stacked_mask(model, cfg.stacked_reps)
-        params = dict(model.named_parameters())
-        updates = {n: lamb_leaf_update(
-            params[n], mu[n], nu[n], decay[n], lr, eps=cfg.eps,
-            weight_decay=cfg.weight_decay, clamp_value=cfg.clamp_value,
-            stacked=stacked[n])
-            for n in grads}
-        return updates, LambState(state.count + 1, mu, nu)
+        m = cfg.beta1 * m + (1 - cfg.beta1) * g
+        v = cfg.beta2 * v + (1 - cfg.beta2) * g * g
+        return self.lamb_update(p, m, v, lr, decay, stacked), m, v
 
 
 @torch.no_grad()

@@ -20,7 +20,7 @@ returns a new state; nothing in the old state is modified.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple, Union
+from typing import Dict, NamedTuple, Union
 
 import torch
 from torch import nn
@@ -28,11 +28,7 @@ from torch import nn
 from dalle_tpu_torch.config import OptimizerConfig
 from dalle_tpu_torch.ops.quant import (Quantized, dequantize_blockwise,
                                        quantize_blockwise)
-from dalle_tpu_torch.optim.lamb import (Tensors, clip_grads,
-                                        default_stacked_mask,
-                                        default_wd_mask, lamb_leaf_update,
-                                        make_lr_schedule)
-from dalle_tpu_torch.params import jax_leaf_names
+from dalle_tpu_torch.optim.lamb import LambBase, make_lr_schedule
 
 Moment = Union[Quantized, torch.Tensor]
 
@@ -43,15 +39,10 @@ class Lamb8bitState(NamedTuple):
     nu: Dict[str, Moment]
 
 
-class Lamb8bit:
+class Lamb8bit(LambBase):
     """Clipped LAMB with 8-bit moments (``lamb8bit.lamb8bit`` as
-    ``make_optimizer_8bit`` builds it): ``init(model)`` -> state;
-    ``update(grads, state, model)`` -> ``(updates, state)``, as
-    :class:`~dalle_tpu_torch.optim.lamb.Lamb`."""
-
-    def __init__(self, schedule: Callable[[int], float],
-                 cfg: OptimizerConfig):
-        self.schedule, self.cfg = schedule, cfg
+    ``make_optimizer_8bit`` builds it), the interface of
+    :class:`~dalle_tpu_torch.optim.lamb.LambBase`."""
 
     def _quantize(self, x: torch.Tensor, signed: bool) -> Moment:
         if x.numel() >= self.cfg.min_8bit_size:
@@ -68,30 +59,17 @@ class Lamb8bit:
             nu[name] = self._quantize(zeros, False)
         return Lamb8bitState(0, mu, nu)
 
-    @torch.no_grad()
-    def update(self, grads: Tensors, state: Lamb8bitState,
-               model: nn.Module) -> Tuple[Tensors, Lamb8bitState]:
+    def leaf_update(self, g, m_s: Moment, v_s: Moment, p, lr: float,
+                    decay: bool, stacked: bool):
         cfg = self.cfg
-        grads = clip_grads(grads, cfg.max_grad_norm,
-                           jax_leaf_names(model.cfg))
-        lr = self.schedule(state.count)
-        decay = default_wd_mask(model)
-        stacked = default_stacked_mask(model, cfg.stacked_reps)
-        params = dict(model.named_parameters())
-        updates, mu, nu = {}, {}, {}
-        for n, g in grads.items():
-            m_s, v_s = state.mu[n], state.nu[n]
-            m = cfg.beta1 * _dequantize(m_s) + (1 - cfg.beta1) * g
-            v = cfg.beta2 * _dequantize(v_s) + (1 - cfg.beta2) * g * g
-            updates[n] = lamb_leaf_update(
-                params[n], m, v, decay[n], lr, eps=cfg.eps,
-                weight_decay=cfg.weight_decay, clamp_value=cfg.clamp_value,
-                stacked=stacked[n])
-            mu[n] = (quantize_blockwise(m, cfg.block_size, signed=True)
-                     if isinstance(m_s, Quantized) else m)
-            nu[n] = (quantize_blockwise(v, cfg.block_size, signed=False)
-                     if isinstance(v_s, Quantized) else v)
-        return updates, Lamb8bitState(state.count + 1, mu, nu)
+        m = cfg.beta1 * _dequantize(m_s) + (1 - cfg.beta1) * g
+        v = cfg.beta2 * _dequantize(v_s) + (1 - cfg.beta2) * g * g
+        update = self.lamb_update(p, m, v, lr, decay, stacked)
+        if isinstance(m_s, Quantized):
+            m = quantize_blockwise(m, cfg.block_size, signed=True)
+        if isinstance(v_s, Quantized):
+            v = quantize_blockwise(v, cfg.block_size, signed=False)
+        return update, m, v
 
 
 def _dequantize(moment: Moment) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Process roles of a peer (counterpart of ``dalle_tpu/parallel``)."""
+"""Process roles of a peer and its device mesh (counterpart of
+``dalle_tpu/parallel``)."""

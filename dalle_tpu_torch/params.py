@@ -327,18 +327,29 @@ def state_leaf_tensors(model: DALLE, opt_state) -> List[torch.Tensor]:
     return out
 
 
+def placed_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` in ``like``'s dtype on ``like``'s device, in pinned host
+    memory where ``like`` is pinned (a moment of an offloaded optimizer
+    state, ``training/offload.py``)."""
+    if like.is_pinned():
+        out = torch.empty(t.shape, dtype=like.dtype, pin_memory=True)
+        return out.copy_(t)
+    return t.to(device=like.device, dtype=like.dtype)
+
+
 def _as_tensor_like(a, like: torch.Tensor) -> torch.Tensor:
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(a))
-    return t.reshape(like.shape).to(device=like.device, dtype=like.dtype)
+    return placed_like(t.reshape(like.shape), like)
 
 
 @torch.no_grad()
 def load_state_leaves(model: DALLE, opt_state, arrays):
     """Adopt ``arrays`` (host arrays or tensors in :func:`jax_state_leaves`
     order) as the state: parameters are copied in place, each cast to its
-    parameter's dtype; returns the new optimizer state (same type, moments
-    on the parameters' device). Raises on a count or shape mismatch."""
+    parameter's dtype; returns the new optimizer state (same type, each
+    moment placed as the live one, :func:`placed_like`). Raises on a count
+    or shape mismatch."""
     leaves = jax_state_leaves(model.cfg, opt_state)
     if len(arrays) != len(leaves):
         raise ValueError(f"state has {len(leaves)} leaves, got "

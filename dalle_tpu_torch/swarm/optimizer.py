@@ -48,10 +48,18 @@ With an ``authorizer`` (``swarm/auth.py``), every matchmaking round
 (gradients, PowerSGD factors, state) announces this peer's access token
 and admits only peers whose token the experiment authority signed for
 their identity. A fault-injection DHT (``swarm/chaos.py``) hears each
-epoch advance (``ChaosDHT.note_epoch``: its crash-at-epoch). Multi-process
-peers are refused by
-:class:`~dalle_tpu_torch.parallel.multihost.SliceRole`, so every peer is
-one process and repair always runs.
+epoch advance (``ChaosDHT.note_epoch``: its crash-at-epoch).
+
+A peer of several processes (``parallel/multihost.py``) runs the JAX
+package's unsharded-slice paths: only the coordinator opens the DHT,
+tracks progress, matchmakes and averages; every process calls
+:meth:`CollaborativeOptimizer.step` in lockstep, the coordinator's
+decision (continue, global step, resync) is broadcast, the round is
+synchronous (no overlapped round on a slice), and the averaged gradients,
+the state-averaging result and a downloaded state are broadcast, so every
+process applies the same update. Followers run no auditor, state server
+or strike gossip, and a multi-process peer runs no round repair (a
+correction would have to reach the followers, who audit nothing).
 """
 
 from __future__ import annotations
@@ -65,8 +73,11 @@ import numpy as np
 import torch
 
 from dalle_tpu_torch.config import CollabConfig
+from dalle_tpu_torch.parallel.multihost import (broadcast_arrays,
+                                                broadcast_decision,
+                                                host_global)
 from dalle_tpu_torch.params import (jax_leaf_names, load_state_leaves,
-                                    state_leaf_tensors)
+                                    placed_like, state_leaf_tensors)
 from dalle_tpu_torch.swarm import compression
 from dalle_tpu_torch.swarm.allreduce import run_allreduce
 from dalle_tpu_torch.swarm.dht import DHT
@@ -126,6 +137,30 @@ class _PendingRound:
             return dict(self.hops)
 
 
+class _FollowerEMA:
+    samples_per_second = 0.0
+
+    def reset_timer(self) -> None:
+        pass
+
+
+class _FollowerTracker:
+    """Tracker stand-in for the followers of a multi-process peer: the
+    loop's bookkeeping surface with no wire behind it (the coordinator's
+    tracker decides for the whole peer)."""
+
+    min_refresh_period = 0.0
+
+    def __init__(self) -> None:
+        self.performance_ema = _FollowerEMA()
+
+    def report_local_progress(self, *a, **k) -> None:
+        pass
+
+    def reset_epoch(self, *a, **k) -> None:
+        pass
+
+
 class CollaborativeOptimizer:
     """Owns the train state and drives swarm-synchronous updates.
 
@@ -152,8 +187,9 @@ class CollaborativeOptimizer:
                  role=None):
         from dalle_tpu_torch.parallel.multihost import SliceRole
         self.role = role or SliceRole()
-        if dht is None:
-            raise ValueError("a trainer peer needs a DHT")
+        swarm = self.role.swarm_enabled
+        if swarm and dht is None:
+            raise ValueError("the peer's coordinator needs a DHT")
         self.dht = dht
         self.cfg = cfg
         self.state = state
@@ -174,7 +210,8 @@ class CollaborativeOptimizer:
         self.tracer = None
         if cfg.trace_file:
             from dalle_tpu_torch.obs.trace import Tracer
-            self.tracer = Tracer(peer=dht.peer_id[:12],
+            self.tracer = Tracer(peer=(dht.peer_id[:12] if dht is not None
+                                       else "local"),
                                  sink_path=cfg.trace_file,
                                  ring_bytes=cfg.trace_ring_kb * 1024)
         self.local_epoch = 0
@@ -184,14 +221,17 @@ class CollaborativeOptimizer:
         # offenders until the strikes decay. Content screening and the
         # frame-weight clamp ride every allreduce call; the gossip worker
         # publishes/folds signed strike receipts until shutdown().
+        # Followers of a multi-process peer get no ledger, tracker or
+        # screen of their own: the coordinator decides for the peer.
         from dalle_tpu_torch.swarm.health import (PeerHealthLedger,
                                                   StrikeGossip)
-        self.ledger = PeerHealthLedger()
-        self.tracker = ProgressTracker(
+        self.ledger = PeerHealthLedger() if swarm else None
+        self.tracker = (ProgressTracker(
             dht, cfg.run_id, cfg.target_batch_size,
             client_mode=client_mode, ledger=self.ledger,
             max_epoch_lead=cfg.progress_max_epoch_lead)
-        if cfg.screen_gradients:
+            if swarm else _FollowerTracker())
+        if cfg.screen_gradients and swarm:
             from dalle_tpu_torch.swarm.screening import (GradientScreen,
                                                          ScreenPolicy)
             self._screen = GradientScreen(ScreenPolicy(
@@ -213,8 +253,11 @@ class CollaborativeOptimizer:
         # are identical either way.
         from dalle_tpu_torch.swarm.device_codec import resolve_backend
         self._codec_backend = resolve_backend(cfg.wire_codec_backend)
+        # a multi-process peer hands the coordinator's wire host arrays,
+        # which it broadcasts to the followers
         self._device_grad_handoff = (
-            self._codec_backend == compression.DEVICE_BACKEND)
+            self._codec_backend == compression.DEVICE_BACKEND
+            and self.role.n_processes == 1)
         self._powersgd = None
         if cfg.grad_compression == "power_sgd":
             # rank-r factor exchange; the factors ride the wire as fp16
@@ -262,7 +305,7 @@ class CollaborativeOptimizer:
             self._ef_scatter = None
             self._ef_gather = None
         self._gossip = None
-        if cfg.gossip_strikes:
+        if cfg.gossip_strikes and swarm:
             self._gossip = StrikeGossip(dht, self.ledger, cfg.run_id,
                                         period=cfg.strike_gossip_period)
             self._gossip.start()
@@ -281,12 +324,15 @@ class CollaborativeOptimizer:
         self._audit_policy = None
         self._repair = None
         self._evidence = None
-        if cfg.audit_gather:
+        if cfg.audit_gather and swarm:
             from dalle_tpu_torch.swarm.audit import (AuditPolicy, AuditWorker,
                                                      EvidencePlane)
             self._audit_policy = AuditPolicy(frac=cfg.audit_frac,
                                              ttl=cfg.audit_ttl)
-            if cfg.repair_convicted:
+            if cfg.repair_convicted and self.role.n_processes == 1:
+                # one-process peers only: on a multi-process peer every
+                # correction would have to be broadcast, and the
+                # followers audit nothing to agree with
                 from dalle_tpu_torch.swarm.repair import RepairPlane
                 prefixes = [f"{cfg.run_id}_grads"]
                 if cfg.repair_aux_phases:
@@ -344,7 +390,7 @@ class CollaborativeOptimizer:
         self.last_wire_report: Optional[dict] = None
         self._apply_timings: dict = {}
         self._server: Optional[StateServer] = None
-        if serve_state and not client_mode:
+        if serve_state and not client_mode and swarm:
             self._server = StateServer(
                 dht, cfg.run_id, self._state_snapshot,
                 codec=self._state_codec,
@@ -367,10 +413,30 @@ class CollaborativeOptimizer:
             epoch, copies = self.local_epoch, [t.clone() for t in leaves]
         return epoch, [_host(t) for t in copies]
 
+    def _state_leaves(self) -> List[np.ndarray]:
+        """Host copies of the state leaves in the JAX order, taken under
+        the state lock (the loop's alignment of a multi-process peer)."""
+        with self.state_lock:
+            return host_global(state_leaf_tensors(self.state.model,
+                                                  self.state.opt_state))
+
     def _replace_state_leaves(self, arrays) -> None:
         with self.state_lock:
             self.state.opt_state = load_state_leaves(
                 self.state.model, self.state.opt_state, arrays)
+
+    def _share(self, arrays, shapes) -> list:
+        """The coordinator's ``arrays`` (f32, host arrays or tensors) on
+        every process of the peer, as host arrays; followers pass None
+        and the ``shapes`` of the template. A passthrough for one
+        process."""
+        if self.role.n_processes == 1:
+            return arrays
+        if self.role.swarm_enabled:
+            mine = [np.asarray(_host(a), np.float32) for a in arrays]
+            return broadcast_arrays(mine, like=mine)
+        return broadcast_arrays(None, like=[np.zeros(s, np.float32)
+                                            for s in shapes])
 
     # -- the hot path ----------------------------------------------------
 
@@ -433,23 +499,28 @@ class CollaborativeOptimizer:
 
         decision = self._CONTINUE
         min_epoch = 0
-        progress = self.tracker.global_progress()
-        if progress.epoch > self.local_epoch:
-            # keep accumulating between throttled attempts
-            if time.monotonic() >= self._next_resync:
-                decision = self._RESYNC
-                min_epoch = progress.epoch
-                self._next_resync = time.monotonic() + 1.0
-        elif progress.ready_to_update:
-            decision = self._GLOBAL_STEP
+        if self.role.swarm_enabled:
+            progress = self.tracker.global_progress()
+            if progress.epoch > self.local_epoch:
+                # keep accumulating between throttled attempts
+                if time.monotonic() >= self._next_resync:
+                    decision = self._RESYNC
+                    min_epoch = progress.epoch
+                    self._next_resync = time.monotonic() + 1.0
+            elif progress.ready_to_update:
+                decision = self._GLOBAL_STEP
+        # every process of a multi-process peer runs the coordinator's
+        # decision (each calls step() in lockstep)
+        decision = broadcast_decision(decision)
 
         if decision == self._RESYNC:
-            logger.info("behind the swarm (local %d < global %d): "
-                        "resyncing", self.local_epoch, min_epoch)
+            if self.role.swarm_enabled:
+                logger.info("behind the swarm (local %d < global %d): "
+                            "resyncing", self.local_epoch, min_epoch)
             self.load_state_from_peers(min_epoch=min_epoch)
             return did_global
         if decision == self._GLOBAL_STEP:
-            if self.cfg.delay_optimizer_step:
+            if self._delay_rounds:
                 self._launch_round()
                 return did_global  # the apply lands at a later reconcile
             self._run_global_step()
@@ -457,6 +528,15 @@ class CollaborativeOptimizer:
         return did_global
 
     # -- overlapped rounds (delay_optimizer_step) -------------------------
+
+    @property
+    def _delay_rounds(self) -> bool:
+        """Overlapped rounds run only where the wire thread can act alone:
+        one-process peers. A multi-process peer keeps the synchronous
+        path (its followers join the broadcasts in lockstep with the
+        coordinator's training thread)."""
+        return (self.cfg.delay_optimizer_step and self.role.swarm_enabled
+                and self.role.n_processes == 1)
 
     def _new_round_audit(self, epoch: int, phase_suffix: str = "grads"):
         """A fresh per-round audit container, or None when auditing is
@@ -741,6 +821,9 @@ class CollaborativeOptimizer:
         t0 = time.monotonic()
         leaves = self._wire_leaves(self._grad_acc)
         weight = float(max(self.local_samples, 1))
+        if not self.role.swarm_enabled:
+            self._follower_exchange(leaves)
+            return
         group = make_group(
             self.dht, f"{self.cfg.run_id}_grads", self.local_epoch,
             weight=weight, matchmaking_time=self.cfg.matchmaking_time,
@@ -763,6 +846,8 @@ class CollaborativeOptimizer:
         else:
             # alone this epoch: the grads never leave the device
             averaged = [g / weight for g in leaves]
+        # deliver the averaged gradients to this peer's followers
+        averaged = self._share(averaged, None)
         t_reduce = time.monotonic()
         self._apply_averaged(averaged)
         self.last_timings = {
@@ -777,11 +862,18 @@ class CollaborativeOptimizer:
                     self.local_epoch, time.monotonic() - t0,
                     group.size if group else 1, self.last_timings)
 
+    def _follower_exchange(self, leaves: List[torch.Tensor]) -> None:
+        """The follower half of a multi-process peer's global step: the
+        coordinator's averaged gradients, applied as it applies them."""
+        self._apply_averaged(self._share(None, [g.shape for g in leaves]))
+        self.last_timings = dict(self._apply_timings)
+
     def _note_epoch_advanced(self) -> None:
         """Every epoch advance drives the health ledger's strike decay and
         the fault injector's crash-at-epoch (``ChaosDHT.note_epoch``; a
-        plain DHT has no such attribute)."""
-        self.ledger.advance_epoch(self.local_epoch)
+        plain DHT has no such attribute). Followers have neither."""
+        if self.ledger is not None:
+            self.ledger.advance_epoch(self.local_epoch)
         note = getattr(self.dht, "note_epoch", None)
         if note is not None:
             note(self.local_epoch)
@@ -881,19 +973,17 @@ class CollaborativeOptimizer:
         Block-quantized moments are dequantized before averaging and
         requantized after (averaging their absmax scales against another
         peer's codes would corrupt the moments precisely in the divergent-
-        peer situation state averaging exists for). The step count stays
-        local (identical updates keep it synchronized)."""
+        peer situation state averaging exists for), on the peer's device
+        (the ``quantize_blockwise`` kernel), each new moment placed as the
+        old one (pinned host memory for an offloaded state). The step
+        count stays local (identical updates keep it synchronized). On a
+        multi-process peer every process enters together (the epoch
+        condition is deterministic); whether a group formed is the
+        coordinator's knowledge and is broadcast, and so is the average."""
         from dalle_tpu_torch.ops.quant import (Quantized,
                                                dequantize_blockwise,
                                                quantize_blockwise)
-        group = make_group(
-            self.dht, f"{self.cfg.run_id}_state", self.local_epoch,
-            weight=1.0, matchmaking_time=self.cfg.matchmaking_time,
-            min_group_size=self.matchmaking_min_group,
-            client_mode=self.client_mode, authorizer=self.authorizer,
-            encrypt=self.cfg.encrypt_data_plane)
-        if group is None or group.size <= 1:
-            return
+        averaged = None
         model, opt_state = self.state.model, self.state.opt_state
         params = dict(model.named_parameters())
         # (kind, name) of each float leaf, the JAX order with a quantized
@@ -909,64 +999,107 @@ class CollaborativeOptimizer:
             m = getattr(opt_state, kind)[name]
             return dequantize_blockwise(m) if isinstance(m, Quantized) else m
 
-        with self.state_lock:
-            floats = [_host(value(s).to(torch.float32)) for s in slots]
-        ra = self._new_round_audit(self.local_epoch, "state")
-        averaged = run_allreduce(
-            self.dht, group, f"{self.cfg.run_id}_state",
-            self.local_epoch, floats, weight=1.0,
-            allreduce_timeout=self.cfg.allreduce_timeout,
-            codec=self._state_codec,
-            adaptive_threshold=self.cfg.size_adaptive_threshold,
-            codec_backend=self._codec_backend, ledger=self.ledger,
-            screen=self._screen, max_peer_weight=self._max_peer_weight,
-            audit=ra)
-        self._submit_audit(ra)
-        if averaged is None:
+        if self.role.swarm_enabled:
+            group = make_group(
+                self.dht, f"{self.cfg.run_id}_state", self.local_epoch,
+                weight=1.0, matchmaking_time=self.cfg.matchmaking_time,
+                min_group_size=self.matchmaking_min_group,
+                client_mode=self.client_mode, authorizer=self.authorizer,
+                encrypt=self.cfg.encrypt_data_plane)
+            if group is not None and group.size > 1:
+                with self.state_lock:
+                    floats = [_host(value(s).to(torch.float32))
+                              for s in slots]
+                ra = self._new_round_audit(self.local_epoch, "state")
+                averaged = run_allreduce(
+                    self.dht, group, f"{self.cfg.run_id}_state",
+                    self.local_epoch, floats, weight=1.0,
+                    allreduce_timeout=self.cfg.allreduce_timeout,
+                    codec=self._state_codec,
+                    adaptive_threshold=self.cfg.size_adaptive_threshold,
+                    codec_backend=self._codec_backend, ledger=self.ledger,
+                    screen=self._screen,
+                    max_peer_weight=self._max_peer_weight, audit=ra)
+                self._submit_audit(ra)
+                # a convicted state round's correction lands in the
+                # averaged floats before they are adopted
+                averaged = self._repaired(averaged,
+                                          f"{self.cfg.run_id}_state")
+        if not broadcast_decision(0 if averaged is None else 1):
             return
-        # a convicted state round's correction lands in the averaged
-        # floats before they are adopted
-        averaged = self._repaired(averaged, f"{self.cfg.run_id}_state")
+        averaged = self._share(averaged, [params[n].shape
+                                          for _, n in slots])
         with self.state_lock, torch.no_grad():
             mu, nu = dict(opt_state.mu), dict(opt_state.nu)
             for (kind, name), avg in zip(slots, averaged):
+                x = _to_device(avg, self._device)
                 if kind == "param":
                     p = params[name]
-                    p.copy_(_to_device(avg, p.device).reshape(p.shape)
-                            .to(p.dtype))
+                    p.copy_(x.reshape(p.shape).to(p.dtype))
                     continue
                 tree = mu if kind == "mu" else nu
                 old = tree[name]
                 if isinstance(old, Quantized):
-                    x = _to_device(avg, old.codes.device).reshape(old.shape)
-                    tree[name] = quantize_blockwise(
-                        x, block_size=old.codes.shape[1], signed=old.signed)
+                    q = quantize_blockwise(
+                        x.reshape(old.shape), block_size=old.codes.shape[1],
+                        signed=old.signed)
+                    tree[name] = Quantized(placed_like(q.codes, old.codes),
+                                           placed_like(q.absmax, old.absmax),
+                                           q.shape, q.signed)
                 else:
-                    tree[name] = _to_device(avg, old.device).reshape(
-                        old.shape).to(old.dtype)
+                    tree[name] = placed_like(x.reshape(old.shape), old)
             self.state.opt_state = type(opt_state)(opt_state.count, mu, nu)
 
     def load_state_from_peers(self, min_epoch: int = 0,
                               timeout: Optional[float] = None) -> bool:
         """Bootstrap params+opt state from the freshest live peer
-        (reference callback.py:41, run_aux_peer.py:48)."""
+        (reference callback.py:41, run_aux_peer.py:48). On a
+        multi-process peer the coordinator downloads and broadcasts, and
+        every process adopts the same state."""
         # an in-flight overlapped round averages gradients for state this
         # download is about to replace: drain and discard it first
         self._finish_pending(block=True, discard=True)
-        result = load_state_from_peers(
-            self.dht, self.cfg.run_id, min_epoch=min_epoch,
-            timeout=timeout or self.cfg.averaging_timeout,
-            tracer=self.tracer)
-        if result is None:
-            logger.warning("load_state_from_peers: nobody answered")
-            return False
-        epoch, arrays = result
-        # accept only state that moves us forward (except at epoch 0, where
-        # a fresh joiner synchronizes its random init with the swarm)
-        if epoch < self.local_epoch or (
-                epoch == self.local_epoch and self.local_epoch > 0):
-            logger.warning("ignoring stale peer state (epoch %d <= local "
-                           "%d)", epoch, self.local_epoch)
+        epoch, arrays = -1, None
+        if self.role.swarm_enabled:
+            result = load_state_from_peers(
+                self.dht, self.cfg.run_id, min_epoch=min_epoch,
+                timeout=timeout or self.cfg.averaging_timeout,
+                tracer=self.tracer)
+            if result is None:
+                logger.warning("load_state_from_peers: nobody answered")
+            else:
+                epoch, arrays = result
+                # accept only state that moves us forward (except at epoch
+                # 0, where a fresh joiner synchronizes its random init with
+                # the swarm)
+                if epoch < self.local_epoch or (
+                        epoch == self.local_epoch and self.local_epoch > 0):
+                    logger.warning("ignoring stale peer state (epoch %d <= "
+                                   "local %d)", epoch, self.local_epoch)
+                    epoch, arrays = -1, None
+        if self.role.n_processes > 1:
+            # the broadcast needs the same shapes and dtypes everywhere:
+            # the download is brought to the local state's layout first
+            with self.state_lock:
+                like = [np.zeros(t.shape, _np_dtype(t)) for t in
+                        state_leaf_tensors(self.state.model,
+                                           self.state.opt_state)]
+            if arrays is not None:
+                try:
+                    if len(arrays) != len(like):
+                        raise ValueError(f"{len(arrays)} leaves, expected "
+                                         f"{len(like)}")
+                    arrays = [np.asarray(a).reshape(w.shape).astype(w.dtype)
+                              for a, w in zip(arrays, like)]
+                except ValueError:  # structurally alien state
+                    logger.warning("peer state does not match local "
+                                   "structure", exc_info=True)
+                    epoch, arrays = -1, None
+            epoch = broadcast_decision(epoch if arrays is not None else -1)
+            if epoch < 0:
+                return False
+            arrays = broadcast_arrays(arrays, like=like)
+        elif arrays is None:
             return False
         try:
             self._replace_state_leaves(arrays)
@@ -1029,6 +1162,14 @@ def _writable(a):
     if isinstance(a, torch.Tensor):
         return a.to(torch.float32).contiguous()
     return np.array(a, np.float32, copy=True)
+
+
+def _np_dtype(t: torch.Tensor) -> np.dtype:
+    """The host dtype of a state leaf as it crosses a state transfer (a
+    ``bfloat16`` leaf as float32)."""
+    if t.dtype == torch.bfloat16:
+        return np.dtype(np.float32)
+    return np.dtype(str(t.dtype).replace("torch.", ""))
 
 
 def _to_device(a, device: torch.device) -> torch.Tensor:

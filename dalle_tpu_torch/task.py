@@ -5,22 +5,33 @@ Capability parity with the reference's ``TrainingTask`` (``task.py:25-181``):
 one container that every entry point shares, building each subsystem on
 first access, so a trainer never opens a DHT it was not asked to join.
 The port's differences: the model is a PyTorch module on ``device`` (the
-GPU unless the caller asks for the CPU), one GPU per peer (no mesh), and
-the optimizer step runs on that device.
+GPU unless the caller asks for the CPU), one device a process, and the
+optimizer step runs on that device (with ``OptimizerConfig.offload`` the
+optimizer state waits in pinned host memory between updates,
+``training/offload.py``).
+
+A peer may be several processes (``parallel/multihost.py``): the caller
+initialises a ``gloo`` ``torch.distributed`` group before it builds the
+task, and every process builds the same task. The data axis of the mesh
+(``parallel/mesh.py``, ``dp=-1`` absorbs the processes) spans them: each
+trains on its rows of the slice's batch, and each grad step's gradients
+are their mean over the processes. Only the coordinator (rank 0) opens
+the DHT and speaks the swarm protocol; the followers learn its decisions
+through broadcasts. Sharded axes (``fsdp``, ``tp``, ``sp`` above 1) raise
+``NotImplementedError`` from the mesh when the task is built.
 
 A ``dense_scan`` model that the JAX package stacks keeps that layout here
 (``models/transformer.py``), and the task threads its ``dense_scan_reps()``
 into the optimizer as JAX ``task.py`` does. ``CollabConfig.chaos_plan``
 wraps the DHT in the fault injector (``swarm/chaos.py``) before anything
-else uses it. Settings whose modules are not ported yet raise
-``NotImplementedError`` when the task is built: optimizer offload and
-meshes other than one device (each names its ROADMAP item).
+else uses it.
 """
 
 from __future__ import annotations
 
 import functools
 import logging
+import time
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -52,8 +63,9 @@ class TrainingTask:
             raise NotImplementedError(
                 "sequence_parallel: ring/ulysses attention needs a mesh; "
                 "meshes wait for the multi-GPU slice (ROADMAP)")
-        optimizer.check_ported()
-        trainer.check_ported()
+        from dalle_tpu_torch.parallel.mesh import make_mesh
+        self.mesh = make_mesh(dp=trainer.dp, fsdp=trainer.fsdp,
+                              tp=trainer.tp, sp=trainer.sp)
         self.model_cfg = model
         self.opt_cfg = optimizer
         self.trainer_cfg = trainer
@@ -62,6 +74,8 @@ class TrainingTask:
         self.data_path = data_path
         self.tokenizer_path = tokenizer_path
         self.device = resolve_device(device)
+        # seconds of the last grad step's mean over the processes
+        self.grad_mean_s = 0.0
 
     # -- identity / swarm -------------------------------------------------
 
@@ -133,18 +147,24 @@ class TrainingTask:
 
     @functools.cached_property
     def slice_role(self):
+        """This process's role in its (possibly multi-process) peer:
+        exactly one process, the coordinator, speaks the swarm protocol
+        (``parallel/multihost.py``)."""
         from dalle_tpu_torch.parallel.multihost import SliceRole
         return SliceRole()
 
     @functools.cached_property
     def collab_optimizer(self):
         """Swarm-synchronous optimizer owning the train state (reference
-        ``task.py:121-135``)."""
+        ``task.py:121-135``). Followers of a multi-process peer never open
+        a DHT: the coordinator's results reach them through broadcasts."""
         from dalle_tpu_torch.swarm.optimizer import CollaborativeOptimizer
+        swarm = self.slice_role.swarm_enabled
         return CollaborativeOptimizer(
-            self.dht, self.collab_cfg, self.train_state, self.apply_step,
-            client_mode=self.peer_cfg.client_mode,
-            authorizer=self.authorizer, role=self.slice_role)
+            self.dht if swarm else None, self.collab_cfg, self.train_state,
+            self.apply_step, client_mode=self.peer_cfg.client_mode,
+            authorizer=self.authorizer if swarm else None,
+            role=self.slice_role)
 
     # -- compute ----------------------------------------------------------
 
@@ -175,9 +195,15 @@ class TrainingTask:
     @functools.cached_property
     def train_state(self):
         """The initial TrainState (fresh params; checkpoint restore is the
-        trainer loop's job, reference ``task.py:88-93``)."""
+        trainer loop's job, reference ``task.py:88-93``). With
+        ``optimizer.offload`` the optimizer state is placed in host memory
+        (reference ``offload.py``/``task.py:130``)."""
         from dalle_tpu_torch.training.steps import TrainState
-        return TrainState.create(self.model, self.tx)
+        state = TrainState.create(self.model, self.tx)
+        if self.opt_cfg.offload:
+            from dalle_tpu_torch.training.offload import offload_train_state
+            return offload_train_state(state)
+        return state
 
     @functools.cached_property
     def grad_step(self):
@@ -187,25 +213,45 @@ class TrainingTask:
         ``loss``, ``loss_text`` and ``loss_img``."""
         from dalle_tpu_torch.training.steps import grad_step
         accum = self.trainer_cfg.grad_accum_steps
+        if self.data_shards == 1:
+            def step(model, batch):
+                loss, aux, grads = grad_step(model, batch, accum)
+                return grads, aux
+            return step
+        from dalle_tpu_torch.parallel.multihost import mean_over_processes
 
-        def step(model, batch):
+        def mean_step(model, batch):
+            # this process's rows, then the mean over the slice's
+            # processes: the JAX grad step over the global mesh
             loss, aux, grads = grad_step(model, batch, accum)
-            return grads, aux
-        return step
+            t0 = time.monotonic()
+            names, keys = list(grads), list(aux)
+            mean = mean_over_processes([grads[n] for n in names]
+                                       + [aux[k] for k in keys])
+            self.grad_mean_s = time.monotonic() - t0
+            return (dict(zip(names, mean[:len(names)])),
+                    dict(zip(keys, mean[len(names):])))
+        return mean_step
 
     @functools.cached_property
     def apply_step(self):
         """``(state, averaged_grads) -> state``; the once-per-epoch
-        optimizer update (reference ``run_trainer_tpu.py:85-88`` seam)."""
-        from dalle_tpu_torch.training.steps import apply_step
+        optimizer update (reference ``run_trainer_tpu.py:85-88`` seam).
+        With ``optimizer.offload`` the update streams the host-resident
+        state through the device (``training/offload.py``)."""
         tx = self.tx
+        if self.opt_cfg.offload:
+            from dalle_tpu_torch.training.offload import \
+                make_offloaded_apply_step
+            return make_offloaded_apply_step(tx)
+        from dalle_tpu_torch.training.steps import apply_step
         return lambda state, grads: apply_step(state, grads, tx)
 
     # -- data -------------------------------------------------------------
 
     @property
     def data_shards(self) -> int:
-        return 1
+        return self.mesh.shape["dp"] * self.mesh.shape["fsdp"]
 
     @property
     def local_batch_size(self) -> int:
@@ -217,8 +263,18 @@ class TrainingTask:
     @functools.cached_property
     def data_seed(self) -> int:
         """Per-peer shuffle seed so peers see different data (reference
-        ``run_trainer.py:46``, ``hf_trainer.py:30-33``)."""
-        return peer_data_seed(self.identity, self.trainer_cfg.seed)
+        ``run_trainer.py:46``, ``hf_trainer.py:30-33``): the coordinator's,
+        broadcast to its followers, so that the processes of a peer read
+        one sequence of batches (a collective: every process asks for it
+        at the same point, the first :meth:`batches`)."""
+        if self.slice_role.n_processes == 1:
+            return peer_data_seed(self.identity, self.trainer_cfg.seed)
+        from dalle_tpu_torch.parallel.multihost import broadcast_decision
+        seed = (peer_data_seed(self.identity, self.trainer_cfg.seed)
+                if self.slice_role.coordinator else 0)
+        # a 64-bit seed crosses as two halves (the decision is an int64)
+        return (broadcast_decision(seed >> 32) << 32
+                | broadcast_decision(seed & 0xFFFFFFFF))
 
     @functools.cached_property
     def dataset(self):
@@ -242,12 +298,28 @@ class TrainingTask:
 
     def batches(self) -> Iterator[Dict[str, torch.Tensor]]:
         """Batches on :attr:`device`: ids as int64, the loss mask (real
-        data) as float32."""
+        data) as float32. With more than one data shard, this process's
+        rows of the slice's batch: of each of the ``grad_accum_steps``
+        micro-batches, the ``per_device_batch`` rows of its rank, as the
+        JAX grad step over the global mesh splits them."""
+        rows = self._shard_rows()
         for batch in self.dataset.batches(self.local_batch_size,
                                           seed=self.data_seed):
+            if rows is not None:
+                batch = {k: v[rows] for k, v in batch.items()}
             yield {k: (torch.from_numpy(v) if v.dtype == np.float32
                        else torch.from_numpy(v).long()).to(self.device)
                    for k, v in batch.items()}
+
+    def _shard_rows(self) -> Optional[np.ndarray]:
+        if self.data_shards == 1:
+            return None
+        from dalle_tpu_torch.parallel.multihost import process_index
+        t = self.trainer_cfg
+        per, micro = t.per_device_batch, t.per_device_batch * self.data_shards
+        lo = process_index() * per
+        return np.concatenate([np.arange(i * micro + lo, i * micro + lo + per)
+                               for i in range(t.grad_accum_steps)])
 
     # -- lifecycle --------------------------------------------------------
 

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from dalle_tpu_torch.params import (flax_path, opt_state_from_jax,
-                                    params_from_jax)
+                                    params_from_jax, placed_like)
 from dalle_tpu_torch.utils import msgpack
 
 logger = logging.getLogger(__name__)
@@ -242,8 +242,7 @@ def load_state_dict_into(state, state_dict: Dict, params_only: bool = False):
             mu=_quantized_leaves(opt_sd["mu"], {"params": root}, True),
             nu=_quantized_leaves(opt_sd["nu"], {"params": root}, False))
         port = opt_state_from_jax(jax_like, cfg)
-        device = next(model.parameters()).device
-        new_opt = _moments_like(port, state.opt_state, device)
+        new_opt = _moments_like(port, state.opt_state)
     src = dict(loaded.named_parameters())
     for name, p in model.named_parameters():
         p.copy_(src[name].to(device=p.device, dtype=p.dtype))
@@ -253,10 +252,11 @@ def load_state_dict_into(state, state_dict: Dict, params_only: bool = False):
     return state
 
 
-def _moments_like(src, like, device):
+def _moments_like(src, like):
     """The loaded optimizer state in the type of ``like`` (the live state),
-    its tensors on ``device``; raises when a moment's kind (quantized or
-    dense) differs from the live optimizer's."""
+    each tensor placed as the live one (its device; pinned host memory for
+    an offloaded state, ``params.placed_like``); raises when a moment's
+    kind (quantized or dense) differs from the live optimizer's."""
     from dalle_tpu_torch.ops.quant import Quantized
 
     def move(m, ref):
@@ -264,9 +264,10 @@ def _moments_like(src, like, device):
             raise ValueError("checkpoint moments do not match the "
                              "optimizer (state_bits / min_8bit_size)")
         if isinstance(m, Quantized):
-            return Quantized(m.codes.to(device), m.absmax.to(device),
-                             m.shape, m.signed)
-        return m.to(device=device, dtype=torch.float32)
+            return Quantized(placed_like(m.codes, ref.codes),
+                             placed_like(m.absmax, ref.absmax), m.shape,
+                             m.signed)
+        return placed_like(m, ref)
 
     mu = {n: move(src.mu[n], like.mu[n]) for n in like.mu}
     nu = {n: move(src.nu[n], like.nu[n]) for n in like.nu}

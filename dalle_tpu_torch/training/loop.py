@@ -11,6 +11,14 @@ the device until the swarm round needs them.
 
 ``profile_dir`` takes a ``torch.profiler`` trace (CPU and CUDA activity,
 Chrome trace JSON) of local steps ``profile_steps[0]..[1]``.
+
+Every process of a multi-process peer (``parallel/multihost.py``) runs the
+loop in lockstep. The coordinator alone touches the checkpoint directory
+and publishes metrics; at the start every process adopts the
+coordinator's (restored or fresh) state and epoch, and after each global
+step a broadcast code tells the followers whether the coordinator rolled
+back (then they adopt its state again) or failed on the way (then they
+raise instead of waiting for it).
 """
 
 from __future__ import annotations
@@ -83,12 +91,17 @@ def train_loop(task: TrainingTask,
 
     Returns the per-epoch reports.
     """
+    from dalle_tpu_torch.parallel import multihost
     from dalle_tpu_torch.training.checkpoint import (CheckpointManager,
                                                      params_are_finite)
 
     collab = task.collab_optimizer
+    coordinator = collab.role.swarm_enabled
+    multi = collab.role.n_processes > 1
     ckpt = None
-    if checkpoint_dir is not None:
+    if checkpoint_dir is not None and coordinator:
+        # a multi-process peer: only the coordinator touches the checkpoint
+        # directory; its (restored or fresh) state is broadcast below
         ckpt = CheckpointManager(checkpoint_dir, keep=keep_checkpoints)
         with collab.state_lock:
             restored = ckpt.restore_latest(collab.state)
@@ -100,6 +113,10 @@ def train_loop(task: TrainingTask,
             logger.info("resumed from local checkpoint at epoch %d", epoch)
             # if the swarm is ahead, the straggler-resync path in
             # collab.step() will still pull fresher state from peers
+    if multi:
+        # align every process on the coordinator's initial state (a fresh
+        # init is seed-identical, but a restore is the coordinator's alone)
+        _align(collab, coordinator)
     if warmup_steps:
         warmup(task, warmup_steps)
 
@@ -133,32 +150,28 @@ def train_loop(task: TrainingTask,
                         "overlapped", prog["epoch"], prog["scatter"],
                         prog["reduce"], prog["gather"],
                         prog["overlapped_steps"])
+            rolled_back = False
             if did_global and ckpt is not None:
-                epoch = collab.local_epoch
-                if not params_are_finite(collab.state.model):
-                    logger.warning(
-                        "non-finite params after epoch %d: rolling back to "
-                        "the local backup", epoch)
-                    # a round launched in the same step() that reconciled
-                    # the NaN-producing apply carries the divergent
-                    # trajectory's gradients: discard it before restoring
-                    collab.drop_pending_round()
-                    with collab.state_lock:
-                        restored = ckpt.restore_backup(collab.state)
-                        if restored is None:
-                            restored = ckpt.restore_latest(collab.state)
-                    if restored is None:
-                        raise RuntimeError(
-                            "params corrupted and no backup to restore")
-                    collab.state, backup_epoch = restored
-                    collab.local_epoch = backup_epoch
-                    collab.tracker.reset_epoch(backup_epoch)
-                else:
-                    do_backup = backup_every and epoch % backup_every == 0
-                    if save_every and epoch % save_every == 0:
-                        ckpt.save(collab.state, epoch, backup=do_backup)
-                    elif do_backup:
-                        ckpt.save_backup(collab.state, epoch)
+                try:
+                    rolled_back = _checkpoint_epoch(collab, ckpt, save_every,
+                                                    backup_every)
+                except BaseException:
+                    # a coordinator dying between the global step and the
+                    # rollback broadcast would leave every follower
+                    # waiting in broadcast_decision: send the abort code
+                    # first, then re-raise
+                    if multi:
+                        multihost.broadcast_decision(_ABORT)
+                    raise
+            if did_global and multi:
+                # a coordinator-side rollback re-aligns the followers
+                code = multihost.broadcast_decision(
+                    _ROLLED_BACK if rolled_back else _KEEP)
+                if code == _ABORT:
+                    raise RuntimeError("the peer's coordinator failed "
+                                       "during checkpoint handling")
+                if code == _ROLLED_BACK:
+                    _align(collab, coordinator)
             if collab.local_epoch != epoch_before:
                 # global step OR resync-from-peers: either way a new epoch
                 report = EpochReport(
@@ -168,7 +181,7 @@ def train_loop(task: TrainingTask,
                     samples_per_second=(
                         collab.tracker.performance_ema.samples_per_second))
                 reports.append(report)
-                if did_global and publish_metrics_records:
+                if did_global and publish_metrics_records and coordinator:
                     robust = collab.robustness_snapshot()
                     publish_metrics(
                         task.dht, task.peer_cfg.experiment_prefix,
@@ -218,7 +231,58 @@ def train_loop(task: TrainingTask,
         profiler.close()
         if ckpt is not None:
             ckpt.close()  # drain async checkpoint writes before returning
+    # no process of a peer returns before the coordinator's checkpoint
+    # writes have landed
+    multihost.sync()
     return reports
+
+
+#: the codes the coordinator broadcasts after each global step
+_KEEP, _ROLLED_BACK, _ABORT = 0, 1, 2
+
+
+def _checkpoint_epoch(collab, ckpt, save_every: int,
+                      backup_every: int) -> bool:
+    """After a global step: roll back to the local backup when the
+    parameters are not finite (returns True), else write the epoch's
+    checkpoint and backup as scheduled."""
+    from dalle_tpu_torch.training.checkpoint import params_are_finite
+    epoch = collab.local_epoch
+    if not params_are_finite(collab.state.model):
+        logger.warning("non-finite params after epoch %d: rolling back to "
+                       "the local backup", epoch)
+        # a round launched in the same step() that reconciled the
+        # NaN-producing apply carries the divergent trajectory's
+        # gradients: discard it before restoring
+        collab.drop_pending_round()
+        with collab.state_lock:
+            restored = ckpt.restore_backup(collab.state)
+            if restored is None:
+                restored = ckpt.restore_latest(collab.state)
+        if restored is None:
+            raise RuntimeError("params corrupted and no backup to restore")
+        collab.state, backup_epoch = restored
+        collab.local_epoch = backup_epoch
+        collab.tracker.reset_epoch(backup_epoch)
+        return True
+    do_backup = backup_every and epoch % backup_every == 0
+    if save_every and epoch % save_every == 0:
+        ckpt.save(collab.state, epoch, backup=do_backup)
+    elif do_backup:
+        ckpt.save_backup(collab.state, epoch)
+    return False
+
+
+def _align(collab, coordinator: bool) -> None:
+    """Every process of a multi-process peer adopts the coordinator's
+    state and epoch (the broadcasts of ``parallel/multihost.py``)."""
+    from dalle_tpu_torch.parallel import multihost
+    leaves = collab._state_leaves()
+    leaves = multihost.broadcast_arrays(leaves if coordinator else None,
+                                        like=leaves)
+    collab._replace_state_leaves(leaves)
+    collab.local_epoch = multihost.broadcast_decision(collab.local_epoch)
+    collab.tracker.reset_epoch(collab.local_epoch)
 
 
 class _StepProfiler:

@@ -761,3 +761,85 @@ def test_cuda_pixels_match_cpu(cuda_device):
     got = clip.clip_scores(copy.deepcopy(cl_cpu).to(dev), imgs.to(dev),
                            tokens.to(dev)).cpu()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# -- save_ctx remat and the offloaded optimizer state on the card ----------
+
+#: the flagship's structure (bf16 activations, head_dim 64, fused LayerNorm
+#: and block_3's GEGLU: the fast kernels) at a small width and depth
+SMALL_FLAGSHIP = dict(dim=128, heads=2, head_dim=64, depth=6,
+                      text_seq_len=32, image_grid=8, vocab_text=2048,
+                      vocab_image=512)
+
+
+def _small_flagship(device, seed=0, **overrides):
+    from dalle_tpu_torch.config import flagship_model_config
+    cfg = flagship_model_config(**SMALL_FLAGSHIP, **overrides)
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed))
+    model.train()
+    g = torch.Generator().manual_seed(seed + 1)
+    batch = {"text": torch.randint(1, cfg.vocab_text, (4, cfg.text_seq_len),
+                                   generator=g).to(device),
+             "image": torch.randint(0, cfg.vocab_image,
+                                    (4, cfg.image_seq_len),
+                                    generator=g).to(device)}
+    return cfg, model, batch
+
+
+@pytest.mark.cuda
+def test_cuda_save_ctx_equals_save_attn(cuda_device):
+    """Two micro-batches under ``save_ctx`` give ``save_attn``'s loss and
+    gradients bit for bit on the card, each with ``wrapper_calls``' exact
+    launch counts (the attention forward once a layer and micro-batch)."""
+    from dalle_tpu_torch.models.transformer import wrapper_calls
+    out = {}
+    for policy in ("save_attn", "save_ctx"):
+        cfg, model, batch = _small_flagship(cuda_device, remat_policy=policy)
+        reset_launches()
+        loss, _, grads = grad_step(model, batch, accum_steps=2)
+        assert dict(LAUNCHES) == {k: 2 * v for k, v in
+                                  wrapper_calls(cfg, training=True).items()}
+        assert not any(GENERIC_LAUNCHES.values())
+        out[policy] = (loss, grads)
+    (loss_a, g_a), (loss_c, g_c) = out.values()
+    assert torch.equal(loss_a, loss_c)
+    assert all(torch.equal(g_a[k], g_c[k]) for k in g_a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 32])
+def test_cuda_offloaded_update_equals_on_device(cuda_device, bits):
+    """Two updates with the optimizer state offloaded (pinned host
+    moments) equal the on-device updates bit for bit; the 8-bit update
+    launches ``quantize_blockwise`` on the card twice a quantized tensor."""
+    from dalle_tpu_torch.config import OptimizerConfig
+    from dalle_tpu_torch.ops.quant import Quantized
+    from dalle_tpu_torch.optim import make_optimizer
+    from dalle_tpu_torch.params import state_leaf_tensors
+    from dalle_tpu_torch.training.offload import (make_offloaded_apply_step,
+                                                  offload_train_state)
+    from dalle_tpu_torch.training.steps import TrainState, apply_step
+    tx = make_optimizer(OptimizerConfig(state_bits=bits, warmup_steps=0,
+                                        total_steps=10, min_8bit_size=4096))
+    _, model, batch = _small_flagship(cuda_device)
+    on_dev = TrainState.create(model, tx)
+    off = offload_train_state(TrainState.create(copy.deepcopy(model), tx))
+    moments = [t for tree in (off.opt_state.mu, off.opt_state.nu)
+               for m in tree.values()
+               for t in ((m.codes, m.absmax) if isinstance(m, Quantized)
+                         else (m,))]
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in moments)
+    n_q = sum(isinstance(m, Quantized) for m in off.opt_state.mu.values())
+    assert (n_q > 0) == (bits == 8)
+    apply_off = make_offloaded_apply_step(tx)
+    for _ in range(2):
+        _, _, grads = grad_step(on_dev.model, batch, accum_steps=2)
+        on_dev = apply_step(on_dev, grads, tx)
+        reset_launches()
+        off = apply_off(off, grads)
+        assert LAUNCHES["quantize_blockwise"] == 2 * n_q
+        for a, b in zip(state_leaf_tensors(on_dev.model, on_dev.opt_state),
+                        state_leaf_tensors(off.model, off.opt_state)):
+            assert torch.equal(a.cpu(), b.cpu())
+    assert all(t.is_pinned() for t in moments)

@@ -110,7 +110,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"dalle_tpu_torch.swarm.chaos", "dalle_tpu_torch.swarm.assist",
             "dalle_tpu_torch.training.remote_sink",
             "dalle_tpu_torch.cli.run_aux_peer",
-            "dalle_tpu_torch.utils.torch_io"} <= set(mods)
+            "dalle_tpu_torch.utils.torch_io",
+            "dalle_tpu_torch.training.offload",
+            "dalle_tpu_torch.parallel.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

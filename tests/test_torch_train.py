@@ -290,13 +290,10 @@ def test_unported_options_raise():
                       Lamb)
     with pytest.raises(ValueError, match="state_bits"):
         make_optimizer(tconfig.OptimizerConfig(state_bits=16))
-    _, tcfg, _, model, text, image = _setup("flagship_tiny",
-                                            remat_policy="save_ctx")
-    _, tb = _batches(text, image)
-    with torch.no_grad():                            # inference: no remat
-        model(tb["text"], tb["image"])
-    with pytest.raises(NotImplementedError, match="save_ctx"):
-        grad_step(model, tb)
+    # remat_policy="save_ctx" trains since it was ported
+    # (tests/test_torch_save_ctx.py); an unknown policy is refused
+    with pytest.raises(ValueError, match="remat_policy"):
+        _setup("flagship_tiny", remat_policy="save_all")
 
 
 def _count_wrappers(monkeypatch):
@@ -317,7 +314,7 @@ def _count_wrappers(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("policy", ["save_attn", None])
+@pytest.mark.parametrize("policy", ["save_attn", None, "save_ctx"])
 def test_training_routes_through_every_wrapper(policy, monkeypatch):
     """One micro-batch with grad on flagship_tiny calls the eight wrappers
     as often as the schedule and the remat set say (forward, the replays

@@ -265,13 +265,21 @@ def test_run_trainer_cli_trains_and_writes_metrics(tmp_path):
     (["--sequence-parallel", "ring"], "sequence_parallel"),
 ])
 def test_unported_flags_raise(tmp_path, argv, match):
-    """A flag whose module the port lacks raises, naming it. The
-    ``dense_scan`` layout, ``--stacked-reps`` and ``--chaos-plan`` raised
-    until the port took them: with them the CLI now trains one epoch."""
+    """A flag whose module the port lacks raises, naming it: a sharded mesh
+    axis (``--fsdp``) and sequence parallelism. The ``dense_scan`` layout,
+    ``--stacked-reps``, ``--chaos-plan``, ``save_ctx`` and ``--offload``
+    raised until the port took them: with them the CLI now trains one
+    epoch. ``--dp 2`` in one process is a mesh that does not cover the
+    peer's processes, the JAX package's ``ValueError``."""
     from dalle_tpu_torch.cli import run_trainer
     base = ["--preset", "tiny", "--device", "cpu", "--max-epochs", "1",
             "--identity-path", str(tmp_path / "id.pem")]
-    if match in ("dense_scan", "chaos", "stacked_reps"):
+    if argv == ["--dp", "2"]:
+        with pytest.raises(ValueError, match=match):
+            run_trainer.main(base + argv)
+        return
+    if match in ("dense_scan", "chaos", "stacked_reps", "save_ctx",
+                 "offload"):
         metrics = tmp_path / "m.jsonl"
         assert run_trainer.main(base + argv + [
             "--per-device-batch", "4", "--target-batch-size", "4",
@@ -334,13 +342,21 @@ def test_trust_plane_and_powersgd_flags_build_the_optimizer(tmp_path, argv,
 
 
 def test_multi_process_peers_raise(monkeypatch):
+    """Multi-process peers run over a ``gloo`` group
+    (tests/test_torch_multihost.py); a group of another backend is
+    refused, naming the multi-GPU slice."""
     import torch.distributed as dist
 
     from dalle_tpu_torch.parallel import multihost
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    monkeypatch.setattr(dist, "get_backend", lambda: "nccl")
     with pytest.raises(NotImplementedError, match="multi-process"):
         multihost.SliceRole()
+    monkeypatch.setattr(dist, "get_backend", lambda: "gloo")
+    role = multihost.SliceRole()
+    assert role.n_processes == 2 and not role.swarm_enabled
 
 
 def test_xl_preset_equals_jax():
