@@ -4,7 +4,8 @@
 collaborative trainer peer, real data, the serving router, access tokens,
 the stacked ``dense_scan`` model, the averaging assistant, fault
 injection, ``save_ctx`` remat on the XL model, the offloaded optimizer
-state and a multi-process peer on one NVIDIA GPU.
+state, a multi-process peer, the long-context model and the sharded mesh
+(fsdp, tp, ring and Ulysses sequence parallelism) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out RECORDS.json] [--profile TABLE.txt]
 
@@ -185,7 +186,24 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    bitwise equal after every epoch, every round a 2-peer group, each
    child within its timeout; recorded: the slice's gradient mean s a
    step, the rounds' s, the swarm's samples/s;
-15. the ``kernels`` line (the eleven ported kernels and the six generic
+15. the sharded mesh, each mesh a group of processes on the one card over
+   ``gloo`` (``parallel/launch.spawn``): (a) ``long_context_model_config()``
+   at full width and depth (64 ``full`` layers over 4 shared blocks, text
+   256 + 64x64 codes) in one process, two 8-bit steps of 2 samples through
+   the window kernel (exact launch counts; step s, img/s, peak memory),
+   and the window kernel at that shape against its plain version, forward
+   and backward, timed beside SDPA and its bound; (b) the same model cut
+   to ``RING_DEPTH`` layers, two processes at ``sp=2`` (ring), one grad
+   step against one process; (c) the flagship of phase 8 cut to
+   ``MESH_DEPTH`` layers, four processes at ``dp=1 fsdp=2 tp=2``, one
+   8-bit step of 4 samples against one process (loss and gradients; then
+   the update from the one-process gradients: parameters and 8-bit
+   codes; each process's resident bytes); (d) that flagship with
+   ``sequence_parallel="ulysses"``, four processes at ``tp=2 sp=2``, one
+   grad step against one process, the attention kernels on ``H/(tp*sp)``
+   heads; (e)
+   ``entry.dryrun_multichip(4)``: its four cases' finite losses;
+16. the ``kernels`` line (the eleven ported kernels and the six generic
    instances).
 
 With ``--profile``, one flagship forward and one training micro-batch are
@@ -2606,6 +2624,599 @@ def slice_phase(torch, smi, release_memory, root, dev="cuda",
     release_memory()
 
 
+# -- 15: the sharded mesh: long context, ring, fsdp x tp, Ulysses, dry run --
+# ---------------------------------------------------------------------------
+
+LONG_MICRO, LONG_STEPS = 2, 2  # 15a: micro-batch (accumulation 1), steps
+RING_DEPTH = 8                 # 15b: the long-context depth, cut for time
+MESH_DEPTH = 8                 # 15c-d: the flagship's depth, cut for time
+                               # (every collective crosses gloo through
+                               # host memory: 66 s a grad step at depth 64
+                               # in 15c, 31 s at 16; all five blocks kept)
+MESH_TIMEOUT_S = 600           # each spawned group of 15b-e, start to exit
+# 15b-d tolerances, each against one process on the same weights and batch
+# (bf16 activations, so rounding differs where the sharded program sums in
+# another order; PERF.md "PR 14"):
+MESH_LOSS_TOL = 2e-3           # |loss - loss_1| / loss_1
+MESH_GRAD_TOL = 8e-2           # per leaf: ||g - g_1|| / ||g_1|| (bf16;
+                               # 0.021-0.035 at the worst leaf in the first
+                               # runs; 2e-6 in f32 on the CPU)
+MESH_PARAM_TOL = 1e-6          # 15c, the update from the one-process
+                               # gradients: per leaf max |p - p_1| over
+                               # max |p_1| (only the clip norm's summation
+                               # order differs)
+MESH_CODES_SHARE = 1e-4        # 15c, the same update: share of the 8-bit
+                               # codes that may differ
+
+
+def _sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_peak(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(torch, dev):
+    if torch.device(dev).type == "cuda":
+        return torch.cuda.max_memory_allocated() / 1e9
+    return None
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _mesh_batch(torch, cfg, n, dev):
+    from dalle_tpu_torch.data.synthetic import SyntheticCodes
+    data = next(SyntheticCodes(cfg, num_samples=n, seed=SEED).batches(n))
+    return {k: torch.from_numpy(v).long().to(dev) for k, v in data.items()}
+
+
+def _mesh_cfg(case: str, overrides):
+    from dalle_tpu_torch.config import (flagship_model_config,
+                                        long_context_model_config)
+    if case == "ring":
+        return long_context_model_config(**{"depth": RING_DEPTH,
+                                            **overrides})
+    overrides = {"depth": MESH_DEPTH, **overrides}
+    if case == "ulysses":
+        return flagship_model_config(sequence_parallel="ulysses",
+                                     **overrides)
+    return flagship_model_config(**overrides)
+
+
+#: 15b-d: (mesh axes, micro-batch, accumulation, 8-bit update?)
+MESH_CASES = {
+    "ring": (dict(dp=1, fsdp=1, tp=1, sp=2), LONG_MICRO, 1, False),
+    "fsdp_tp": (dict(dp=1, fsdp=2, tp=2, sp=1), MICRO, 1, True),
+    "ulysses": (dict(dp=1, fsdp=1, tp=2, sp=2), MICRO, 1, False),
+}
+
+
+def mesh_child(rank: int, world: int, args) -> dict:
+    """One process of 15b-d (``parallel/launch.spawn``): the case's model
+    on its mesh from the seed, sharded; one grad step on its rows after a
+    warm-up step (and,
+    for fsdp_tp, one 8-bit update from the one-process gradients, cut to
+    its shards); every leaf gathered whole and held to the one-process
+    reference at ``args["ref"]`` on rank 0."""
+    import numpy as np
+    import torch
+
+    from dalle_tpu_torch import resolve_device
+    from dalle_tpu_torch.config import OptimizerConfig
+    from dalle_tpu_torch.models import attention as attn_mod
+    from dalle_tpu_torch.models.dalle import init_params
+    from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, reset_launches
+    from dalle_tpu_torch.ops.quant import Quantized
+    from dalle_tpu_torch.optim import make_optimizer, optimizer_state_bytes
+    from dalle_tpu_torch.parallel import collectives
+    from dalle_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    from dalle_tpu_torch.parallel.sequence import ring_attention
+    from dalle_tpu_torch.parallel.sharding import (moment_spec,
+                                                   shard_tensor,
+                                                   shard_train_state,
+                                                   unshard_moment,
+                                                   unshard_tensor)
+    from dalle_tpu_torch.training.steps import (TrainState, apply_step,
+                                                grad_step)
+
+    case = args["case"]
+    axes, micro, accum, update = MESH_CASES[case]
+    dev = resolve_device(args["dev"])
+    cfg = _mesh_cfg(case, args["overrides"])
+    mesh = make_mesh(**axes)
+    heads = []
+    for fn in (attn_mod.LineAttention, attn_mod.WindowAttention):
+        orig = fn.apply
+
+        def seen(*a, _orig=orig):
+            heads.append(int(a[0].shape[1]))
+            return _orig(*a)
+        fn.apply = seen
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        mesh=mesh)
+    model.train()
+    tx = make_optimizer(OptimizerConfig(state_bits=8, warmup_steps=2,
+                                        total_steps=100))
+    state = shard_train_state(mesh, TrainState.create(model, tx))
+    batch = batch_sharding(mesh, _mesh_batch(torch, cfg, micro * accum, dev),
+                           accum)
+    resident = (sum(p.numel() * p.element_size() for p in model.parameters())
+                + optimizer_state_bytes(state.opt_state))
+    _sync(torch, dev)
+    # what the process holds once sharded: the shards, the batch and the
+    # CUDA context's own allocations
+    allocated = (torch.cuda.memory_allocated() if dev.type == "cuda"
+                 else 0)
+    # a first grad step warms the process up (CUDA context, cuBLAS
+    # handles, allocator: 15a's first step takes 9 s against 0.7); the
+    # second, on the same weights, is timed and checked
+    grad_step(model, batch, accum)
+    _sync(torch, dev)
+    _reset_peak(torch, dev)
+    reset_launches()
+    collectives.reset_traffic()
+    t0 = time.perf_counter()
+    loss, _, grads = grad_step(model, batch, accum)
+    _sync(torch, dev)
+    grad_s = time.perf_counter() - t0
+    traffic = {k: list(v) for k, v in collectives.TRAFFIC.items()}
+    launches, generic = dict(LAUNCHES), dict(GENERIC_LAUNCHES)
+    out = dict(loss=float(loss), grad_s=grad_s, resident=resident,
+               allocated=allocated,
+               traffic_json=json.dumps(traffic),
+               launches_json=json.dumps(launches),
+               generic_json=json.dumps(generic),
+               heads=np.array(sorted(set(heads)) or [0]))
+    ref = torch.load(args["ref"], map_location="cpu", weights_only=True) \
+        if rank == 0 or update else None
+    if update:
+        # the update's inputs are the one-process gradients, cut to this
+        # process's shards: the sharded update is held to the one-process
+        # update alone (the gradients are held to theirs below)
+        reset_launches()
+        ref_grads = {n: shard_tensor(g.to(dev), model.shard_specs[n], mesh)
+                     for n, g in ref["grads"].items()}
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state = apply_step(state, ref_grads, tx)
+        _sync(torch, dev)
+        out["apply_s"] = time.perf_counter() - t0
+        out["quantize_launches"] = LAUNCHES["quantize_blockwise"]
+        del ref_grads
+    out["peak_gb"] = _peak_gb(torch, dev) or 0.0
+    if case == "ring":
+        # the ring alone at one layer's shape: forward + backward, and its
+        # bytes (this rank's, to gloo)
+        b, tl = micro, cfg.total_seq_len // mesh.sp
+        gen = torch.Generator(device=dev).manual_seed(SEED + rank)
+        q, k, v = (torch.randn((b, tl, cfg.heads, cfg.head_dim),
+                               generator=gen, device=dev).to(torch.bfloat16)
+                   .requires_grad_(True) for _ in range(3))
+        kw = dict(group=mesh.group("sp"), n_shards=mesh.sp,
+                  index=mesh.index("sp"))
+        ring_attention(q, k, v, **kw).float().sum().backward()
+        collectives.reset_traffic()
+        times = []
+        for _ in range(3):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            o = ring_attention(q, k, v, **kw)
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            o.float().sum().backward()
+            _sync(torch, dev)
+            times.append((t1 - t0, time.perf_counter() - t1))
+        out["ring_fwd_ms"] = min(t[0] for t in times) * 1e3
+        out["ring_bwd_ms"] = min(t[1] for t in times) * 1e3
+        out["ring_bytes"] = sum(r[1] for r in
+                                collectives.TRAFFIC.values()) / 3
+    # every leaf whole, held to the reference on rank 0
+    errs, perrs, codes_diff, codes_total = {}, {}, 0, 0
+    for name, g in grads.items():
+        spec = model.shard_specs[name]
+        whole = unshard_tensor(g, spec, mesh).cpu()
+        if rank == 0:
+            errs[name] = _rel_err(whole, ref["grads"][name])
+        if update:
+            p = unshard_tensor(model.get_parameter(name).detach(), spec,
+                               mesh).cpu()
+            if rank == 0:
+                want = ref["params"][name].float()
+                perrs[name] = float((p.float() - want).abs().max()
+                                    / want.abs().max().clamp_min(1e-30))
+            for moment in ("mu", "nu"):
+                m = getattr(state.opt_state, moment)[name]
+                if isinstance(m, Quantized):
+                    w = unshard_moment(m, moment_spec(mesh, m, spec), mesh)
+                    if rank == 0:
+                        codes = ref[moment][name]
+                        codes_diff += int((w.codes.cpu() != codes).sum())
+                        codes_total += codes.numel()
+    if rank == 0:
+        out["loss_err"] = abs(float(loss) - float(ref["loss"])) / abs(
+            float(ref["loss"]))
+        worst = max(errs, key=errs.get)
+        out["grad_err"], out["grad_worst"] = errs[worst], worst
+        if update:
+            pw = max(perrs, key=perrs.get)
+            out["param_err"], out["param_worst"] = perrs[pw], pw
+            out["codes_diff"], out["codes_total"] = codes_diff, codes_total
+    return out
+
+
+def _expected_resident(cfg, axes) -> int:
+    """The bytes each process of ``axes``'s mesh should hold of the
+    flagship's parameters and 8-bit state: every leaf's bytes over the
+    mesh axes of its spec (``param_shardings``); a quantized moment's
+    codes and absmax over ``fsdp`` where its block count divides; the
+    step count's 4 (``optimizer_state_bytes``)."""
+    from torch import device as torch_device
+
+    from dalle_tpu_torch.config import OptimizerConfig
+    from dalle_tpu_torch.models.dalle import DALLE
+    from dalle_tpu_torch.parallel.mesh import make_mesh
+    from dalle_tpu_torch.parallel.sharding import param_shardings
+    opt = OptimizerConfig(state_bits=8)
+    mesh = make_mesh(**axes, n_devices=axes["dp"] * axes["fsdp"]
+                     * axes["tp"] * axes["sp"])
+    with torch_device("meta"):
+        model = DALLE(cfg)
+    specs = param_shardings(mesh, model)
+    total = 4
+    for name, p in model.named_parameters():
+        split = math.prod(mesh.shape[a] for a in specs[name] if a)
+        total += p.numel() * p.element_size() // split
+        if p.numel() >= opt.min_8bit_size:
+            blocks = -(-p.numel() // opt.block_size)
+            per = mesh.fsdp if blocks % mesh.fsdp == 0 else 1
+            total += 2 * blocks * (opt.block_size + 4) // per
+        else:
+            total += 2 * p.numel() * 4 // split
+    return total
+
+
+def _mesh_reference(torch, case, overrides, dev, path, release_memory):
+    """The one-process run of a 15b-d case on the same weights and batch,
+    saved to ``path``: loss and gradients (and, with the 8-bit update,
+    the updated parameters and the moments' codes); returns its record."""
+    from dalle_tpu_torch.config import OptimizerConfig
+    from dalle_tpu_torch.models.dalle import init_params
+    from dalle_tpu_torch.ops.quant import Quantized
+    from dalle_tpu_torch.optim import make_optimizer, optimizer_state_bytes
+    from dalle_tpu_torch.training.steps import (TrainState, apply_step,
+                                                grad_step)
+    release_memory()
+    axes, micro, accum, update = MESH_CASES[case]
+    cfg = _mesh_cfg(case, overrides)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    model.train()
+    tx = make_optimizer(OptimizerConfig(state_bits=8, warmup_steps=2,
+                                        total_steps=100))
+    state = TrainState.create(model, tx)
+    resident = (sum(p.numel() * p.element_size() for p in model.parameters())
+                + optimizer_state_bytes(state.opt_state))
+    batch = _mesh_batch(torch, cfg, micro * accum, dev)
+    _sync(torch, dev)
+    _reset_peak(torch, dev)
+    t0 = time.perf_counter()
+    loss, _, grads = grad_step(model, batch, accum)
+    _sync(torch, dev)
+    rec = dict(loss=float(loss), grad_s=time.perf_counter() - t0,
+               resident=resident)
+    saved = dict(loss=loss.cpu(), grads={k: g.cpu() for k, g in
+                                         grads.items()})
+    if update:
+        t0 = time.perf_counter()
+        state = apply_step(state, grads, tx)
+        _sync(torch, dev)
+        rec["apply_s"] = time.perf_counter() - t0
+        saved["params"] = {k: p.detach().cpu()
+                           for k, p in model.named_parameters()}
+        for moment in ("mu", "nu"):
+            saved[moment] = {k: m.codes.cpu() for k, m in
+                             getattr(state.opt_state, moment).items()
+                             if isinstance(m, Quantized)}
+    rec["peak_gb"] = _peak_gb(torch, dev)
+    torch.save(saved, path)
+    del state, model, grads, loss, saved
+    release_memory()
+    return rec
+
+
+def mesh_case_phase(torch, smi, release_memory, root, case, dev="cuda",
+                    model_overrides=None) -> dict:
+    """15b-d: the case's one-process reference, then its mesh of
+    processes on the card (``parallel/launch.spawn``, a ``gloo`` group):
+    every process exits 0 within ``MESH_TIMEOUT_S``; the loss within
+    ``MESH_LOSS_TOL``, every gradient within ``MESH_GRAD_TOL`` (and, with
+    the update, every parameter within ``MESH_PARAM_TOL`` and at most
+    ``MESH_CODES_SHARE`` of the 8-bit codes different); no generic launch;
+    the attention kernels launched (on ``H/(tp*sp)`` heads under
+    Ulysses)."""
+    import tempfile
+
+    import numpy as np
+
+    from dalle_tpu_torch.parallel.launch import spawn
+    overrides = dict(model_overrides or {})
+    axes, micro, accum, update = MESH_CASES[case]
+    n = axes["dp"] * axes["fsdp"] * axes["tp"] * axes["sp"]
+    cfg = _mesh_cfg(case, overrides)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
+        path = os.path.join(tmp, "ref.pt")
+        ref = _mesh_reference(torch, case, overrides, dev, path,
+                              release_memory)
+        t0 = time.perf_counter()
+        outs = spawn(f"{os.path.abspath(__file__)}:mesh_child", n,
+                     dict(case=case, ref=path, dev=str(dev),
+                          overrides=overrides), timeout=MESH_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+    r0 = outs[0]
+    launches = [json.loads(str(o["launches_json"])) for o in outs]
+    generic = [json.loads(str(o["generic_json"])) for o in outs]
+    if any(any(g.values()) for g in generic):
+        raise AssertionError(f"{case}: generic launches {generic}")
+    losses = [float(o["loss"]) for o in outs]
+    if not all(math.isfinite(x) for x in losses) or len(set(losses)) != 1:
+        raise AssertionError(f"{case}: the processes' losses {losses}")
+    checks = dict(loss_err=(float(r0["loss_err"]), MESH_LOSS_TOL),
+                  grad_err=(float(r0["grad_err"]), MESH_GRAD_TOL))
+    if update:
+        checks["param_err"] = (float(r0["param_err"]), MESH_PARAM_TOL)
+        checks["codes_share"] = (int(r0["codes_diff"])
+                                 / max(int(r0["codes_total"]), 1),
+                                 MESH_CODES_SHARE)
+    bad = {k: v for k, v in checks.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"{case}: against one process {bad} (worst "
+                             f"gradient {r0['grad_worst']})")
+    resident = [int(o["resident"]) for o in outs]
+    expected = _expected_resident(cfg, axes)
+    if update and resident != [expected] * n:
+        raise AssertionError(f"{case}: resident bytes {resident}, "
+                             f"expected {expected} a process")
+    attn = ("line_attention", "window_attention")
+    heads = sorted({int(h) for o in outs for h in np.asarray(o["heads"])})
+    if case == "ring":
+        if any(l[k] for l in launches for k in attn):
+            raise AssertionError(f"ring: attention kernels launched "
+                                 f"{launches}")
+    else:
+        # (a CPU rehearsal runs the plain versions, which count nothing)
+        if torch.device(dev).type == "cuda" and not all(
+                l[k] > 0 for l in launches for k in attn):
+            raise AssertionError(f"{case}: attention kernels not "
+                                 f"launched {launches}")
+        want = cfg.heads // (axes["tp"] * axes["sp"])
+        if heads != [want]:
+            raise AssertionError(f"{case}: the attention kernels saw "
+                                 f"{heads} heads, expected {want}")
+    rec = dict(phase=f"mesh_{case}", card=smi, mesh=axes, processes=n,
+               config=dict(dim=cfg.dim, depth=cfg.depth,
+                           image_grid=cfg.image_grid,
+                           sequence_parallel=cfg.sequence_parallel),
+               overrides=overrides, micro=micro, accum=accum,
+               reference=ref, wall_s=wall_s, losses=losses,
+               checks={k: dict(value=v[0], tolerance=v[1])
+                       for k, v in checks.items()},
+               grad_worst=str(r0["grad_worst"]),
+               grad_s=[float(o["grad_s"]) for o in outs],
+               peak_gb=[float(o["peak_gb"]) for o in outs],
+               resident_bytes=resident, expected_resident_bytes=expected,
+               resident_share=[r / ref["resident"] for r in resident],
+               allocated_after_shard_bytes=[int(o["allocated"])
+                                            for o in outs],
+               traffic=[json.loads(str(o["traffic_json"])) for o in outs],
+               attention_heads=heads, launches=launches)
+    if update:
+        rec["apply_s"] = [float(o["apply_s"]) for o in outs]
+        rec["quantize_launches"] = [int(o["quantize_launches"])
+                                    for o in outs]
+    if case == "ring":
+        rec["ring_layer"] = dict(
+            fwd_ms=[float(o["ring_fwd_ms"]) for o in outs],
+            bwd_ms=[float(o["ring_bwd_ms"]) for o in outs],
+            bytes_per_rank=[float(o["ring_bytes"]) for o in outs])
+    emit(**rec)
+    release_memory()
+    return rec
+
+
+def long_context_phase(torch, smi, release_memory, cuda_ms, dev="cuda",
+                       model_overrides=None) -> dict:
+    """15a: ``long_context_model_config()`` at full width and depth (dim
+    1024, 64 ``full`` layers over 4 shared blocks, text 256 + 64x64 codes,
+    blanket remat) in one process: ``LONG_STEPS`` 8-bit steps of
+    ``LONG_MICRO`` samples through the window kernel (the exact launch
+    counts, no generic launch, finite losses), with step s, img/s and peak
+    memory; then the window kernel at this shape against its plain
+    version, forward and backward (``BF16_TOL``; the backward twice,
+    bitwise), its time by CUDA-graph replay beside the plain version's,
+    SDPA's and the bound."""
+    import torch.nn.functional as F
+
+    from dalle_tpu_torch.config import (OptimizerConfig,
+                                        long_context_model_config)
+    from dalle_tpu_torch.models.attention import zoo_attention_mask
+    from dalle_tpu_torch.models.dalle import init_params
+    from dalle_tpu_torch.models.transformer import wrapper_calls
+    from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, reset_launches
+    from dalle_tpu_torch.ops.attention import (window_attention,
+                                               window_attention_bwd,
+                                               window_attention_bwd_plain,
+                                               window_attention_plain)
+    from dalle_tpu_torch.ops.quant import Quantized
+    from dalle_tpu_torch.optim import make_optimizer
+    from dalle_tpu_torch.training.steps import TrainState, train_step
+
+    release_memory()
+    overrides = dict(model_overrides or {})
+    cfg = long_context_model_config(**overrides)
+    n = LONG_MICRO
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    model.train()
+    tx = make_optimizer(OptimizerConfig(state_bits=8, warmup_steps=2,
+                                        total_steps=100))
+    state = TrainState.create(model, tx)
+    n_q = sum(isinstance(m, Quantized) for m in state.opt_state.mu.values())
+    batch = _mesh_batch(torch, cfg, n, dev)
+    _sync(torch, dev)
+    _reset_peak(torch, dev)
+    reset_launches()
+    losses, step_s = [], []
+    for _ in range(LONG_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, tx, 1)
+        _sync(torch, dev)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    peak = _peak_gb(torch, dev)
+    per_step = wrapper_calls(cfg, training=True)
+    expected = {k: LONG_STEPS * v for k, v in per_step.items()} | {
+        "quantize_blockwise": LONG_STEPS * 2 * n_q}
+    if dict(LAUNCHES) != expected:
+        raise AssertionError(f"long_context: launch counts "
+                             f"{dict(LAUNCHES)} != {expected}")
+    if any(GENERIC_LAUNCHES.values()) or LAUNCHES["window_attention"] == 0:
+        raise AssertionError(f"long_context: generic launches "
+                             f"{dict(GENERIC_LAUNCHES)}, window "
+                             f"{LAUNCHES['window_attention']}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"long_context: losses {losses}")
+    launches = dict(LAUNCHES)
+    del state, model, metrics, batch
+    release_memory()
+
+    # the window kernel at this shape: image queries over 256 text + 4096
+    # image keys, 'full' (plain causal over the image)
+    B, H, Dh = n, cfg.heads, cfg.head_dim
+    TT, G = cfg.text_seq_len, cfg.image_grid
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def qkv():
+        q, k, v = (randn(B, cfg.total_seq_len, H, Dh).transpose(1, 2)
+                   for _ in range(3))
+        return [x[:, :, TT:] for x in (q, k, v)] + [k[:, :, :TT],
+                                                   v[:, :, :TT]]
+
+    sets = [qkv() for _ in range(2)]
+    got = window_attention(*sets[0], G, None)
+    want = window_attention_plain(*sets[0], G, None)
+    errs = [_cmp(torch, "window_attention 64x64 out", got[0], want[0],
+                 BF16_TOL)]
+    _cmp(torch, "window_attention 64x64 lse", got[1], want[1], LSE_TOL)
+    dout = randn(*got[0].shape)
+    bwd = [window_attention_bwd(*sets[0], got[0], got[1], dout, G, None)
+           for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*bwd)):
+        raise AssertionError("window_attention_bwd 64x64: two runs gave "
+                             "different bits")
+    bwd_plain = window_attention_bwd_plain(*sets[0], got[0], got[1], dout,
+                                           G, None)
+    for a, b in zip(bwd[0], bwd_plain):
+        errs.append(_cmp(torch, "window_attention_bwd 64x64", a, b,
+                         BF16_TOL))
+    del got, want, bwd, bwd_plain
+    mask = torch.from_numpy(zoo_attention_mask(
+        "full", TT, G, cfg.conv_kernel)).to(dev)[TT:]
+
+    def sdpa(q, k, v, kp, vp):
+        return F.scaled_dot_product_attention(
+            q, torch.cat([kp, k], 2), torch.cat([vp, v], 2), attn_mask=mask)
+
+    img = G * G
+    pairs = img * TT + img * (img + 1) // 2
+    nbytes = 4 * B * H * img * Dh * 2 + 2 * B * H * TT * Dh * 2 \
+        + B * H * img * 4
+    bms, by = bound(nbytes, 4 * Dh * B * H * pairs)
+    fwd = dict(ms=cuda_ms(lambda *a: window_attention(*a, G, None), sets,
+                          10)[0],
+               plain_ms=cuda_ms(lambda *a: window_attention_plain(
+                   *a, G, None), sets, 4)[0],
+               library_ms=cuda_ms(sdpa, sets, 10)[0],
+               bound_ms=bms, bound_by=by)
+    outs = [window_attention(*s, G, None) for s in sets]
+    bsets = [s + [o[0], o[1], dout] for s, o in zip(sets, outs)]
+    bwd_bound = bound(nbytes + 3 * B * H * img * Dh * 2
+                      + 2 * B * H * TT * Dh * 2, 10 * Dh * B * H * pairs)
+    bwd_t = dict(ms=cuda_ms(lambda *a: window_attention_bwd(*a, G, None),
+                            bsets, 10)[0],
+                 bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
+    window = dict(shape=(f"image q/k/v ({B},{H},{img},{Dh}) with a "
+                         f"{TT}-token prefix, full, bf16"),
+                  max_abs_err=max(errs), fwd=fwd, bwd=bwd_t,
+                  launches_per_micro_batch=dict(
+                      fwd=per_step["window_attention"],
+                      bwd=per_step["window_attention_bwd"]))
+    del sets, outs, bsets
+    steady = step_s[1:] or step_s
+    rec = dict(phase="long_context", card=smi, config=dict(
+        dim=cfg.dim, depth=cfg.depth, image_grid=cfg.image_grid,
+        total_seq_len=cfg.total_seq_len, attn_types=list(cfg.attn_types),
+        remat_policy=cfg.remat_policy), overrides=overrides, micro=n,
+        accum=1, steps=LONG_STEPS, losses=losses, step_s=step_s,
+        img_per_s=n * len(steady) / sum(steady), peak_gb=peak,
+        quantized_leaves=n_q, launches=launches, window_grid64=window)
+    emit(**rec)
+    release_memory()
+    return rec
+
+
+def _cmp(torch, name, got, want, tol) -> float:
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if not bool((err <= tol + tol * want.abs()).all()) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version: max |diff| {err.max().item()} "
+                             f"(tolerance {tol} + {tol}*|plain|)")
+    return err.max().item()
+
+
+def dryrun_phase(smi) -> dict:
+    """15e: ``entry.dryrun_multichip(4)`` on the card: four processes of
+    one ``gloo`` group, its cases' lines with finite losses."""
+    import contextlib
+    import io
+
+    from dalle_tpu_torch.entry import dryrun_multichip
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(4, device="cuda", timeout=MESH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("dryrun_multichip ok:")]
+    losses = [float(ln.rsplit("loss=", 1)[1]) for ln in lines]
+    if len(lines) != 4 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"dryrun_multichip(4): {buf.getvalue()}")
+    rec = dict(phase="dryrun_multichip", card=smi, processes=4,
+               lines=lines, seconds=secs)
+    emit(**rec)
+    return rec
+
+
+def mesh_phase(torch, smi, release_memory, cuda_ms, root) -> None:
+    """15: the long-context model in one process (15a), then ring (15b),
+    fsdp x tp (15c) and Ulysses (15d) meshes of processes on the card
+    against one process, and the dry run (15e); each path with the launch
+    counts set to 0 just before it and read just after."""
+    long_context_phase(torch, smi, release_memory, cuda_ms)
+    for case in ("ring", "fsdp_tp", "ulysses"):
+        mesh_case_phase(torch, smi, release_memory, root, case)
+    dryrun_phase(smi)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None,
@@ -3985,7 +4596,10 @@ def main() -> int:
     xl_cli_phase(torch, smi, release_memory, root)
     slice_phase(torch, smi, release_memory, root)
 
-    # -- 15. kernels line and the end ------------------------------------
+    # -- 15. the sharded mesh: long context, ring, fsdp x tp, Ulysses ------
+    mesh_phase(torch, smi, release_memory, cuda_ms, root)
+
+    # -- 16. kernels line and the end ------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_line = {"kernels": [{k: rec[k] for k in keys}

@@ -17,8 +17,14 @@ outputs for backward; ``--offload`` keeps the optimizer state in pinned
 host memory between updates. The CLI starts no ``torch.distributed``
 group of its own: a multi-process peer is a launcher that initialises a
 ``gloo`` group in each of its processes and then calls :func:`main` there
-with the same flags (``parallel/multihost.py``); ``--fsdp``, ``--tp`` and
-``--sp`` above 1 raise until the multi-GPU slice. The trust
+with the same flags (``parallel/multihost.py``). ``--dp``, ``--fsdp``,
+``--tp`` and ``--sp`` lay those processes out as the JAX mesh
+(``parallel/mesh.py``), one process a mesh device; a mesh that does not
+cover them raises the JAX ``ValueError``. A sharded mesh (``--fsdp``,
+``--tp`` or ``--sp`` above 1) trains with its shards, and raises
+``NotImplementedError`` with ``--checkpoint-dir`` (its checkpoints are
+written by ``training/checkpoint.py`` from every process, which the
+coordinator-only loop does not do yet). The trust
 plane (``--audit-gather``, ``--repair-convicted`` and the rest) is on by
 default as in the JAX CLI; ``--grad-compression power_sgd`` with
 ``--powersgd-rank`` and ``--[no-]powersgd-host-orthogonalize`` selects

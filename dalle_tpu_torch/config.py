@@ -1,25 +1,26 @@
 """Configuration of the PyTorch port.
 
 The port's own copy of ``dalle_tpu/config.py`` (``ModelConfig``, the
-attention-type names, ``tiny_model_config``, the flagship and XL presets,
+attention-type names, ``tiny_model_config``, the flagship, XL and
+long-context presets,
 ``OptimizerConfig``, the trainer peer's ``TrainerConfig``, ``CollabConfig``
 and ``PeerConfig``, the aux peer's ``AuxConfig``, and ``ServingConfig``):
 the port imports nothing of ``dalle_tpu``. The trainer peer's dataclasses
 carry every JAX field with its default, because the CLIs derive their
-flags from them; the mesh axes that shard across devices (``fsdp``,
-``tp``, ``sp`` above 1) raise ``NotImplementedError`` from the port's
-mesh (``parallel/mesh.py``) until the multi-GPU slice. Field names,
-defaults and the derived schedule are identical, so one set of keyword arguments builds the same
-model in either package, and the parameter converter (``params.py``) can
+flags from them; the mesh axes (``dp``, ``fsdp``, ``tp``, ``sp``) lay the
+peer's processes out as ``parallel/mesh.py`` says. Field names, defaults
+and the derived schedule are identical, so one set of keyword arguments
+builds the same model in either package, and the parameter converter (``params.py``) can
 map one tree onto the other.
 
 The training knobs ``remat``, ``remat_policy``, ``remat_skip_blocks`` and
 ``param_cast_hoist`` shape the port's training step as they shape the JAX
 one (``remat`` and ``remat_skip_blocks`` also decide which blocks run the
-fused GEGLU kernel, ``fuse_ff``). ``scan_unroll``, ``head_chunk`` and
-``sequence_parallel`` are kept so both packages build the same
-configuration: ``scan_unroll`` decides which parameter layout the JAX model
-writes, and the port ignores the other two.
+fused GEGLU kernel, ``fuse_ff``); ``sequence_parallel`` picks ring or
+Ulysses attention on a mesh with ``sp > 1`` (``parallel/sequence.py``).
+``scan_unroll`` and ``head_chunk`` are kept so both packages build the
+same configuration: ``scan_unroll`` decides which parameter layout the JAX
+model writes, and the port ignores ``head_chunk``.
 """
 
 from __future__ import annotations
@@ -677,5 +678,16 @@ def xl_model_config(**overrides: Any) -> ModelConfig:
     base = dict(dim=1792, heads=28, head_dim=64,
                 vocab_image=16384, image_grid=32,
                 remat_skip_blocks=0, head_chunk=2048, scan_unroll=2)
+    base.update(overrides)
+    return dataclasses.replace(ModelConfig(), **base)
+
+
+def long_context_model_config(**overrides: Any) -> ModelConfig:
+    """Long-sequence variant (the JAX package's
+    ``long_context_model_config``): a 64x64 code grid (4096 image tokens,
+    e.g. 512px images under an f8 VQGAN) with full-causal layers, sharded
+    over the ``sp`` mesh axis by ring attention when the mesh has one."""
+    base = dict(image_grid=64, attn_types=(ATTN_FULL,),
+                final_conv_block=False, sequence_parallel=SP_RING)
     base.update(overrides)
     return dataclasses.replace(ModelConfig(), **base)

@@ -76,6 +76,7 @@ from dalle_tpu_torch.ops import LAUNCHES
 from dalle_tpu_torch.ops.attention import SavedContext
 from dalle_tpu_torch.ops.geglu import GEGLUFn
 from dalle_tpu_torch.ops.layer_norm import LayerNormFn
+from dalle_tpu_torch.parallel import collectives
 
 LN_EPS = 1e-6
 
@@ -140,9 +141,9 @@ class ZooAttention(nn.Module):
     apart under ``save_attn`` and ``save_ctx``)."""
 
     def __init__(self, cfg: ModelConfig, attn_type: str,
-                 stack: Tuple[int, ...] = ()):
+                 stack: Tuple[int, ...] = (), mesh=None):
         super().__init__()
-        self.cfg, self.attn_type = cfg, attn_type
+        self.cfg, self.attn_type, self.mesh = cfg, attn_type, mesh
         pd = torch_dtype(cfg.param_dtype)
         self.q = Dense(cfg.dim, cfg.dim, False, pd, stack)
         self.k = Dense(cfg.dim, cfg.dim, False, pd, stack)
@@ -154,7 +155,8 @@ class ZooAttention(nn.Module):
         cfg = self.cfg
         cd = torch_dtype(cfg.dtype)
         b, t, _ = x.shape
-        q, k, v = (proj(x, cd).reshape(b, t, cfg.heads, cfg.head_dim)
+        x = column_input(x, self.mesh)
+        q, k, v = (proj(x, cd).reshape(b, t, -1, cfg.head_dim)
                    for proj in (self.q, self.k, self.v))
         if rot is not None:
             cos, sin = rot
@@ -162,19 +164,32 @@ class ZooAttention(nn.Module):
         return q, k, v
 
     def attend(self, q, k, v, saved=None):
-        """The attention kernels' (text, image) outputs, (B, H, t, d);
-        ``saved``: the calls' ``save_ctx`` holders."""
-        cfg = self.cfg
+        """The attention kernels' (text, image) outputs, (B, H, t, d), or
+        on a mesh with ``sp > 1`` the one sequence-parallel output (B, t,
+        H, d) in a tuple; ``saved``: the calls' ``save_ctx`` holders."""
+        cfg, mesh = self.cfg, self.mesh
+        if mesh is not None and mesh.sp > 1:
+            from dalle_tpu_torch.parallel.sequence import sp_zoo_attention
+            return (sp_zoo_attention(
+                q, k, v, mesh=mesh, mode=cfg.sequence_parallel,
+                attn_type=self.attn_type, text_len=cfg.text_seq_len,
+                grid=cfg.image_grid, conv_kernel=cfg.conv_kernel,
+                saved=saved),)
         return zoo_attention_halves(
             q, k, v, attn_type=self.attn_type, text_len=cfg.text_seq_len,
             grid=cfg.image_grid, conv_kernel=cfg.conv_kernel, saved=saved)
 
-    def project(self, out_t, out_i) -> torch.Tensor:
-        """The output projection of the joined halves, (B, T, dim)."""
-        out = join_halves(out_t, out_i)
+    def project(self, *outs) -> torch.Tensor:
+        """The output projection of the joined halves (or of the one
+        sequence-parallel output), (B, T, dim)."""
+        out = join_halves(*outs) if len(outs) == 2 else outs[0]
         b, t = out.shape[:2]
-        return self.out(out.reshape(b, t, self.cfg.dim),
-                        torch_dtype(self.cfg.dtype))
+        cd = torch_dtype(self.cfg.dtype)
+        out = out.reshape(b, t, -1)
+        if tp_group(self.mesh) is None:
+            return self.out(out, cd)
+        return row_output(out.to(cd) @ self.out.kernel.to(cd),
+                          self.out.bias, self.mesh)
 
 
 class GEGLUFeedForward(nn.Module):
@@ -184,9 +199,9 @@ class GEGLUFeedForward(nn.Module):
     package computes it on the blocks it does not fuse."""
 
     def __init__(self, cfg: ModelConfig, fuse: bool,
-                 stack: Tuple[int, ...] = ()):
+                 stack: Tuple[int, ...] = (), mesh=None):
         super().__init__()
-        self.cfg, self.fuse = cfg, fuse
+        self.cfg, self.fuse, self.mesh = cfg, fuse, mesh
         pd = torch_dtype(cfg.param_dtype)
         inner = cfg.ff_mult * cfg.dim
         self.wi = Dense(cfg.dim, inner, True, pd, stack)
@@ -195,6 +210,8 @@ class GEGLUFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = torch_dtype(self.cfg.dtype)
+        if tp_group(self.mesh) is not None:
+            return self._forward_tp(x, cd)
         if self.fuse:
             b, t, d = x.shape
             out = GEGLUFn.apply(x.reshape(b * t, d).to(cd),
@@ -207,6 +224,48 @@ class GEGLUFeedForward(nn.Module):
         gate = self.gate(x, cd)
         return self.wo(h * F.gelu(gate, approximate="tanh"), cd)
 
+    def _forward_tp(self, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+        """Column-parallel ``wi``/``gate`` on the local ``K/tp`` columns
+        (biases sliced to them), row-parallel ``wo``: the fused kernel
+        (or the unfused product) gives this rank's partial output without
+        ``bo``, which :func:`row_output` adds after the sum over ``tp``."""
+        group = tp_group(self.mesh)
+        x = column_input(x, self.mesh)
+        bi, bg = (collectives.split(b, -1, group).to(cd)
+                  for b in (self.wi.bias, self.gate.bias))
+        wi, wg, wo = (p.kernel.to(cd) for p in (self.wi, self.gate, self.wo))
+        if self.fuse:
+            b, t, d = x.shape
+            part = GEGLUFn.apply(x.reshape(b * t, d).to(cd), wi, wg, wo, bi,
+                                 bg, torch.zeros_like(self.wo.bias, dtype=cd))
+            part = part.reshape(b, t, -1)
+        else:
+            xc = x.to(cd)
+            h = xc @ wi + bi
+            part = (h * F.gelu(xc @ wg + bg, approximate="tanh")) @ wo
+        return row_output(part, self.wo.bias, self.mesh)
+
+
+def tp_group(mesh):
+    """The tensor-parallel group of ``mesh`` (None: no tensor
+    parallelism)."""
+    return mesh.group("tp") if mesh is not None and mesh.tp > 1 else None
+
+
+def column_input(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The input of a column-parallel product: ``x``, whose gradient is
+    summed over ``tp`` (each rank's product sees its columns only)."""
+    group = tp_group(mesh)
+    return x if group is None else collectives.reduce_grad(x, group)
+
+
+def row_output(part: torch.Tensor, bias: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel product's output: this rank's partial product summed
+    over ``tp`` in f32, plus the replicated ``bias``, rounded once to the
+    partial's dtype."""
+    total = collectives.all_reduce(part.float(), tp_group(mesh))
+    return (total + bias.float()).to(part.dtype)
+
 
 class TransformerBlock(nn.Module):
     """Pre-norm attention + GEGLU FF with residuals. ``remat``: checkpoint
@@ -216,21 +275,22 @@ class TransformerBlock(nn.Module):
     apply them, :meth:`Transformer.layers`)."""
 
     def __init__(self, cfg: ModelConfig, attn_type: str, fuse_ff: bool,
-                 remat: bool = False, stack: Tuple[int, ...] = ()):
+                 remat: bool = False, stack: Tuple[int, ...] = (),
+                 mesh=None):
         super().__init__()
-        self.cfg, self.remat = cfg, remat
+        self.cfg, self.remat, self.mesh = cfg, remat, mesh
         pd = torch_dtype(cfg.param_dtype)
         self.attn_norm = LayerNorm(cfg.dim, cfg.ln_fusion, pd, stack)
-        self.attn = ZooAttention(cfg, attn_type, stack)
+        self.attn = ZooAttention(cfg, attn_type, stack, mesh)
         self.ff_norm = LayerNorm(cfg.dim, cfg.ln_fusion, pd, stack)
-        self.ff = GEGLUFeedForward(cfg, fuse_ff, stack)
+        self.ff = GEGLUFeedForward(cfg, fuse_ff, stack, mesh)
 
     def _pre(self, x, rot):
         return self.attn.qkv(self.attn_norm(x, torch_dtype(self.cfg.dtype)),
                              rot)
 
-    def _post(self, x, out_t, out_i):
-        x = x + self.attn.project(out_t, out_i)
+    def _post(self, x, *outs):
+        x = x + self.attn.project(*outs)
         return x + self.ff(self.ff_norm(x, torch_dtype(self.cfg.dtype)))
 
     def _pre_attend(self, x, rot, saved):
@@ -244,11 +304,15 @@ class TransformerBlock(nn.Module):
         layers`), bound while each part runs; a checkpoint holds them in
         its closure for the replay."""
         def run(fn, *args):
-            with bound(params):
+            with bound(params), gathered(self):
                 return fn(*args)
 
         if not (self.remat and torch.is_grad_enabled()):
             return run(self._block, x, rot)
+        with replay_whole(self.mesh):
+            return self._remat(run, x, rot)
+
+    def _remat(self, run, x, rot):
         policy = self.cfg.remat_policy
         if policy is None:
             return checkpoint(run, self._block, x, rot, use_reentrant=False)
@@ -279,6 +343,41 @@ def bound(params: Optional[Slices]):
             module._parameters[name] = None
 
 
+@contextlib.contextmanager
+def gathered(block: nn.Module):
+    """Within the block, each fsdp-sharded kernel of ``block`` (the
+    modules' ``_fsdp_dims``, set by ``models.dalle.DALLE`` on a mesh with
+    ``fsdp > 1``) is its all-gather over ``fsdp``, whose backward
+    reduce-scatters the gradient; after it, the shard again."""
+    mesh = getattr(block, "mesh", None)
+    if mesh is None or mesh.fsdp == 1:
+        yield
+        return
+    group = mesh.group("fsdp")
+    swapped = []
+    for module in block.modules():
+        for leaf, dim in getattr(module, "_fsdp_dims", {}).items():
+            shard = module._parameters[leaf]
+            swapped.append((module, leaf, shard))
+            module._parameters[leaf] = collectives.all_gather(shard, dim,
+                                                              group)
+    try:
+        yield
+    finally:
+        for module, leaf, shard in swapped:
+            module._parameters[leaf] = shard
+
+
+def replay_whole(mesh):
+    """On a sharded mesh, checkpoints made within replay their whole
+    function (no early stop), so every rank replays the same
+    collectives."""
+    if mesh is None or not mesh.sharded:
+        return contextlib.nullcontext()
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+    return set_checkpoint_early_stop(False)
+
+
 def block_name(uid: int) -> str:
     return "block_wconv" if uid == -1 else f"block_{uid}"
 
@@ -288,9 +387,9 @@ class Transformer(nn.Module):
     group position of the stacked ``dense_scan`` layout), applied in
     ``cfg.layer_schedule()`` order, then the final norm."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.mesh = cfg, mesh
         plain = set(cfg.plain_block_ids())
         reps = cfg.dense_scan_reps()
         group = len(cfg.attn_types)
@@ -302,7 +401,7 @@ class Transformer(nn.Module):
                 self.blocks[name] = TransformerBlock(
                     cfg, attn_type, cfg.fuse_ff(uid in plain),
                     remat=cfg.remat and uid not in plain,
-                    stack=(reps,) if stacked else ())
+                    stack=(reps,) if stacked else (), mesh=mesh)
         self.final_norm = LayerNorm(cfg.dim, cfg.ln_fusion,
                                     torch_dtype(cfg.param_dtype))
         # the stacked layout's layers: modules without storage of their
@@ -316,7 +415,8 @@ class Transformer(nn.Module):
             block = self.blocks[block_name(u)]
             with torch.device("meta"):
                 views = [TransformerBlock(cfg, cfg.attn_types[u],
-                                          block.ff.fuse, block.remat)
+                                          block.ff.fuse, block.remat,
+                                          mesh=mesh)
                          for _ in range(reps)]
             self._views.append(views)
             for mod_name, mod in block.named_modules():
@@ -326,10 +426,15 @@ class Transformer(nn.Module):
                         sub._parameters[leaf] = None
                     self._slots.append((u, mod, leaf, subs))
 
-    def rotary(self, device) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    def rotary(self, device, start: int = 0, length: Optional[int] = None
+               ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """cos/sin of positions ``[start, start + length)`` (default: the
+        whole sequence)."""
         if not self.cfg.rotary:
             return None
-        return rotary_cos_sin(torch.arange(self.cfg.total_seq_len,
+        if length is None:
+            length = self.cfg.total_seq_len - start
+        return rotary_cos_sin(torch.arange(start, start + length,
                                            device=device), self.cfg.head_dim)
 
     def layers(self) -> List[Tuple[nn.Module, Optional[Slices]]]:
@@ -354,8 +459,26 @@ class Transformer(nn.Module):
                 out.append((self.blocks[block_name(uid)], None))
         return out
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        rot = self.rotary(x.device)
+    def set_fsdp_dims(self, specs: Dict[str, Tuple]) -> None:
+        """Record, on each module of the blocks (and the stacked layout's
+        views), the dimension of each leaf that is sharded over ``fsdp``;
+        ``specs``: each parameter's spec, by its name under this module."""
+        for name, spec in specs.items():
+            if "fsdp" not in spec:
+                continue
+            owner, leaf = name.rsplit(".", 1)
+            module = self.get_submodule(owner)
+            module.__dict__.setdefault("_fsdp_dims", {})[leaf] = \
+                spec.index("fsdp")
+        for _, block_param, leaf, subs in self._slots:
+            dim = getattr(block_param, "_fsdp_dims", {}).get(leaf)
+            for sub in subs:
+                if dim is not None:
+                    sub.__dict__.setdefault("_fsdp_dims", {})[leaf] = dim - 1
+
+    def forward(self, x: torch.Tensor, start: int = 0) -> torch.Tensor:
+        """``x``: (B, t, dim) at positions ``[start, start + t)``."""
+        rot = self.rotary(x.device, start, x.shape[1])
         for layer, params in self.layers():
             x = layer(x, rot, params)
         return self.final_norm(x, torch_dtype(self.cfg.dtype))

@@ -15,6 +15,16 @@ the JAX package's leaf order (``params.jax_leaf_names``). The stacked
 leaves of the ``dense_scan`` layout (:func:`default_stacked_mask`) take a
 trust ratio per slice, so each stacked layer is updated as its unrolled
 twin would be.
+
+On a sharded mesh (``parallel/sharding.py``) each process holds its shards
+of the parameters, gradients and moments. The global clip norm sums each
+leaf's squares over the axes that shard it; then the leaves are updated
+one at a time, as the offloaded update does: the leaf's parameter,
+gradient and moments are gathered whole (8-bit moments keep the JAX
+layout, blocks of ``block_size`` over the whole flattened leaf), the
+leaf's update runs as on one device (so the per-leaf and per-slice trust
+ratios are exact), and each process keeps its shards of the update and of
+the new moments. The transient memory is one leaf.
 """
 
 from __future__ import annotations
@@ -41,6 +51,27 @@ def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32."""
     return torch.sqrt(torch.stack([torch.sum(torch.square(t.float()))
                                    for t in tensors]).sum())
+
+
+def sharded_global_norm(grads: Tensors, order, model: nn.Module
+                        ) -> torch.Tensor:
+    """:func:`global_norm` of whole leaves from this process's shards of
+    them: each leaf's sum of squares is summed over the ``fsdp`` and the
+    ``tp`` ranks where its spec shards it, then the leaves in ``order``
+    (a passthrough to :func:`global_norm` off a sharded mesh)."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return global_norm(grads[n] for n in order)
+    from dalle_tpu_torch.parallel.collectives import sum_over
+    specs = model.shard_specs
+    sq = torch.stack([torch.sum(torch.square(grads[n].float()))
+                      for n in order])
+    for axis in ("fsdp", "tp"):
+        if mesh.shape[axis] > 1:
+            on = torch.tensor([axis in specs[n] for n in order],
+                              device=sq.device)
+            sq = torch.where(on, sum_over(sq, [mesh.group(axis)]), sq)
+    return torch.sqrt(sq.sum())
 
 
 def default_wd_mask(model: nn.Module) -> Dict[str, bool]:
@@ -102,15 +133,17 @@ def lamb_leaf_update(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     return (-lr * trust * adam_step).to(p.dtype)
 
 
-def clip_grads(grads: Tensors, max_grad_norm, order) -> Tensors:
+def clip_grads(grads: Tensors, max_grad_norm, order, model=None) -> Tensors:
     """The gradients in f32, scaled by ``min(1, max_grad_norm / (global
     norm + 1e-12))``; unscaled when ``max_grad_norm`` is None. ``order``:
     the names in the order the norm sums them (the JAX leaf order,
-    ``params.jax_leaf_names``)."""
+    ``params.jax_leaf_names``); ``model``: a sharded model's shards are
+    summed over its mesh (:func:`sharded_global_norm`)."""
     grads = {n: g.float() for n, g in grads.items()}
     if max_grad_norm is None:
         return grads
-    norm = global_norm(grads[n] for n in order)
+    norm = (sharded_global_norm(grads, order, model) if model is not None
+            else global_norm(grads[n] for n in order))
     scale = torch.clamp(max_grad_norm / (norm + 1e-12), max=1.0)
     return {n: g * scale for n, g in grads.items()}
 
@@ -160,7 +193,7 @@ class LambBase:
         order."""
         cfg = self.cfg
         grads = clip_grads(grads, cfg.max_grad_norm,
-                           jax_leaf_names(model.cfg))
+                           jax_leaf_names(model.cfg), model)
         return (grads, self.schedule(count), default_wd_mask(model),
                 default_stacked_mask(model, cfg.stacked_reps))
 
@@ -181,11 +214,51 @@ class LambBase:
         grads, lr, decay, stacked = self.prepare(grads, state.count, model)
         params = dict(model.named_parameters())
         updates, mu, nu = {}, {}, {}
+        if getattr(model, "mesh", None) is not None:
+            for n in jax_leaf_names(model.cfg):
+                updates[n], mu[n], nu[n] = self.sharded_leaf_update(
+                    model, n, grads[n], state.mu[n], state.nu[n], lr,
+                    decay[n], stacked[n])
+            return updates, type(state)(state.count + 1, mu, nu)
         for n, g in grads.items():
             updates[n], mu[n], nu[n] = self.leaf_update(
                 g, state.mu[n], state.nu[n], params[n], lr, decay[n],
                 stacked[n])
         return updates, type(state)(state.count + 1, mu, nu)
+
+    def sharded_leaf_update(self, model: nn.Module, name: str, g, m, v,
+                            lr: float, decay: bool, stacked: bool):
+        """:meth:`leaf_update` of a sharded model's leaf ``name`` from this
+        process's shards (``g`` clipped; ``m``/``v`` on any device): the
+        leaf gathered whole on the parameter's device, updated as on one
+        device, and this process's shards of ``(update, new m, new v)``
+        kept."""
+        from dalle_tpu_torch.parallel.sharding import (moment_spec,
+                                                       shard_moment,
+                                                       shard_tensor,
+                                                       unshard_moment,
+                                                       unshard_tensor)
+        mesh = model.mesh
+        spec = model.shard_specs[name]
+        p = model.get_parameter(name)
+        mspec, vspec = (moment_spec(mesh, x, spec) for x in (m, v))
+        update, m_new, v_new = self.leaf_update(
+            unshard_tensor(g, spec, mesh),
+            unshard_moment(_on(m, p.device), mspec, mesh),
+            unshard_moment(_on(v, p.device), vspec, mesh),
+            unshard_tensor(p.detach(), spec, mesh), lr, decay, stacked)
+        return (shard_tensor(update, spec, mesh),
+                shard_moment(m_new, mspec, mesh),
+                shard_moment(v_new, vspec, mesh))
+
+
+def _on(moment, device):
+    """A moment (dense, or quantized) on ``device``."""
+    from dalle_tpu_torch.ops.quant import Quantized
+    if isinstance(moment, Quantized):
+        return Quantized(moment.codes.to(device), moment.absmax.to(device),
+                         moment.shape, moment.signed)
+    return moment.to(device)
 
 
 class Lamb(LambBase):

@@ -14,12 +14,13 @@ calls ``jax.distributed.initialize`` either): rank 0 is the coordinator.
 The group's backend is ``gloo``, on every machine: the broadcasts carry
 host arrays, as the JAX package's ``multihost_utils`` does, and the
 processes of a slice may share one GPU. A group of any other backend is
-refused (``NCCL`` waits for the multi-GPU slice, ROADMAP Queue 1 item 7).
-Each process drives one device, and nothing is sharded: the slice's data
-axis (``dp``, ``parallel/mesh.py``) spans its processes, each trains on its
-rows of the slice's batch, and :func:`mean_over_processes` makes each grad
-step's gradients their mean over the processes, which is what the JAX
-grad step over the global mesh gives.
+refused (``NCCL`` waits for a machine with more than one card). Each
+process drives one device. On a data-parallel slice (``dp``,
+``parallel/mesh.py``) each trains on its rows of the slice's batch, and
+:func:`mean_over_processes` makes each grad step's gradients their mean
+over the processes, which is what the JAX grad step over the global mesh
+gives. On a sharded mesh (``fsdp``, ``tp``, ``sp``) each process holds its
+shards (``parallel/sharding.py``) and :func:`host_global` gathers them.
 
 Single-process runs (no group, or a group of one) take none of these
 paths: every helper is a passthrough.
@@ -61,8 +62,8 @@ def check_backend() -> None:
         if backend != BACKEND:
             raise NotImplementedError(
                 f"multi-process peers run over a {BACKEND!r} group; "
-                f"backend {backend!r} waits for the multi-GPU slice "
-                "(ROADMAP Queue 1 item 7)")
+                f"backend {backend!r} waits for a machine with more than "
+                "one card")
 
 
 def is_coordinator() -> bool:
@@ -136,11 +137,18 @@ def mean_over_processes(tensors: Sequence[torch.Tensor]
     return out
 
 
-def host_global(leaves: Sequence[torch.Tensor]) -> List[np.ndarray]:
-    """Host numpy copies of each leaf's global value: while nothing is
-    sharded across processes, a local copy."""
+def host_global(leaves: Sequence[torch.Tensor], specs=None,
+                mesh=None) -> List[np.ndarray]:
+    """Host numpy copies of each leaf's global value: a local copy, or on
+    a sharded ``mesh`` (``specs``: each leaf's spec,
+    ``parallel/sharding.py``) the leaf gathered whole over the mesh, a
+    collective that every process of the peer calls in the same order."""
     from dalle_tpu_torch.swarm.device_codec import to_host
-    return [to_host(t) for t in leaves]
+    if mesh is None or not mesh.sharded:
+        return [to_host(t) for t in leaves]
+    from dalle_tpu_torch.parallel.sharding import unshard_tensor
+    return [to_host(unshard_tensor(t, spec, mesh))
+            for t, spec in zip(leaves, specs)]
 
 
 def sync() -> None:

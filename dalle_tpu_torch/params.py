@@ -327,6 +327,26 @@ def state_leaf_tensors(model: DALLE, opt_state) -> List[torch.Tensor]:
     return out
 
 
+def _shards_of(model: DALLE, opt_state, arrays) -> list:
+    """This process's shards of whole state leaves (``arrays``, in
+    :func:`jax_state_leaves` order) of a sharded model."""
+    from dalle_tpu_torch.parallel.sharding import (shard_tensor,
+                                                   state_leaf_specs,
+                                                   whole_shape)
+    mesh = model.mesh
+    live = state_leaf_tensors(model, opt_state)
+    out = []
+    for a, t, spec in zip(arrays, live, state_leaf_specs(model, opt_state)):
+        if not spec:
+            out.append(a)
+            continue
+        whole = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(a))
+        out.append(shard_tensor(
+            whole.reshape(whole_shape(t.shape, spec, mesh)), spec, mesh))
+    return out
+
+
 def placed_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """``t`` in ``like``'s dtype on ``like``'s device, in pinned host
     memory where ``like`` is pinned (a moment of an offloaded optimizer
@@ -349,11 +369,14 @@ def load_state_leaves(model: DALLE, opt_state, arrays):
     order) as the state: parameters are copied in place, each cast to its
     parameter's dtype; returns the new optimizer state (same type, each
     moment placed as the live one, :func:`placed_like`). Raises on a count
-    or shape mismatch."""
+    or shape mismatch. A sharded model (``parallel/sharding.py``) takes
+    whole leaves and keeps its shards of them."""
     leaves = jax_state_leaves(model.cfg, opt_state)
     if len(arrays) != len(leaves):
         raise ValueError(f"state has {len(leaves)} leaves, got "
                          f"{len(arrays)}")
+    if getattr(model, "mesh", None) is not None:
+        arrays = _shards_of(model, opt_state, arrays)
     params = dict(model.named_parameters())
     count = opt_state.count
     mu, nu = dict(opt_state.mu), dict(opt_state.nu)

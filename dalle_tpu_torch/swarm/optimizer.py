@@ -60,6 +60,15 @@ the state-averaging result and a downloaded state are broadcast, so every
 process applies the same update. Followers run no auditor, state server
 or strike gossip, and a multi-process peer runs no round repair (a
 correction would have to reach the followers, who audit nothing).
+
+On a sharded mesh (``parallel/sharding.py``) each process accumulates
+its shards of the gradients; the round's leaves are gathered whole on
+every process (the coordinator averages them with the swarm), and each
+process keeps its shards of the averaged gradients, of a state-averaging
+result and of a downloaded state. The alignment's state leaves are
+gathered whole too (``multihost.host_global``). A sharded peer serves no
+state to joiners (its server thread cannot gather across processes) and
+runs no PowerSGD.
 """
 
 from __future__ import annotations
@@ -190,6 +199,12 @@ class CollaborativeOptimizer:
         swarm = self.role.swarm_enabled
         if swarm and dht is None:
             raise ValueError("the peer's coordinator needs a DHT")
+        # a sharded model's mesh (None: whole leaves on every process)
+        self._mesh = getattr(state.model, "mesh", None)
+        if self._mesh is not None and cfg.grad_compression == "power_sgd":
+            raise NotImplementedError(
+                "PowerSGD on a sharded peer: its factors need the whole "
+                "gradients on every process of the peer")
         self.dht = dht
         self.cfg = cfg
         self.state = state
@@ -390,7 +405,7 @@ class CollaborativeOptimizer:
         self.last_wire_report: Optional[dict] = None
         self._apply_timings: dict = {}
         self._server: Optional[StateServer] = None
-        if serve_state and not client_mode and swarm:
+        if serve_state and not client_mode and swarm and self._mesh is None:
             self._server = StateServer(
                 dht, cfg.run_id, self._state_snapshot,
                 codec=self._state_codec,
@@ -415,10 +430,15 @@ class CollaborativeOptimizer:
 
     def _state_leaves(self) -> List[np.ndarray]:
         """Host copies of the state leaves in the JAX order, taken under
-        the state lock (the loop's alignment of a multi-process peer)."""
+        the state lock (the loop's alignment of a multi-process peer);
+        whole leaves of a sharded model (a collective)."""
         with self.state_lock:
-            return host_global(state_leaf_tensors(self.state.model,
-                                                  self.state.opt_state))
+            model, opt = self.state.model, self.state.opt_state
+            if self._mesh is None:
+                return host_global(state_leaf_tensors(model, opt))
+            from dalle_tpu_torch.parallel.sharding import state_leaf_specs
+            return host_global(state_leaf_tensors(model, opt),
+                               state_leaf_specs(model, opt), self._mesh)
 
     def _replace_state_leaves(self, arrays) -> None:
         with self.state_lock:
@@ -597,7 +617,14 @@ class CollaborativeOptimizer:
             t += dur
 
     def _wire_leaves(self, acc: Grads) -> List[torch.Tensor]:
-        return [acc[n] for n in self._names]
+        """The accumulated gradients in the wire order, whole (a sharded
+        model's gathered over its mesh: a collective of every process)."""
+        if self._mesh is None:
+            return [acc[n] for n in self._names]
+        from dalle_tpu_torch.parallel.sharding import unshard_tensor
+        specs = self.state.model.shard_specs
+        return [unshard_tensor(acc[n], specs[n], self._mesh)
+                for n in self._names]
 
     def _launch_round(self) -> None:
         """Hand the gradient accumulator to a background wire thread and
@@ -890,6 +917,11 @@ class CollaborativeOptimizer:
         averaged = self._repaired(averaged, f"{self.cfg.run_id}_grads")
         grads = {n: _to_device(a, self._device)
                  for n, a in zip(self._names, averaged)}
+        if self._mesh is not None:
+            from dalle_tpu_torch.parallel.sharding import shard_tensor
+            specs = self.state.model.shard_specs
+            grads = {n: shard_tensor(g, specs[n], self._mesh)
+                     for n, g in grads.items()}
         with self.state_lock:
             self.state = self.apply_step(self.state, grads)
         _sync(self._device)
@@ -992,13 +1024,34 @@ class CollaborativeOptimizer:
         for moment in ("mu", "nu"):
             slots += [(moment, n) for n in self._names]
 
+        mesh = self._mesh
+        if mesh is not None:
+            from dalle_tpu_torch.parallel.sharding import (moment_spec,
+                                                           shard_moment,
+                                                           shard_tensor,
+                                                           unshard_moment,
+                                                           unshard_tensor)
+            specs = model.shard_specs
+
         def value(slot):
+            """The slot's whole float value (a sharded model's gathered:
+            every process takes every slot's, in order)."""
             kind, name = slot
             if kind == "param":
-                return params[name].detach()
+                p = params[name].detach()
+                return (p if mesh is None
+                        else unshard_tensor(p, specs[name], mesh))
             m = getattr(opt_state, kind)[name]
+            if mesh is not None:
+                m = unshard_moment(m, moment_spec(mesh, m, specs[name]),
+                                   mesh)
             return dequantize_blockwise(m) if isinstance(m, Quantized) else m
 
+        gathered = None
+        if mesh is not None:
+            with self.state_lock:
+                gathered = [_host(value(s).to(torch.float32))
+                            for s in slots]
         if self.role.swarm_enabled:
             group = make_group(
                 self.dht, f"{self.cfg.run_id}_state", self.local_epoch,
@@ -1007,9 +1060,12 @@ class CollaborativeOptimizer:
                 client_mode=self.client_mode, authorizer=self.authorizer,
                 encrypt=self.cfg.encrypt_data_plane)
             if group is not None and group.size > 1:
-                with self.state_lock:
-                    floats = [_host(value(s).to(torch.float32))
-                              for s in slots]
+                if gathered is not None:
+                    floats = gathered
+                else:
+                    with self.state_lock:
+                        floats = [_host(value(s).to(torch.float32))
+                                  for s in slots]
                 ra = self._new_round_audit(self.local_epoch, "state")
                 averaged = run_allreduce(
                     self.dht, group, f"{self.cfg.run_id}_state",
@@ -1027,14 +1083,19 @@ class CollaborativeOptimizer:
                                           f"{self.cfg.run_id}_state")
         if not broadcast_decision(0 if averaged is None else 1):
             return
-        averaged = self._share(averaged, [params[n].shape
-                                          for _, n in slots])
+        shapes = ([params[n].shape for _, n in slots] if mesh is None
+                  else [a.shape for a in gathered])
+        del gathered
+        averaged = self._share(averaged, shapes)
         with self.state_lock, torch.no_grad():
             mu, nu = dict(opt_state.mu), dict(opt_state.nu)
             for (kind, name), avg in zip(slots, averaged):
                 x = _to_device(avg, self._device)
                 if kind == "param":
                     p = params[name]
+                    if mesh is not None:
+                        x = shard_tensor(x.reshape(model.whole_shapes[name]),
+                                         specs[name], mesh)
                     p.copy_(x.reshape(p.shape).to(p.dtype))
                     continue
                 tree = mu if kind == "mu" else nu
@@ -1043,10 +1104,16 @@ class CollaborativeOptimizer:
                     q = quantize_blockwise(
                         x.reshape(old.shape), block_size=old.codes.shape[1],
                         signed=old.signed)
+                    if mesh is not None:
+                        q = shard_moment(q, moment_spec(mesh, q, specs[name]),
+                                         mesh)
                     tree[name] = Quantized(placed_like(q.codes, old.codes),
                                            placed_like(q.absmax, old.absmax),
                                            q.shape, q.signed)
                 else:
+                    if mesh is not None:
+                        x = shard_tensor(x.reshape(model.whole_shapes[name]),
+                                         specs[name], mesh)
                     tree[name] = placed_like(x.reshape(old.shape), old)
             self.state.opt_state = type(opt_state)(opt_state.count, mu, nu)
 
@@ -1080,10 +1147,16 @@ class CollaborativeOptimizer:
         if self.role.n_processes > 1:
             # the broadcast needs the same shapes and dtypes everywhere:
             # the download is brought to the local state's layout first
-            with self.state_lock:
-                like = [np.zeros(t.shape, _np_dtype(t)) for t in
-                        state_leaf_tensors(self.state.model,
-                                           self.state.opt_state)]
+            # (a sharded model's whole leaves, each process keeping its
+            # shards when it adopts them)
+            if self._mesh is not None:
+                like = [np.zeros(a.shape, a.dtype)
+                        for a in self._state_leaves()]
+            else:
+                with self.state_lock:
+                    like = [np.zeros(t.shape, _np_dtype(t)) for t in
+                            state_leaf_tensors(self.state.model,
+                                               self.state.opt_state)]
             if arrays is not None:
                 try:
                     if len(arrays) != len(like):

@@ -12,13 +12,20 @@ optimizer state waits in pinned host memory between updates,
 
 A peer may be several processes (``parallel/multihost.py``): the caller
 initialises a ``gloo`` ``torch.distributed`` group before it builds the
-task, and every process builds the same task. The data axis of the mesh
-(``parallel/mesh.py``, ``dp=-1`` absorbs the processes) spans them: each
+task, and every process builds the same task. The processes are the
+devices of the ``(dp, fsdp, tp, sp)`` mesh (``parallel/mesh.py``, ``dp=-1``
+absorbs the processes the other axes leave). On a data-parallel mesh each
 trains on its rows of the slice's batch, and each grad step's gradients
-are their mean over the processes. Only the coordinator (rank 0) opens
+are their mean over the processes. On a sharded mesh (``fsdp``, ``tp`` or
+``sp`` above 1) the model is built for the mesh and the train state holds
+each process's shards (``parallel/sharding.shard_train_state``); processes
+that share a batch index (the same ``dp``/``fsdp`` coordinate, any
+``tp``/``sp``) read the same rows, the ``sp`` ranks take their token
+slices, and the grad step's gradients are this process's shards of the
+global mesh's (the collaborative optimizer gathers them whole for the
+swarm round, ``swarm/optimizer.py``). Only the coordinator (rank 0) opens
 the DHT and speaks the swarm protocol; the followers learn its decisions
-through broadcasts. Sharded axes (``fsdp``, ``tp``, ``sp`` above 1) raise
-``NotImplementedError`` from the mesh when the task is built.
+through broadcasts.
 
 A ``dense_scan`` model that the JAX package stacks keeps that layout here
 (``models/transformer.py``), and the task threads its ``dense_scan_reps()``
@@ -38,7 +45,7 @@ import numpy as np
 import torch
 
 from dalle_tpu_torch import resolve_device
-from dalle_tpu_torch.config import (SP_NONE, CollabConfig, ModelConfig,
+from dalle_tpu_torch.config import (CollabConfig, ModelConfig,
                                     OptimizerConfig, PeerConfig,
                                     TrainerConfig)
 from dalle_tpu_torch.swarm.metrics import make_validators, peer_data_seed
@@ -59,10 +66,6 @@ class TrainingTask:
                  tokenizer_path: Optional[str] = None,
                  device="cuda"):
         model.validate()
-        if model.sequence_parallel != SP_NONE:
-            raise NotImplementedError(
-                "sequence_parallel: ring/ulysses attention needs a mesh; "
-                "meshes wait for the multi-GPU slice (ROADMAP)")
         from dalle_tpu_torch.parallel.mesh import make_mesh
         self.mesh = make_mesh(dp=trainer.dp, fsdp=trainer.fsdp,
                               tp=trainer.tp, sp=trainer.sp)
@@ -168,14 +171,22 @@ class TrainingTask:
 
     # -- compute ----------------------------------------------------------
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the mesh shards parameters or sequences."""
+        return self.mesh.sharded
+
     @functools.cached_property
     def model(self):
         """The DALLE, its parameters drawn from ``trainer.seed`` on
-        :attr:`device` (``models.dalle.init_params``), in training mode."""
+        :attr:`device` (``models.dalle.init_params``), in training mode;
+        on a sharded mesh, built for it (whole until :attr:`train_state`
+        shards it)."""
         from dalle_tpu_torch.models.dalle import init_params
         gen = torch.Generator(device=self.device).manual_seed(
             self.trainer_cfg.seed)
-        model = init_params(self.model_cfg, gen)
+        model = init_params(self.model_cfg, gen,
+                            mesh=self.mesh if self.sharded else None)
         model.train()
         return model
 
@@ -198,8 +209,10 @@ class TrainingTask:
         trainer loop's job, reference ``task.py:88-93``). With
         ``optimizer.offload`` the optimizer state is placed in host memory
         (reference ``offload.py``/``task.py:130``)."""
+        from dalle_tpu_torch.parallel.sharding import shard_train_state
         from dalle_tpu_torch.training.steps import TrainState
-        state = TrainState.create(self.model, self.tx)
+        state = shard_train_state(self.mesh,
+                                  TrainState.create(self.model, self.tx))
         if self.opt_cfg.offload:
             from dalle_tpu_torch.training.offload import offload_train_state
             return offload_train_state(state)
@@ -213,7 +226,9 @@ class TrainingTask:
         ``loss``, ``loss_text`` and ``loss_img``."""
         from dalle_tpu_torch.training.steps import grad_step
         accum = self.trainer_cfg.grad_accum_steps
-        if self.data_shards == 1:
+        if self.data_shards == 1 or self.sharded:
+            # one process, or a sharded mesh whose grad step sums the
+            # processes' parts itself (training.steps.reduce_gradients)
             def step(model, batch):
                 loss, aux, grads = grad_step(model, batch, accum)
                 return grads, aux
@@ -317,7 +332,9 @@ class TrainingTask:
         from dalle_tpu_torch.parallel.multihost import process_index
         t = self.trainer_cfg
         per, micro = t.per_device_batch, t.per_device_batch * self.data_shards
-        lo = process_index() * per
+        index = (self.mesh.index("batch") if self.sharded
+                 else process_index())
+        lo = index * per
         return np.concatenate([np.arange(i * micro + lo, i * micro + lo + per)
                                for i in range(t.grad_accum_steps)])
 

@@ -30,6 +30,12 @@ The port's train state is updated in place by the apply, so an async
 save first takes a device-side copy of every tensor (on the training
 thread, ordered after the apply that produced it); the writer thread
 serializes the copy.
+
+A sharded model (``parallel/sharding.py``) is saved as whole leaves in the
+same format: :func:`state_to_state_dict` gathers every leaf over the mesh
+(a collective: every process of the peer calls it, and the caller writes
+the file from one), and :func:`load_state_dict_into` gives each process
+its shards of the whole leaves it reads.
 """
 
 from __future__ import annotations
@@ -177,6 +183,26 @@ def _nest(flat: Dict[Tuple[str, ...], Any]) -> Dict:
     return out
 
 
+def _whole(model, opt):
+    """The whole parameters and moments of a sharded model's state
+    (gathered over its mesh), or its own tensors."""
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return params, opt.mu, opt.nu
+    from dalle_tpu_torch.parallel.sharding import (moment_spec,
+                                                   unshard_moment,
+                                                   unshard_tensor)
+    specs = model.shard_specs
+
+    def moments(tree):
+        return {n: unshard_moment(m, moment_spec(mesh, m, specs[n]), mesh)
+                for n, m in tree.items()}
+
+    return ({n: unshard_tensor(p, specs[n], mesh) for n, p in params.items()},
+            moments(opt.mu), moments(opt.nu))
+
+
 def _moment_tree(moments: Dict, cfg) -> Dict:
     flat = {}
     for name, m in moments.items():
@@ -191,15 +217,16 @@ def state_to_state_dict(state) -> Dict:
     leaves)."""
     model, opt = state.model, state.opt_state
     cfg = model.cfg
-    params = _nest({("params",) + flax_path(n, cfg): p.detach()
-                    for n, p in model.named_parameters()})
+    whole, mu, nu = _whole(model, opt)
+    params = _nest({("params",) + flax_path(n, cfg): p
+                    for n, p in whole.items()})
     return {
         "step": torch.tensor(int(state.step), dtype=torch.int32),
         "params": params,
         "opt_state": {
             "count": torch.tensor(int(opt.count), dtype=torch.int32),
-            "mu": _moment_tree(opt.mu, cfg),
-            "nu": _moment_tree(opt.nu, cfg),
+            "mu": _moment_tree(mu, cfg),
+            "nu": _moment_tree(nu, cfg),
         },
     }
 
@@ -241,15 +268,36 @@ def load_state_dict_into(state, state_dict: Dict, params_only: bool = False):
             count=opt_sd["count"],
             mu=_quantized_leaves(opt_sd["mu"], {"params": root}, True),
             nu=_quantized_leaves(opt_sd["nu"], {"params": root}, False))
-        port = opt_state_from_jax(jax_like, cfg)
+        port = _shards(model, opt_state_from_jax(jax_like, cfg))
         new_opt = _moments_like(port, state.opt_state)
     src = dict(loaded.named_parameters())
+    mesh = getattr(model, "mesh", None)
     for name, p in model.named_parameters():
-        p.copy_(src[name].to(device=p.device, dtype=p.dtype))
+        whole = src[name]
+        if mesh is not None:
+            from dalle_tpu_torch.parallel.sharding import shard_tensor
+            whole = shard_tensor(whole, model.shard_specs[name], mesh)
+        p.copy_(whole.to(device=p.device, dtype=p.dtype))
     if new_opt is not None:
         state.opt_state = new_opt
         state.step = int(np.asarray(state_dict["step"]))
     return state
+
+
+def _shards(model, opt):
+    """A loaded (whole) optimizer state cut to this process's shards when
+    ``model`` is sharded."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return opt
+    from dalle_tpu_torch.parallel.sharding import moment_spec, shard_moment
+    specs = model.shard_specs
+
+    def cut(tree):
+        return {n: shard_moment(m, moment_spec(mesh, m, specs[n]), mesh)
+                for n, m in tree.items()}
+
+    return type(opt)(opt.count, cut(opt.mu), cut(opt.nu))
 
 
 def _moments_like(src, like):

@@ -98,6 +98,13 @@ def train_loop(task: TrainingTask,
     collab = task.collab_optimizer
     coordinator = collab.role.swarm_enabled
     multi = collab.role.n_processes > 1
+    if checkpoint_dir is not None and getattr(
+            collab.state.model, "mesh", None) is not None:
+        raise NotImplementedError(
+            "checkpoints of a sharded peer in the training loop: the "
+            "loop's checkpoints are the coordinator's alone, and a "
+            "sharded state gathers from every process "
+            "(training.checkpoint.state_to_state_dict)")
     ckpt = None
     if checkpoint_dir is not None and coordinator:
         # a multi-process peer: only the coordinator touches the checkpoint

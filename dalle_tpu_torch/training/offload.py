@@ -25,6 +25,13 @@ holds none of the optimizer state. The copies run on the current stream,
 which the apply waits for before it returns, so every reader of the host
 tensors (checkpoints, the state server, state averaging) sees the state
 of the last update.
+
+On a sharded mesh (``parallel/sharding.py``) the host holds this
+process's shards of the moments, as JAX's offload places the state by
+``param_shardings``: :func:`offload_train_state` runs after
+``shard_train_state``, and each leaf's update gathers the leaf whole on
+the device (``LambBase.sharded_leaf_update``) and stores the process's
+shards back.
 """
 
 from __future__ import annotations
@@ -94,11 +101,17 @@ def make_offloaded_apply_step(tx) -> Callable[[TrainState, Dict],
         device = next(model.parameters()).device
         grads, lr, decay, stacked = tx.prepare(grads, opt.count, model)
         params = dict(model.named_parameters())
+        sharded = getattr(model, "mesh", None) is not None
         for n in jax_leaf_names(model.cfg):
-            update, m, v = tx.leaf_update(
-                grads[n], _moment_to(opt.mu[n], device),
-                _moment_to(opt.nu[n], device), params[n], lr, decay[n],
-                stacked[n])
+            if sharded:
+                update, m, v = tx.sharded_leaf_update(
+                    model, n, grads[n], opt.mu[n], opt.nu[n], lr, decay[n],
+                    stacked[n])
+            else:
+                update, m, v = tx.leaf_update(
+                    grads[n], _moment_to(opt.mu[n], device),
+                    _moment_to(opt.nu[n], device), params[n], lr, decay[n],
+                    stacked[n])
             params[n].add_(update)
             _store(opt.mu[n], m)
             _store(opt.nu[n], v)

@@ -24,6 +24,12 @@ activation dtype into the one cast copy, and its cast turns the sum to f32
 once, as JAX's hoisted cast does. Master parameters, the accumulator and
 LAMB stay f32. The copies stay in the modules through the backward pass,
 because the rematerialised blocks run their forward again there.
+
+On a sharded mesh (``models/dalle.py``) each process's loss is its part of
+the global loss, and :func:`grad_step` accumulates the micro-batches'
+gradients on its shards, then :func:`reduce_gradients` sums them over the
+batch and sequence axes: the gradients of JAX's grad step over the global
+mesh, each process holding its shards.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ import torch
 from torch import nn
 
 from dalle_tpu_torch.models.transformer import torch_dtype
-from dalle_tpu_torch.optim.lamb import apply_updates, global_norm
+from dalle_tpu_torch.optim.lamb import (apply_updates, global_norm,
+                                        sharded_global_norm)
 
 Batch = Dict[str, torch.Tensor]
 AUX_KEYS = ("loss", "loss_text", "loss_img")
@@ -106,16 +113,48 @@ def grad_step(model: nn.Module, batch: Batch, accum_steps: int = 1
                                     materialize_grads=True)
         for n, gi in zip(names, g):
             grads[n].add_(gi)
-        loss = loss.detach().float()
+        # the global loss (on a sharded mesh ``loss`` is this rank's part)
+        loss = aux["loss"].detach().float()
         loss_acc = loss if loss_acc is None else loss_acc + loss
         for key in AUX_KEYS:
             val = aux[key].detach().float()
             aux_acc[key] = val if aux_acc[key] is None else aux_acc[key] + val
+    if getattr(model, "mesh", None) is not None:
+        reduce_gradients(model, grads)
     inv = 1.0 / accum_steps
     for g in grads.values():
         g.mul_(inv)
     return (loss_acc * inv, {k: v * inv for k, v in aux_acc.items()},
             grads)
+
+
+@torch.no_grad()
+def reduce_gradients(model: nn.Module, grads: Dict[str, torch.Tensor]
+                     ) -> None:
+    """Sum each shard's gradient, in place, over the processes whose
+    parts of the loss it has not yet summed: the ``sp`` ranks (each saw
+    its tokens) and the batch ranks, where a kernel's fsdp all-gather has
+    already reduce-scattered it over ``fsdp`` (then over ``dp`` alone).
+    The ``tp`` ranks' gradients are whole already (column- and
+    row-parallel products, ``models/transformer.py``). One collective a
+    group over the flat concatenation."""
+    from dalle_tpu_torch.parallel.collectives import sum_over
+    mesh = model.mesh
+    specs = model.shard_specs
+    for axes, pick in (([mesh.group("dp"), mesh.group("sp")],
+                        lambda s: "fsdp" in s),
+                       ([mesh.group("batch"), mesh.group("sp")],
+                        lambda s: "fsdp" not in s)):
+        names = [n for n in grads if pick(specs[n])]
+        if not names or all(g is None for g in axes):
+            continue
+        flat = sum_over(torch.cat([grads[n].reshape(-1) for n in names]),
+                        axes)
+        offset = 0
+        for n in names:
+            size = grads[n].numel()
+            grads[n].copy_(flat[offset:offset + size].view(grads[n].shape))
+            offset += size
 
 
 def apply_step(state: TrainState, grads: Dict[str, torch.Tensor],
@@ -135,5 +174,11 @@ def train_step(state: TrainState, batch: Batch, optimizer,
     ``loss_text``, ``loss_img`` and ``grad_norm``, as 0-d tensors."""
     _, aux, grads = grad_step(state.model, batch, accum_steps)
     metrics = dict(aux)
-    metrics["grad_norm"] = global_norm(grads.values())
+    model = state.model
+    if getattr(model, "mesh", None) is not None:
+        from dalle_tpu_torch.params import jax_leaf_names
+        metrics["grad_norm"] = sharded_global_norm(
+            grads, jax_leaf_names(model.cfg), model)
+    else:
+        metrics["grad_norm"] = global_norm(grads.values())
     return apply_step(state, grads, optimizer), metrics

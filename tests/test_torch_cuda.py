@@ -843,3 +843,79 @@ def test_cuda_offloaded_update_equals_on_device(cuda_device, bits):
                         state_leaf_tensors(off.model, off.opt_state)):
             assert torch.equal(a.cpu(), b.cpu())
     assert all(t.is_pinned() for t in moments)
+
+
+# -- the sharded mesh on the card ---------------------------------------------
+# The window kernel at the long-context shape (``full`` over a 64x64 grid:
+# 4096 image queries and keys after a 256-token prefix); the GEGLU kernel's
+# tensor-parallel partial outputs (K/tp columns each, bo left out) summed
+# in f32 with bo once, against the one-process kernel output; a
+# two-process ring on the card against the window kernel's layer at sp=1.
+# Tolerances: the kernels' BF16 above; the tp GEGLU sum 2^-6 (each partial
+# is rounded to bf16 before the sum: two roundings where one process
+# rounds once); the ring 2^-6 on the output and its gradients (the ring's
+# f32 online softmax rounds its probabilities to bf16 per block where the
+# kernel rounds them per tile).
+
+
+@pytest.mark.cuda
+def test_cuda_window_kernel_full_grid64(cuda_device):
+    b, h, grid, prefix = 1, 2, 64, 256
+    q, k, v, dout = (_bf16((b, grid * grid, h, 64), 60 + i, cuda_device)
+                     .transpose(1, 2) for i in range(4))
+    kp, vp = (_bf16((b, prefix, h, 64), 64 + i, cuda_device).transpose(1, 2)
+              for i in range(2))
+    reset_launches()
+    out, lse = window_attention(q, k, v, kp, vp, grid, None)
+    assert LAUNCHES["window_attention"] == 1
+    out_p, lse_p = window_attention_plain(q, k, v, kp, vp, grid, None)
+    torch.testing.assert_close(out.float(), out_p.float(), **BF16)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+    got = _same_twice(window_attention_bwd, q, k, v, kp, vp, out, lse, dout,
+                      grid, None)
+    want = window_attention_bwd_plain(q, k, v, kp, vp, out, lse, dout, grid,
+                                      None)
+    for name, a, w in zip(("dq", "dk", "dv", "dkp", "dvp"), got, want):
+        torch.testing.assert_close(a.float(), w.float(), msg=name, **BF16)
+
+
+@pytest.mark.cuda
+def test_cuda_geglu_tp_partials_sum_to_one_process(cuda_device):
+    m, d, k, tp = 2560, 1024, 4096, 2
+    x, wi, wg, wo, bi, bg, bo, _ = _geglu_operands(m, d, k, cuda_device, 70)
+    assert geglu_route(torch.bfloat16, d, k // tp) == "fast"
+    cols = k // tp
+    total = bo.float()
+    for r in range(tp):
+        c = slice(r * cols, (r + 1) * cols)
+        part = geglu_ff(x, wi[:, c].contiguous(), wg[:, c].contiguous(),
+                        wo[c].contiguous(), bi[c], bg[c],
+                        torch.zeros_like(bo))
+        total = total + part.float()
+    torch.testing.assert_close(total.to(torch.bfloat16).float(),
+                               geglu_ff(x, wi, wg, wo, bi, bg, bo).float(),
+                               rtol=2 ** -6, atol=2 ** -6)
+
+
+@pytest.mark.cuda
+def test_cuda_two_process_ring_equals_sp1(cuda_device):
+    from pathlib import Path
+
+    from dalle_tpu_torch.models.attention import (join_halves,
+                                                  zoo_attention_halves)
+    from dalle_tpu_torch.parallel.launch import spawn
+    from torch_mesh_children import ring_inputs
+    args = dict(seed=80, b=1, t=256 + 32 * 32, h=4)
+    children = str(Path(__file__).with_name("torch_mesh_children.py"))
+    got = spawn(f"{children}:cuda_ring", 2, args, timeout=300)
+    q, k, v, w = ring_inputs(args, cuda_device)
+    q, k, v = (x.clone().requires_grad_(True) for x in (q, k, v))
+    out = join_halves(*zoo_attention_halves(q, k, v, attn_type="full",
+                                            text_len=256, grid=32))
+    (out.float() * w.float()).sum().backward()
+    tol = dict(rtol=2 ** -6, atol=2 ** -6)
+    for name, want in (("out", out), ("dq", q.grad), ("dk", k.grad),
+                       ("dv", v.grad)):
+        ring = torch.from_numpy(np.concatenate([r[name] for r in got], 1))
+        torch.testing.assert_close(ring, want.detach().float().cpu(),
+                                   msg=name, **tol)

@@ -345,9 +345,15 @@ def test_mesh_resolution_follows_jax():
     assert make_mesh(dp=1, n_devices=1).dp == 1
     with pytest.raises(ValueError, match=r"mesh 2x1x1x1 != device count 3"):
         make_mesh(dp=2, n_devices=3)
+    # the sharded axes resolve as JAX's (their groups and placement:
+    # tests/test_torch_sharding.py)
+    from dalle_tpu.parallel.mesh import make_mesh as jax_make_mesh
     for axis in ("fsdp", "tp", "sp"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            make_mesh(n_devices=2, **{axis: 2})
+        got = make_mesh(n_devices=2, **{axis: 2})
+        want = jax_make_mesh(**{axis: 2}, devices=jax.devices()[:2])
+        assert got.shape == dict(want.shape)
+        with pytest.raises(ValueError, match="not divisible"):
+            make_mesh(n_devices=3, **{axis: 2})
 
 
 def test_masked_slice_mean_is_the_mean_of_process_means():

@@ -260,26 +260,29 @@ def test_run_trainer_cli_trains_and_writes_metrics(tmp_path):
     (["--remat", "--remat-policy", "save_ctx"], "save_ctx"),
     (["--offload"], "offload"),
     (["--stacked-reps", "2"], "stacked_reps"),
-    (["--fsdp", "2"], "one GPU"),
+    (["--fsdp", "2"], "not divisible by fsdp"),
     (["--dp", "2"], "one GPU"),
     (["--sequence-parallel", "ring"], "sequence_parallel"),
 ])
 def test_unported_flags_raise(tmp_path, argv, match):
-    """A flag whose module the port lacks raises, naming it: a sharded mesh
-    axis (``--fsdp``) and sequence parallelism. The ``dense_scan`` layout,
-    ``--stacked-reps``, ``--chaos-plan``, ``save_ctx`` and ``--offload``
-    raised until the port took them: with them the CLI now trains one
-    epoch. ``--dp 2`` in one process is a mesh that does not cover the
-    peer's processes, the JAX package's ``ValueError``."""
+    """Flags whose modules the port lacked raised, naming them. The
+    ``dense_scan`` layout, ``--stacked-reps``, ``--chaos-plan``,
+    ``save_ctx``, ``--offload`` and ``--sequence-parallel`` raised until
+    the port took them: with them the CLI now trains one epoch (one
+    process is a mesh of one, where ring attention is the plain zoo path,
+    as in JAX). ``--dp 2`` and ``--fsdp 2`` in one process are meshes that
+    do not cover the peer's processes, the JAX package's ``ValueError``
+    (a sharded mesh of processes trains in
+    tests/test_torch_mesh_train.py and tests/test_torch_mesh_swarm.py)."""
     from dalle_tpu_torch.cli import run_trainer
     base = ["--preset", "tiny", "--device", "cpu", "--max-epochs", "1",
             "--identity-path", str(tmp_path / "id.pem")]
-    if argv == ["--dp", "2"]:
+    if argv in (["--dp", "2"], ["--fsdp", "2"]):
         with pytest.raises(ValueError, match=match):
             run_trainer.main(base + argv)
         return
     if match in ("dense_scan", "chaos", "stacked_reps", "save_ctx",
-                 "offload"):
+                 "offload", "sequence_parallel"):
         metrics = tmp_path / "m.jsonl"
         assert run_trainer.main(base + argv + [
             "--per-device-batch", "4", "--target-batch-size", "4",
@@ -344,7 +347,7 @@ def test_trust_plane_and_powersgd_flags_build_the_optimizer(tmp_path, argv,
 def test_multi_process_peers_raise(monkeypatch):
     """Multi-process peers run over a ``gloo`` group
     (tests/test_torch_multihost.py); a group of another backend is
-    refused, naming the multi-GPU slice."""
+    refused (NCCL waits for a machine with more than one card)."""
     import torch.distributed as dist
 
     from dalle_tpu_torch.parallel import multihost
