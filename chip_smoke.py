@@ -31,8 +31,9 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    (129 LayerNorm / 127 line / 1 window / 15 GEGLU) and its peak memory;
    every flagship phase (2-9) must run no generic-route kernel
    (``ops.GENERIC_LAUNCHES`` stays 0);
-4. teacher-forced cached decode of one sequence against the forward's
-   logits on the card;
+4. teacher-forced cached decode of one sequence's first
+   ``DECODE_POSITIONS`` positions against the forward's logits on the
+   card;
 5. ``generate_images`` for 2 captions x 2 seeds (temperature 1, top-k 64;
    the fourth row greedy), one noise seed a row;
    then the serving slice on the same model (no kernel runs there: the
@@ -236,6 +237,9 @@ TINY_TOL = 2e-4                # the tiny model on the card vs the CPU (the
 LSE_TOL = 1e-4                 # f32 logsumexp
 SUM_TOL = 1e-4                 # f32 sums over 5120 rows (LN dscale/dbias)
 ARGMAX_AGREE = 0.9             # cached decode vs forward, share of positions
+DECODE_POSITIONS = 640         # phase 4's positions of 1280 (the text and
+                               # 12 image rows; cut for time: the whole
+                               # script must end within 1200 s)
 SEED = 0                       # weights, inputs and sampling noise
 TRAIN_STEPS = 6                # flagship train steps on one fixed batch
 MICRO, ACCUM = 4, 2            # micro-batch size, micro-batches per step
@@ -2628,7 +2632,7 @@ def slice_phase(torch, smi, release_memory, root, dev="cuda",
 # ---------------------------------------------------------------------------
 
 LONG_MICRO, LONG_STEPS = 2, 2  # 15a: micro-batch (accumulation 1), steps
-RING_DEPTH = 8                 # 15b: the long-context depth, cut for time
+RING_DEPTH = 4                 # 15b: the long-context depth, cut for time
 MESH_DEPTH = 8                 # 15c-d: the flagship's depth, cut for time
                                # (every collective crosses gloo through
                                # host memory: 66 s a grad step at depth 64
@@ -3605,12 +3609,13 @@ def main() -> int:
         tables = decode_tables(cfg, dev)
         t0 = time.perf_counter()
         steps = []
-        for p in range(T):
+        for p in range(DECODE_POSITIONS):
             lp, cache = decode_step(model, cache, inputs[:, p], p, tables)
             steps.append(lp)
         got = torch.stack(steps, 1)
         torch.cuda.synchronize()
         dec_s = time.perf_counter() - t0
+        logits = logits[:, :DECODE_POSITIONS]
     valid = logits > -1e8
     diff = (got - logits).abs()[valid].max().item()
     scale = logits[valid].abs().max().item()
@@ -3627,7 +3632,8 @@ def main() -> int:
     if not agree >= ARGMAX_AGREE:
         raise AssertionError(f"cached decode vs forward: argmax agrees on "
                              f"{agree:.3f} of positions < {ARGMAX_AGREE}")
-    emit(phase="decode_vs_forward", positions=T, max_abs_err=diff,
+    emit(phase="decode_vs_forward", positions=DECODE_POSITIONS,
+         max_abs_err=diff,
          tolerance=dec_tol, logit_range=scale, argmax_agreement=agree,
          decode_s=dec_s)
 

@@ -21,10 +21,9 @@ with the same flags (``parallel/multihost.py``). ``--dp``, ``--fsdp``,
 ``--tp`` and ``--sp`` lay those processes out as the JAX mesh
 (``parallel/mesh.py``), one process a mesh device; a mesh that does not
 cover them raises the JAX ``ValueError``. A sharded mesh (``--fsdp``,
-``--tp`` or ``--sp`` above 1) trains with its shards, and raises
-``NotImplementedError`` with ``--checkpoint-dir`` (its checkpoints are
-written by ``training/checkpoint.py`` from every process, which the
-coordinator-only loop does not do yet). The trust
+``--tp`` or ``--sp`` above 1) trains with its shards; its checkpoints
+hold whole leaves, written by the coordinator from every process's
+shards. The trust
 plane (``--audit-gather``, ``--repair-convicted`` and the rest) is on by
 default as in the JAX CLI; ``--grad-compression power_sgd`` with
 ``--powersgd-rank`` and ``--[no-]powersgd-host-orthogonalize`` selects

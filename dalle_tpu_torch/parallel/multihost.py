@@ -83,6 +83,16 @@ def broadcast_decision(value: int) -> int:
     return int(t[0])
 
 
+def all_processes(flag: bool) -> bool:
+    """Whether ``flag`` holds on every process of the peer (a collective
+    every process calls). A passthrough for one process."""
+    if process_count() == 1:
+        return bool(flag)
+    t = torch.tensor([1 if flag else 0], dtype=torch.int64)
+    _dist().all_reduce(t, op=_dist().ReduceOp.MIN)
+    return bool(t[0])
+
+
 def broadcast_arrays(arrays: Optional[Sequence[np.ndarray]],
                      like: Sequence[np.ndarray]) -> List[np.ndarray]:
     """Broadcast a list of host arrays from the coordinator, dtypes kept.

@@ -67,8 +67,8 @@ every process (the coordinator averages them with the swarm), and each
 process keeps its shards of the averaged gradients, of a state-averaging
 result and of a downloaded state. The alignment's state leaves are
 gathered whole too (``multihost.host_global``). A sharded peer serves no
-state to joiners (its server thread cannot gather across processes) and
-runs no PowerSGD.
+state to joiners (its server thread cannot gather across processes, as
+in the JAX package) and runs no PowerSGD.
 """
 
 from __future__ import annotations
@@ -405,7 +405,15 @@ class CollaborativeOptimizer:
         self.last_wire_report: Optional[dict] = None
         self._apply_timings: dict = {}
         self._server: Optional[StateServer] = None
-        if serve_state and not client_mode and swarm and self._mesh is None:
+        serving = serve_state and not client_mode and swarm
+        if serving and self._mesh is not None:
+            # as JAX's: the snapshot runs on a server thread, which cannot
+            # join the gather a sharded state needs
+            logger.warning(
+                "state is sharded across processes: state server disabled "
+                "on this slice (joiners must bootstrap from an unsharded "
+                "peer or a checkpoint)")
+        elif serving:
             self._server = StateServer(
                 dht, cfg.run_id, self._state_snapshot,
                 codec=self._state_codec,

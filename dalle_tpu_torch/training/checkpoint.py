@@ -461,10 +461,13 @@ class CheckpointManager:
     """
 
     def __init__(self, directory: str, keep: int = 3,
-                 async_writes: bool = True):
+                 async_writes: bool = True, write: bool = True):
         self.directory = directory
         self.keep = max(1, keep)  # 0 would disable pruning entirely
-        self._writer = _AsyncWriter() if async_writes else None
+        # a follower of a sharded peer reads the directory, and takes part
+        # in each save's gather (state_to_state_dict) without writing
+        self.write = write
+        self._writer = _AsyncWriter() if async_writes and write else None
         os.makedirs(directory, exist_ok=True)
 
     # -- paths ------------------------------------------------------------
@@ -499,6 +502,8 @@ class CheckpointManager:
         the DESTINATION path, the bytes land later (:meth:`flush`)."""
         path = self._ckpt_path(epoch)
         sd = self._state_dict(state)
+        if not self.write:
+            return path
 
         def write() -> None:
             blob = serialize_state_dict(sd, epoch)
@@ -519,6 +524,8 @@ class CheckpointManager:
         """The reference's ``state.zip`` rolling backup
         (``callback.py:102-113``). Async by default, like :meth:`save`."""
         sd = self._state_dict(state)
+        if not self.write:
+            return self.backup_path
 
         def write() -> None:
             _write_atomic(self.backup_path, serialize_state_dict(sd, epoch))

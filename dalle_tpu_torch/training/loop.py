@@ -18,7 +18,10 @@ and publishes metrics; at the start every process adopts the
 coordinator's (restored or fresh) state and epoch, and after each global
 step a broadcast code tells the followers whether the coordinator rolled
 back (then they adopt its state again) or failed on the way (then they
-raise instead of waiting for it).
+raise instead of waiting for it). On a sharded mesh
+(``parallel/sharding.py``) every process also reads the checkpoints,
+keeping its shards of their whole leaves, and takes part in each save's
+gather and in the finite-parameters check; the coordinator alone writes.
 """
 
 from __future__ import annotations
@@ -92,24 +95,21 @@ def train_loop(task: TrainingTask,
     Returns the per-epoch reports.
     """
     from dalle_tpu_torch.parallel import multihost
-    from dalle_tpu_torch.training.checkpoint import (CheckpointManager,
-                                                     params_are_finite)
+    from dalle_tpu_torch.training.checkpoint import CheckpointManager
 
     collab = task.collab_optimizer
     coordinator = collab.role.swarm_enabled
     multi = collab.role.n_processes > 1
-    if checkpoint_dir is not None and getattr(
-            collab.state.model, "mesh", None) is not None:
-        raise NotImplementedError(
-            "checkpoints of a sharded peer in the training loop: the "
-            "loop's checkpoints are the coordinator's alone, and a "
-            "sharded state gathers from every process "
-            "(training.checkpoint.state_to_state_dict)")
+    # a sharded peer's processes each hold shards: all of them read the
+    # checkpoints (each keeping its shards) and take part in each save's
+    # gather; the coordinator alone writes
+    sharded = getattr(collab.state.model, "mesh", None) is not None
     ckpt = None
-    if checkpoint_dir is not None and coordinator:
-        # a multi-process peer: only the coordinator touches the checkpoint
+    if checkpoint_dir is not None and (coordinator or sharded):
+        # a multi-process peer: only the coordinator writes the checkpoint
         # directory; its (restored or fresh) state is broadcast below
-        ckpt = CheckpointManager(checkpoint_dir, keep=keep_checkpoints)
+        ckpt = CheckpointManager(checkpoint_dir, keep=keep_checkpoints,
+                                 write=coordinator)
         with collab.state_lock:
             restored = ckpt.restore_latest(collab.state)
         if restored is not None:
@@ -161,7 +161,7 @@ def train_loop(task: TrainingTask,
             if did_global and ckpt is not None:
                 try:
                     rolled_back = _checkpoint_epoch(collab, ckpt, save_every,
-                                                    backup_every)
+                                                    backup_every, sharded)
                 except BaseException:
                     # a coordinator dying between the global step and the
                     # rollback broadcast would leave every follower
@@ -232,7 +232,7 @@ def train_loop(task: TrainingTask,
                     mini_steps=mini_steps,
                     samples_per_second=(
                         collab.tracker.performance_ema.samples_per_second)))
-            if ckpt is not None and params_are_finite(collab.state.model):
+            if ckpt is not None and _finite(collab, sharded):
                 ckpt.save_backup(collab.state, collab.local_epoch)
     finally:
         profiler.close()
@@ -248,20 +248,35 @@ def train_loop(task: TrainingTask,
 _KEEP, _ROLLED_BACK, _ABORT = 0, 1, 2
 
 
-def _checkpoint_epoch(collab, ckpt, save_every: int,
-                      backup_every: int) -> bool:
+def _finite(collab, sharded: bool) -> bool:
+    """Whether the parameters are finite: on a sharded peer, every
+    process's shards (a collective)."""
+    from dalle_tpu_torch.parallel import multihost
+    from dalle_tpu_torch.training.checkpoint import params_are_finite
+    finite = params_are_finite(collab.state.model)
+    return multihost.all_processes(finite) if sharded else finite
+
+
+def _checkpoint_epoch(collab, ckpt, save_every: int, backup_every: int,
+                      sharded: bool = False) -> bool:
     """After a global step: roll back to the local backup when the
     parameters are not finite (returns True), else write the epoch's
-    checkpoint and backup as scheduled."""
-    from dalle_tpu_torch.training.checkpoint import params_are_finite
+    checkpoint and backup as scheduled. On a sharded peer every process
+    runs it (the checks, restores and saves are collectives)."""
+    from dalle_tpu_torch.parallel import multihost
     epoch = collab.local_epoch
-    if not params_are_finite(collab.state.model):
+    if not _finite(collab, sharded):
         logger.warning("non-finite params after epoch %d: rolling back to "
                        "the local backup", epoch)
         # a round launched in the same step() that reconciled the
         # NaN-producing apply carries the divergent trajectory's
         # gradients: discard it before restoring
         collab.drop_pending_round()
+        if sharded:
+            # the coordinator's queued writes land before any process
+            # reads the backup
+            ckpt.flush()
+            multihost.sync()
         with collab.state_lock:
             restored = ckpt.restore_backup(collab.state)
             if restored is None:

@@ -136,3 +136,30 @@ def test_a_sharded_slice_and_a_peer_average_bitwise(tmp_path):
                    for rank, out in outs.items()}
         assert len(set(digests.values())) == 1, (e, digests)
     assert [r["group"] for r in outs[0]["rows"]] == [2, 2]
+
+
+def test_a_sharded_peer_checkpoints_and_resumes_in_the_loop(tmp_path):
+    """A sharded peer (fsdp=2, two processes) trains two solo epochs
+    through ``train_loop`` with a checkpoint directory: the coordinator's
+    file holds the whole leaves (the port reads them back equal to the
+    peer's ``host_global`` state), and a second run of the peer, from
+    other initial weights, resumes from it at epoch 2, every process
+    keeping its shards, with the same whole state. Tolerance: exact."""
+    from dalle_tpu_torch.parallel.launch import spawn
+    children = str(Path(__file__).with_name("torch_mesh_children.py"))
+    args = dict(identity=str(tmp_path / "id.pem"), dir=str(tmp_path / "ck"),
+                epochs=2)
+    first = spawn(f"{children}:loop_ckpt", 2, args, timeout=CHILD_TIMEOUT)
+    again = spawn(f"{children}:loop_ckpt", 2, dict(args, seed=7),
+                  timeout=CHILD_TIMEOUT)
+    n = sum(1 for k in first[0] if k.startswith("leaf"))
+    assert n > 0 and int(first[0]["file_epoch"]) == 2
+    for run in (first, again):
+        for r in run:
+            assert int(r["epoch"]) == 2 and bool(r["sharded"])
+    for i in range(n):
+        want = first[0][f"leaf{i}"]
+        for r in first[1:] + again:
+            assert (r[f"leaf{i}"] == want).all(), i
+        got = first[0][f"file{i}"]
+        assert got.reshape(want.shape).tobytes() == want.tobytes(), i

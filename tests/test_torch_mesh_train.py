@@ -12,7 +12,8 @@
   the JAX format and restores in the JAX package bit for bit; one written
   by the JAX package restores into a sharded port state bit for bit.
 - ``multihost.host_global`` of the sharded state leaves equals the whole
-  leaves.
+  leaves; the offloaded update of a sharded state (host-resident shards
+  of the moments) equals the on-device one bit for bit.
 - A ``TrainingTask`` on a sharded mesh (fsdp=2 tp=2, four processes)
   takes two steps through its own train state, batches, grad and apply
   steps, equal to a one-process task on the same data.
@@ -302,3 +303,18 @@ def test_a_task_on_a_sharded_mesh_trains_as_one_process(tmp_path):
         np.testing.assert_allclose(
             got["p:" + name], want, rtol=ELEM_RTOL,
             atol=TOL * max(float(np.abs(want).max()), 1.0), err_msg=name)
+
+
+def test_sharded_offloaded_update_equals_on_device(tmp_path):
+    """Two 8-bit steps of the sharded zoo with its moments' shards in host
+    memory (``training/offload.py``) end bit for bit where the on-device
+    steps do. Tolerance: exact."""
+    kw, mesh = CASES["zoo_fsdp2_tp2"]
+    _, _, _, _, path = _setup(tmp_path, "zoo_fsdp2_tp2")
+    runs = [spawn(f"{CHILDREN}:train_steps", 4, _child_args(
+        kw, mesh, path, _opt(8), 2, offload=offload), timeout=150)[0]
+        for offload in (False, True)]
+    keys = [k for k in runs[0] if k != "stdout"]
+    assert sorted(keys) == sorted(k for k in runs[1] if k != "stdout")
+    for k in keys:
+        assert np.array_equal(runs[0][k], runs[1][k]), k

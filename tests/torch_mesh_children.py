@@ -10,6 +10,8 @@ starts in a second or two; inputs come from the test as ``.npz`` files
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -151,8 +153,9 @@ def model_grads(rank, n, args):
 
 def train_steps(rank, n, args):
     """``args["steps"]`` LAMB steps (fp32 or 8-bit) of the port model on
-    its mesh from the JAX weights; every parameter, moment and metric
-    whole. With ``args["ckpt"]``: the sharded state is also written as a
+    its mesh from the JAX weights (with ``args["offload"]``, through the
+    offloaded update); every parameter, moment and metric whole. With
+    ``args["ckpt"]``: the sharded state is also written as a
     checkpoint (rank 0 writes the gathered bytes), and with
     ``args["restore"]`` a checkpoint is read into the fresh sharded state
     first."""
@@ -176,9 +179,15 @@ def train_steps(rank, n, args):
         load_state_dict_into(state, read_checkpoint(args["restore"])[1])
     batch = batch_sharding(mesh, {k: torch.from_numpy(data[k]).long()
                                   for k in ("text", "image")})
+    step = functools.partial(train_step, optimizer=tx)
+    if args.get("offload"):
+        from dalle_tpu_torch.training.offload import (
+            make_offloaded_apply_step, offload_train_state)
+        state = offload_train_state(state)
+        step = _offloaded_step(make_offloaded_apply_step(tx))
     out = {}
     for i in range(args["steps"]):
-        state, metrics = train_step(state, batch, tx)
+        state, metrics = step(state, batch)
         out[f"loss{i}"] = float(metrics["loss"])
         out[f"grad_norm{i}"] = float(metrics["grad_norm"])
     specs = model.shard_specs
@@ -224,6 +233,20 @@ def run_task(cfg, args):
         losses.append(float(metrics["loss"]))
         rows.append(batch["text"].shape[0])
     return task, losses, rows
+
+
+def _offloaded_step(apply):
+    """``train_step`` with the offloaded update ``apply``."""
+    from dalle_tpu_torch.optim.lamb import sharded_global_norm
+    from dalle_tpu_torch.params import jax_leaf_names
+    from dalle_tpu_torch.training.steps import grad_step
+
+    def step(state, batch):
+        _, aux, grads = grad_step(state.model, batch)
+        norm = sharded_global_norm(grads, jax_leaf_names(state.model.cfg),
+                                   state.model)
+        return apply(state, grads), dict(aux, grad_norm=norm)
+    return step
 
 
 def task_steps(rank, n, args):
@@ -346,3 +369,59 @@ def collectives_check(rank, n, args):
     ok["all_to_all"] = torch.equal(y, want) and torch.equal(
         grad(y, x, g), back)
     return {k: np.array(bool(v)) for k, v in ok.items()}
+
+
+def loop_ckpt(rank, n, args):
+    """A sharded peer (fsdp=2, weights from ``args["seed"]``) trains up to
+    ``args["epochs"]`` solo epochs through ``train_loop`` with a
+    checkpoint directory (a checkpoint and a backup every epoch), resuming
+    from it when it holds one; returns its epoch and its whole state leaves
+    (``host_global``), with the whole leaves of the last checkpoint file
+    as the port reads it."""
+    from dalle_tpu_torch.params import jax_state_leaves
+    from dalle_tpu_torch.task import TrainingTask
+    from dalle_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                     read_checkpoint)
+    from dalle_tpu_torch.training.loop import train_loop
+    cfg = tconfig.tiny_model_config()
+    task = TrainingTask(
+        cfg, tconfig.OptimizerConfig(warmup_steps=0, total_steps=10,
+                                     min_8bit_size=1024, block_size=256),
+        tconfig.TrainerConfig(per_device_batch=2, fsdp=2,
+                              seed=args.get("seed", 0)),
+        tconfig.CollabConfig(run_id="lc", target_batch_size=4,
+                             matchmaking_time=0.3, audit_gather=False,
+                             delay_optimizer_step=False),
+        tconfig.PeerConfig(identity_path=args["identity"], port=0,
+                           host="127.0.0.1"), device="cpu")
+    with task:
+        train_loop(task, max_epochs=args["epochs"], warmup_steps=0,
+                   checkpoint_dir=args["dir"], save_every=1,
+                   backup_every=1)
+        collab = task.collab_optimizer
+        out = {"epoch": collab.local_epoch,
+               "sharded": bool(task.sharded)}
+        for i, a in enumerate(collab._state_leaves()):
+            out[f"leaf{i}"] = a
+        if rank == 0:
+            epoch, path = CheckpointManager(args["dir"]).checkpoints()[-1]
+            sd = read_checkpoint(path)[1]
+            out["file_epoch"] = epoch
+            leaves = jax_state_leaves(cfg, collab.state.opt_state)
+            from dalle_tpu_torch.params import flax_path
+            for i, leaf in enumerate(leaves):
+                if leaf[0] == "param":
+                    node = sd["params"]["params"]
+                    for key in flax_path(leaf[1], cfg):
+                        node = node[key]
+                elif leaf[0] == "count":
+                    node = sd["opt_state"]["count"]
+                else:
+                    node = sd["opt_state"][leaf[0]]["params"]
+                    for key in flax_path(leaf[1], cfg):
+                        node = node[key]
+                    if leaf[2] != "dense":
+                        node = node[leaf[2]]
+                out[f"file{i}"] = np.asarray(node.cpu() if hasattr(
+                    node, "cpu") else node)
+    return out
