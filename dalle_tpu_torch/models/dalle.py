@@ -129,6 +129,9 @@ class DALLE(nn.Module):
         if cfg.total_seq_len % mesh.sp:
             raise ValueError(f"sequence {cfg.total_seq_len} not divisible "
                              f"by sp={mesh.sp}")
+        if cfg.heads % mesh.tp:
+            raise ValueError(f"heads {cfg.heads} not divisible by "
+                             f"tp={mesh.tp}")
         if not cfg.tied_embeddings:
             raise NotImplementedError(
                 "a sharded mesh needs the tied head (the vocab-sharded "

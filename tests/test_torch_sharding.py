@@ -192,3 +192,24 @@ def test_collectives_forward_and_backward_in_a_group():
     for rank, r in enumerate(results):
         bad = [k for k, v in r.items() if k != "stdout" and not bool(v)]
         assert not bad, (rank, bad)
+
+
+def test_a_mesh_the_model_cannot_shard_is_refused():
+    """The port shards the token axis over ``sp`` and the vocabulary over
+    ``tp`` through the tied head: a mesh with ``sp > 1`` and no
+    ``sequence_parallel`` mode, an untied head on any sharded mesh, heads
+    or a tp-sharded leaf that ``tp`` does not divide, raise when the model
+    is built (never a quiet replicated run)."""
+    cfg = tconfig.tiny_model_config()
+    with pytest.raises(ValueError, match="sequence_parallel"):
+        DALLE(cfg, mesh=tmesh.make_mesh(1, 1, 1, 2, n_devices=2))
+    with pytest.raises(NotImplementedError, match="tied head"):
+        DALLE(tconfig.tiny_model_config(tied_embeddings=False),
+              mesh=tmesh.make_mesh(1, 2, 1, 1, n_devices=2))
+    with pytest.raises(ValueError, match="heads 2 not divisible by tp=4"):
+        DALLE(tconfig.tiny_model_config(heads=2, head_dim=32),
+              mesh=tmesh.make_mesh(1, 1, 4, 1, n_devices=4))
+    with pytest.raises(ValueError, match="does not split over tp"):
+        DALLE(tconfig.tiny_model_config(dim=96, heads=3, head_dim=32,
+                                        vocab_text=130),
+              mesh=tmesh.make_mesh(1, 1, 3, 1, n_devices=3))
