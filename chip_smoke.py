@@ -4,8 +4,9 @@
 collaborative trainer peer, real data, the serving router, access tokens,
 the stacked ``dense_scan`` model, the averaging assistant, fault
 injection, ``save_ctx`` remat on the XL model, the offloaded optimizer
-state, a multi-process peer, the long-context model and the sharded mesh
-(fsdp, tp, ring and Ulysses sequence parallelism) on one NVIDIA GPU.
+state, a multi-process peer, the long-context model, the sharded mesh
+(fsdp, tp, ring and Ulysses sequence parallelism), PowerSGD on a sharded
+peer and the untied head on a mesh on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out RECORDS.json] [--profile TABLE.txt]
 
@@ -35,7 +36,8 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    ``DECODE_POSITIONS`` positions against the forward's logits on the
    card;
 5. ``generate_images`` for 2 captions x 2 seeds (temperature 1, top-k 64;
-   the fourth row greedy), one noise seed a row;
+   the fourth row greedy), one noise seed a row, on the flagship's weights
+   cut to ``GEN_DEPTH`` layers;
    then the serving slice on the same model (no kernel runs there: the
    counters must not move): a ``DecodeEngine`` (4 slots, 8-position
    chunks, a 256 MiB prefix cache) whose chunk is one CUDA graph a visible
@@ -130,7 +132,8 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    ``run_trainer --data-path --tokenizer-path`` trains 3 flagship steps
    solo in this process (finite losses, every model kernel launched, no
    generic launch); (b) two ``ServingHTTPServer`` engines (phase 5b's
-   config, greedy, each on a copy of the phase-3 model) with the fixture
+   config, greedy, each on a copy of the flagship cut to
+   ``ROUTER_DEPTH`` layers, bf16 parameters from the seed) with the fixture
    tokenizer, advertised by ``ServingAdvertiser`` on a loopback DHT,
    behind a ``Router`` and ``RouterHTTPServer``: four ``{"text": ...}``
    posts through the router (one caption twice) give the golden ids and
@@ -204,7 +207,18 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    grad step against one process, the attention kernels on ``H/(tp*sp)``
    heads; (e)
    ``entry.dryrun_multichip(4)``: its four cases' finite losses;
-16. the ``kernels`` line (the eleven ported kernels and the six generic
+16. PowerSGD on a sharded peer and the untied head on a mesh: (a) 14d's
+   slice and peer with the slice at ``fsdp=2`` and
+   ``grad_compression="power_sgd"`` (rank 4), the flagship cut to
+   ``MESH_DEPTH`` layers, two epochs, no global clip: the slice's whole
+   state and the peer's bitwise equal after every epoch, every round a
+   2-peer group with both factor rounds complete, no
+   ``wire_quantize_u8`` launch; recorded: the wire bytes a peer and round,
+   the gloo bytes and s of the slice's rounds, the rounds' s, the swarm's
+   samples/s, the error feedback's bytes a process; (b) 15c with an
+   untied head (``lm_head/kernel`` as ``P("fsdp", "tp")``): 15c's checks,
+   and ``return_logits`` within 2^-4 of the logit range of one process's;
+17. the ``kernels`` line (the eleven ported kernels and the six generic
    instances).
 
 With ``--profile``, one flagship forward and one training micro-batch are
@@ -237,9 +251,12 @@ TINY_TOL = 2e-4                # the tiny model on the card vs the CPU (the
 LSE_TOL = 1e-4                 # f32 logsumexp
 SUM_TOL = 1e-4                 # f32 sums over 5120 rows (LN dscale/dbias)
 ARGMAX_AGREE = 0.9             # cached decode vs forward, share of positions
-DECODE_POSITIONS = 640         # phase 4's positions of 1280 (the text and
-                               # 12 image rows; cut for time: the whole
+DECODE_POSITIONS = 320         # phase 4's positions of 1280 (the text and
+                               # 2 image rows; cut for time: the whole
                                # script must end within 1200 s)
+GEN_DEPTH = 16                 # phases 5 and 5b: the flagship (the same
+                               # five blocks and weights) cut to 16 layers
+                               # for time
 SEED = 0                       # weights, inputs and sampling noise
 TRAIN_STEPS = 6                # flagship train steps on one fixed batch
 MICRO, ACCUM = 4, 2            # micro-batch size, micro-batches per step
@@ -397,7 +414,7 @@ def profile_run(torch, fn, args, path, phase: str) -> dict:
 
 def serving_phase(torch, np, dev, smi, model, captions, seeds, knobs,
                   gen_codes, release_memory) -> None:
-    """Phase 5b: the serving slice on the phase-3 model (see the module
+    """Phase 5b: the serving slice on phase 5's model (see the module
     docstring). Runs no kernel of the port; every check raises."""
     import copy
     import threading
@@ -1002,6 +1019,7 @@ def trainer_phase(torch, smi, kernels, release_memory, dev="cuda",
 # the JAX package by tests/data/make_fixtures.py
 DATA_DIR = os.path.join("tests", "data")
 ROUTER_PREFIX = "smoke-router"
+ROUTER_DEPTH = 8               # 12b's engines: the flagship cut for time
 #: 12a: each of the 3 steps closes a solo epoch (a synchronous round), so
 #: each step's loss reaches the metrics file
 DATA_CLI = ["--preset", "flagship", "--per-device-batch", "4",
@@ -1137,15 +1155,15 @@ def _hrw_home(fingerprint, pids):
 
 def router_phase(torch, np, smi, root, make_model, release_memory) -> None:
     """12b: text prompts through the router. Two ``ServingHTTPServer``
-    engines (phase 5b's serving config, each on its own copy of the
-    phase-3 model, greedy) with the fixture tokenizer, each advertised by
-    a ``ServingAdvertiser`` on a loopback DHT, behind a ``Router`` and
-    ``RouterHTTPServer``. Wave 1 posts three captions through the router
-    together; wave 2 posts their ids (the golden ids) directly to the
-    engine that served each, and the first caption again through the
-    router. Each engine admits a wave's requests at one chunk boundary
-    (its live clamp held at 0 until all are queued), all of them cold
-    (wave 1) or all warm (wave 2: prefix hits), so a request decodes
+    engines (phase 5b's serving config, each on its own copy of
+    ``make_model()``'s model, greedy) with the fixture tokenizer, each
+    advertised by a ``ServingAdvertiser`` on a loopback DHT, behind a
+    ``Router`` and ``RouterHTTPServer``. Wave 1 posts three captions
+    through the router together; wave 2 posts their ids (the golden ids)
+    directly to the engine that served each, and the first caption again
+    through the router. Each engine admits a wave's requests at one chunk
+    boundary (its live clamp held at 0 until all are queued), all of them
+    cold (wave 1) or all warm (wave 2: prefix hits), so a request decodes
     through the buckets it would take alone. Checks: the
     port's ids equal the golden ids, the two engines' weights are equal,
     every routed reply's codes equal the direct reply's, each caption
@@ -2016,7 +2034,8 @@ import datetime, hashlib, json, os, sys, time
 import torch
 role, gloo_port, dht_port, tmp, dev = sys.argv[1:6]
 overrides, collab_kw = json.loads(sys.argv[6]), json.loads(sys.argv[7])
-epochs = int(sys.argv[8])
+epochs, trainer_kw = int(sys.argv[8]), json.loads(sys.argv[9])
+opt_kw = json.loads(sys.argv[10])
 
 
 def wait_for(path, timeout=240):
@@ -2036,9 +2055,9 @@ from dalle_tpu_torch.config import (CollabConfig, OptimizerConfig,
                                     PeerConfig, TrainerConfig,
                                     flagship_model_config)
 from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, reset_launches
-from dalle_tpu_torch.params import state_leaf_tensors
+from dalle_tpu_torch.parallel import collectives
 from dalle_tpu_torch.task import TrainingTask
-from dalle_tpu_torch.training.loop import train_loop
+from dalle_tpu_torch.training.loop import train_loop, warmup
 
 coordinator = role == "0"
 peer = PeerConfig(port=int(dht_port) if coordinator else 0,
@@ -2047,29 +2066,53 @@ peer = PeerConfig(port=int(dht_port) if coordinator else 0,
                   identity_path=f"{tmp}/id_{role}.pem",
                   experiment_prefix="smoke")
 task = TrainingTask(flagship_model_config(**overrides),
-                    OptimizerConfig(warmup_steps=2, total_steps=100),
-                    TrainerConfig(per_device_batch=4, grad_accum_steps=2),
+                    OptimizerConfig(warmup_steps=2, total_steps=100,
+                                    **opt_kw),
+                    TrainerConfig(per_device_batch=4, grad_accum_steps=2,
+                                  **(trainer_kw if role != "peer" else {})),
                     CollabConfig(**collab_kw), peer, device=dev)
 collab = task.collab_optimizer
+warmup(task, 1)    # the first step's setup, before the start signal
 open(f"{tmp}/ready_{role}", "w").close()
 wait_for(f"{tmp}/go")
 
 
 def digest():
+    # the whole state (a sharded slice's gathered: every process calls it)
     h = hashlib.sha256()
-    with collab.state_lock:
-        for t in state_leaf_tensors(collab.state.model,
-                                    collab.state.opt_state):
-            h.update(t.detach().cpu().numpy().tobytes())
+    for a in collab._state_leaves():
+        h.update(a.tobytes())
     return h.hexdigest()
+
+
+def legs(report):
+    # per wire leg: bytes and chunks of the round's reports (a PowerSGD
+    # round's under "p" and "q"), and each factor round's completeness
+    reps = ([(report or {}).get(ph) or {} for ph in ("p", "q")]
+            if report and ("p" in report or "q" in report) else
+            [report or {}])
+    out = {}
+    for rep in reps:
+        for row in (rep.get("phases") or {}).get("hops", []):
+            leg = out.setdefault(row["leg"], dict(bytes=0, chunks=0))
+            leg["bytes"] += int(row["bytes"])
+            leg["chunks"] += int(row["chunks"])
+    complete = {ph: bool(((report or {}).get(ph) or {}).get("complete"))
+                for ph in ("p", "q")}
+    return out, complete
 
 
 rows, step_ends, mean_s = [], [], []
 
 
 def on_epoch(report):
+    traffic = {k: list(v) for k, v in collectives.TRAFFIC.items()}
+    round_s = time.perf_counter() - step_ends[-1]
+    wire, complete = legs(collab.last_wire_report)
     rows.append(dict(epoch=report.epoch, loss=report.loss,
                      mini_steps=report.mini_steps, digest=digest(),
+                     round_s=round_s, gloo=traffic, wire=wire,
+                     factor_rounds=complete,
                      timings={k: v for k, v in collab.last_timings.items()
                               if k != "robust"}))
 
@@ -2077,16 +2120,20 @@ def on_epoch(report):
 def on_step(n, loss):
     step_ends.append(time.perf_counter())
     mean_s.append(task.grad_mean_s)
+    collectives.reset_traffic()
 
 
 if dev == "cuda":
     torch.cuda.reset_peak_memory_stats()
 reset_launches()
-train_loop(task, max_epochs=epochs, warmup_steps=1, on_epoch=on_epoch,
+train_loop(task, max_epochs=epochs, warmup_steps=0, on_epoch=on_epoch,
            on_step=on_step)
+comp = collab._powersgd
 out = dict(role=role, epoch=collab.local_epoch, epochs=rows,
            step_ends=step_ends, grad_mean_s=mean_s,
-           local_batch=task.local_batch_size,
+           local_batch=task.local_batch_size, sharded=task.sharded,
+           ef_bytes=(sum(e.numel() * e.element_size()
+                         for e in comp._errors.values()) if comp else 0),
            processes=collab.role.n_processes, launches=dict(LAUNCHES),
            generic=dict(GENERIC_LAUNCHES),
            peak_gb=(torch.cuda.max_memory_allocated() / 1e9
@@ -2494,19 +2541,15 @@ def xl_cli_phase(torch, smi, release_memory, root, dev="cuda",
     release_memory()
 
 
-def slice_phase(torch, smi, release_memory, root, dev="cuda",
-                model_overrides=None, epochs=SLICE_EPOCHS) -> None:
-    """14d: a peer of two processes on the one card (a ``gloo`` group on
-    loopback, ``dp=2``: each trains on its 8 rows of the slice's 16 a step,
-    and the gradients are their mean) and a one-process peer, at flagship
-    width with phase 8's step (8-bit LAMB, micro-batch 4 x accumulation 2)
-    and ``SLICE_COLLAB`` (the JAX defaults otherwise), ``epochs`` epochs
-    through ``train_loop``: every child exits 0 within
-    ``SLICE_TIMEOUT_S``; after every epoch the slice's two processes and
-    the peer hold the same parameters and moments (sha256 of every state
-    leaf), every round is a 2-peer group, the losses are finite and no
-    generic kernel runs. Records the slice's gradient mean s a step, the
-    rounds' s and the swarm's samples/s."""
+def _run_slice(root, dev, overrides, collab_kw, trainer_kw, epochs,
+               where, opt_kw=None):
+    """A peer of two processes on the one card (a ``gloo`` group on
+    loopback, laid out by ``trainer_kw``) and a one-process peer, at
+    flagship width (``overrides``) with phase 8's step (8-bit LAMB with
+    ``opt_kw``, micro-batch 4 x accumulation 2), ``epochs`` epochs through
+    ``train_loop``: every child exits 0 within ``SLICE_TIMEOUT_S``.
+    Returns each role's record and the seconds from the start signal to
+    the last exit."""
     import socket
     import tempfile
 
@@ -2515,7 +2558,6 @@ def slice_phase(torch, smi, release_memory, root, dev="cuda",
             s.bind(("127.0.0.1", 0))
             return s.getsockname()[1]
 
-    release_memory()
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [root] + [p for p in [env.get("PYTHONPATH")] if p])
@@ -2525,8 +2567,9 @@ def slice_phase(torch, smi, release_memory, root, dev="cuda",
             root, "build")) as tmp:
         def start(role):
             args = [role, gloo_port, dht_port, tmp, dev,
-                    json.dumps(model_overrides or {}),
-                    json.dumps(SLICE_COLLAB), epochs]
+                    json.dumps(overrides or {}), json.dumps(collab_kw),
+                    epochs, json.dumps(trainer_kw),
+                    json.dumps(opt_kw or {})]
             log = open(os.path.join(tmp, f"log_{role}.txt"), "w")
             procs[role] = (subprocess.Popen(
                 [sys.executable, "-c", SLICE_CHILD, *map(str, args)],
@@ -2544,7 +2587,7 @@ def slice_phase(torch, smi, release_memory, root, dev="cuda",
                         if p.poll() not in (None, 0)]
                 if dead or time.perf_counter() > deadline:
                     raise AssertionError(
-                        f"slice: no {name} ({dead or 'timeout'}):\n" +
+                        f"{where}: no {name} ({dead or 'timeout'}):\n" +
                         "\n".join(f"[{r}] {tail(r)}" for r in procs))
                 time.sleep(0.1)
 
@@ -2563,10 +2606,10 @@ def slice_phase(torch, smi, release_memory, root, dev="cuda",
                 try:
                     rc = p.wait(timeout=max(left, 1))
                 except subprocess.TimeoutExpired:
-                    raise AssertionError(f"slice: child {role} hung:\n"
+                    raise AssertionError(f"{where}: child {role} hung:\n"
                                          f"{tail(role)}")
                 if rc != 0:
-                    raise AssertionError(f"slice: child {role} exited "
+                    raise AssertionError(f"{where}: child {role} exited "
                                          f"{rc}:\n{tail(role)}")
             wall_s = time.perf_counter() - t_go
             outs = {}
@@ -2579,50 +2622,83 @@ def slice_phase(torch, smi, release_memory, root, dev="cuda",
                     p.kill()
                     p.wait()
                 log.close()
+    return outs, wall_s
+
+
+def _check_slice(outs, epochs, where):
+    """The checks a slice and a peer share: ``epochs`` epochs on every
+    role, no generic launch, finite losses, every round a 2-peer group,
+    all three whole states equal (sha256) after every epoch. Returns the
+    rounds a role."""
     for role, out in outs.items():
         if out["epoch"] != epochs or [r["epoch"] for r in out["epochs"]] \
                 != list(range(1, epochs + 1)):
-            raise AssertionError(f"slice: {role} epochs "
+            raise AssertionError(f"{where}: {role} epochs "
                                  f"{[r['epoch'] for r in out['epochs']]}")
         if any(out["generic"].values()):
-            raise AssertionError(f"slice: {role} generic launches "
+            raise AssertionError(f"{where}: {role} generic launches "
                                  f"{out['generic']}")
         losses = [r["loss"] for r in out["epochs"]]
         if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"slice: {role} losses {losses}")
+            raise AssertionError(f"{where}: {role} losses {losses}")
     rounds = {role: [dict(epoch=r["epoch"], loss=r["loss"],
-                          mini_steps=r["mini_steps"], **r["timings"])
+                          mini_steps=r["mini_steps"], round_s=r["round_s"],
+                          wire=r["wire"], gloo=r["gloo"],
+                          factor_rounds=r["factor_rounds"], **r["timings"])
                      for r in out["epochs"]]
               for role, out in outs.items()}
     groups = {role: [r["timings"].get("group_size") for r in out["epochs"]]
               for role, out in outs.items() if role != "1"}
     if any(g != [2] * epochs for g in groups.values()):
-        raise AssertionError(f"slice: group sizes {groups}, expected two "
+        raise AssertionError(f"{where}: group sizes {groups}, expected two "
                              f"peers in every round: {rounds}")
     for e in range(epochs):
         digests = {role: out["epochs"][e]["digest"]
                    for role, out in outs.items()}
         if len(set(digests.values())) != 1:
-            raise AssertionError(f"slice: epoch {e + 1}: states differ "
+            raise AssertionError(f"{where}: epoch {e + 1}: states differ "
                                  f"{digests}: {rounds}")
     if outs["0"]["processes"] != 2 or outs["0"]["local_batch"] != 16:
-        raise AssertionError(f"slice: {outs['0']['processes']} processes, "
-                             f"local batch {outs['0']['local_batch']}")
-    # the swarm's samples/s between the later first step and the earlier
-    # last: the slice's steps count 16 samples, the peer's 8
+        raise AssertionError(f"{where}: {outs['0']['processes']} processes,"
+                             f" local batch {outs['0']['local_batch']}")
+    return rounds
+
+
+def _slice_rate(outs):
+    """The swarm's samples/s between the later first step and the earlier
+    last: the slice's steps count 16 samples, the peer's 8."""
     runs = [(outs["0"]["step_ends"], outs["0"]["local_batch"]),
             (outs["peer"]["step_ends"], outs["peer"]["local_batch"])]
     t_a = max(ends[0] for ends, _ in runs)
     t_b = min(ends[-1] for ends, _ in runs)
     samples = sum(b for ends, b in runs for t in ends if t_a < t <= t_b)
+    return samples / (t_b - t_a) if t_b > t_a else None
+
+
+def slice_phase(torch, smi, release_memory, root, dev="cuda",
+                model_overrides=None, epochs=SLICE_EPOCHS) -> None:
+    """14d: a peer of two processes on the one card (a ``gloo`` group on
+    loopback, ``dp=2``: each trains on its 8 rows of the slice's 16 a step,
+    and the gradients are their mean) and a one-process peer, at flagship
+    width with phase 8's step (8-bit LAMB, micro-batch 4 x accumulation 2)
+    and ``SLICE_COLLAB`` (the JAX defaults otherwise), ``epochs`` epochs
+    through ``train_loop``: every child exits 0 within
+    ``SLICE_TIMEOUT_S``; after every epoch the slice's two processes and
+    the peer hold the same parameters and moments (sha256 of every state
+    leaf), every round is a 2-peer group, the losses are finite and no
+    generic kernel runs. Records the slice's gradient mean s a step, the
+    rounds' s and wire bytes a leg, and the swarm's samples/s."""
+    release_memory()
+    outs, wall_s = _run_slice(root, dev, model_overrides, SLICE_COLLAB, {},
+                              epochs, "slice")
+    rounds = _check_slice(outs, epochs, "slice")
     means = outs["0"]["grad_mean_s"][1:] + outs["1"]["grad_mean_s"][1:]
     emit(phase="slice", card=smi, processes=2, peers=2, epochs=epochs,
          collab=SLICE_COLLAB, wall_s=wall_s, digests_equal=True,
          grad_mean_s=dict(per_step=[outs["0"]["grad_mean_s"],
                                     outs["1"]["grad_mean_s"]],
                           mean=sum(means) / max(len(means), 1)),
-         rounds=rounds,
-         swarm_samples_per_s=(samples / (t_b - t_a) if t_b > t_a else None),
+         rounds=rounds, swarm_samples_per_s=_slice_rate(outs),
          peak_gb={role: out["peak_gb"] for role, out in outs.items()},
          launches={role: out["launches"] for role, out in outs.items()})
     release_memory()
@@ -2690,15 +2766,21 @@ def _mesh_cfg(case: str, overrides):
     if case == "ulysses":
         return flagship_model_config(sequence_parallel="ulysses",
                                      **overrides)
+    if case == "untied":
+        return flagship_model_config(tied_embeddings=False, **overrides)
     return flagship_model_config(**overrides)
 
 
-#: 15b-d: (mesh axes, micro-batch, accumulation, 8-bit update?)
+#: 15b-d and 16b: (mesh axes, micro-batch, accumulation, 8-bit update?)
 MESH_CASES = {
     "ring": (dict(dp=1, fsdp=1, tp=1, sp=2), LONG_MICRO, 1, False),
     "fsdp_tp": (dict(dp=1, fsdp=2, tp=2, sp=1), MICRO, 1, True),
     "ulysses": (dict(dp=1, fsdp=1, tp=2, sp=2), MICRO, 1, False),
+    "untied": (dict(dp=1, fsdp=2, tp=2, sp=1), MICRO, 1, True),
 }
+#: 16b: return_logits against one process, as phase 4's decode: max |diff|
+#: over the unmasked logits within this share of their largest magnitude
+LOGITS_TOL = 2 ** -4
 
 
 def mesh_child(rank: int, world: int, args) -> dict:
@@ -2794,6 +2876,21 @@ def mesh_child(rank: int, world: int, args) -> dict:
         out["quantize_launches"] = LAUNCHES["quantize_blockwise"]
         del ref_grads
     out["peak_gb"] = _peak_gb(torch, dev) or 0.0
+    if case == "untied":
+        # this process's rows with the whole token axis and vocabulary (a
+        # collective over tp), held to one process's on rank 0's rows
+        with torch.no_grad():
+            logits = model(batch["text"], batch["image"],
+                           return_logits=True)[2]
+        if rank == 0:
+            want = torch.load(args["ref"] + ".logits", map_location=dev,
+                              weights_only=True)
+            valid = want > -1e8
+            out["logits_err"] = float((logits - want).abs()[valid].max())
+            out["logit_range"] = float(want[valid].abs().max())
+            out["logits_shape"] = np.array(logits.shape)
+            del want, valid
+        del logits
     if case == "ring":
         # the ring alone at one layer's shape: forward + backward, and its
         # bytes (this rank's, to gloo)
@@ -2927,6 +3024,14 @@ def _mesh_reference(torch, case, overrides, dev, path, release_memory):
                              getattr(state.opt_state, moment).items()
                              if isinstance(m, Quantized)}
     rec["peak_gb"] = _peak_gb(torch, dev)
+    if case == "untied":
+        # the logits of the rows rank 0 holds (batch index 0)
+        rows = micro // (axes["dp"] * axes["fsdp"])
+        with torch.no_grad():
+            logits = model(batch["text"][:rows], batch["image"][:rows],
+                           return_logits=True)[2]
+        torch.save(logits.cpu(), path + ".logits")
+        del logits
     torch.save(saved, path)
     del state, model, grads, loss, saved
     release_memory()
@@ -2935,13 +3040,14 @@ def _mesh_reference(torch, case, overrides, dev, path, release_memory):
 
 def mesh_case_phase(torch, smi, release_memory, root, case, dev="cuda",
                     model_overrides=None) -> dict:
-    """15b-d: the case's one-process reference, then its mesh of
+    """15b-d and 16b: the case's one-process reference, then its mesh of
     processes on the card (``parallel/launch.spawn``, a ``gloo`` group):
     every process exits 0 within ``MESH_TIMEOUT_S``; the loss within
     ``MESH_LOSS_TOL``, every gradient within ``MESH_GRAD_TOL`` (and, with
     the update, every parameter within ``MESH_PARAM_TOL`` and at most
-    ``MESH_CODES_SHARE`` of the 8-bit codes different); no generic launch;
-    the attention kernels launched (on ``H/(tp*sp)`` heads under
+    ``MESH_CODES_SHARE`` of the 8-bit codes different; for the untied
+    head, the logits within ``LOGITS_TOL`` of their range); no generic
+    launch; the attention kernels launched (on ``H/(tp*sp)`` heads under
     Ulysses)."""
     import tempfile
 
@@ -2971,6 +3077,9 @@ def mesh_case_phase(torch, smi, release_memory, root, case, dev="cuda",
         raise AssertionError(f"{case}: the processes' losses {losses}")
     checks = dict(loss_err=(float(r0["loss_err"]), MESH_LOSS_TOL),
                   grad_err=(float(r0["grad_err"]), MESH_GRAD_TOL))
+    if case == "untied":
+        checks["logits_err"] = (float(r0["logits_err"])
+                                / float(r0["logit_range"]), LOGITS_TOL)
     if update:
         checks["param_err"] = (float(r0["param_err"]), MESH_PARAM_TOL)
         checks["codes_share"] = (int(r0["codes_diff"])
@@ -3022,6 +3131,10 @@ def mesh_case_phase(torch, smi, release_memory, root, case, dev="cuda",
         rec["apply_s"] = [float(o["apply_s"]) for o in outs]
         rec["quantize_launches"] = [int(o["quantize_launches"])
                                     for o in outs]
+    if case == "untied":
+        rec["logits"] = dict(shape=[int(x) for x in r0["logits_shape"]],
+                             max_abs_err=float(r0["logits_err"]),
+                             logit_range=float(r0["logit_range"]))
     if case == "ring":
         rec["ring_layer"] = dict(
             fwd_ms=[float(o["ring_fwd_ms"]) for o in outs],
@@ -3155,6 +3268,11 @@ def long_context_phase(torch, smi, release_memory, cuda_ms, dev="cuda",
                       + 2 * B * H * TT * Dh * 2, 10 * Dh * B * H * pairs)
     bwd_t = dict(ms=cuda_ms(lambda *a: window_attention_bwd(*a, G, None),
                             bsets, 10)[0],
+                 plain_ms=cuda_ms(lambda *a: window_attention_bwd_plain(
+                     *a, G, None), bsets, 4)[0],
+                 library_ms=_sdpa_bwd_ms(torch, F, bsets, mask, 10),
+                 library="autograd backward of one SDPA call (zoo mask, "
+                         "prefix and image keys as one tensor), eager",
                  bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
     window = dict(shape=(f"image q/k/v ({B},{H},{img},{Dh}) with a "
                          f"{TT}-token prefix, full, bf16"),
@@ -3176,6 +3294,32 @@ def long_context_phase(torch, smi, release_memory, cuda_ms, dev="cuda",
     return rec
 
 
+def _sdpa_bwd_ms(torch, F, bsets, mask, iters) -> float:
+    """Eager ms of SDPA's autograd backward (a kept graph) for the window
+    call's inputs ``(q, k, v, k_prefix, v_prefix, out, lse, dout)``: one
+    call over the prefix and image keys as one tensor."""
+    graphs = []
+    for q, k, v, kp, vp, _, _, dout in bsets:
+        keys, values = torch.cat([kp, k], 2), torch.cat([vp, v], 2)
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (q, keys, values)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        graphs.append((out, leaves, dout))
+
+    def run():
+        for i in range(iters):
+            out, leaves, dout = graphs[i % len(graphs)]
+            torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    run()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
 def _cmp(torch, name, got, want, tol) -> float:
     got, want = got.float(), want.float()
     err = (got - want).abs()
@@ -3185,6 +3329,94 @@ def _cmp(torch, name, got, want, tol) -> float:
                              f"version: max |diff| {err.max().item()} "
                              f"(tolerance {tol} + {tol}*|plain|)")
     return err.max().item()
+
+
+# -- 16: PowerSGD on a sharded peer, the untied head on a mesh -------------
+# ---------------------------------------------------------------------------
+
+#: 16a: the slice at fsdp=2 and the one-process peer, PowerSGD rank 4 and
+#: 14d's settings otherwise, but a 30 s matchmaking window and synchronous
+#: rounds: the slice's grad step crosses gloo for every block (seconds)
+#: where the peer's takes a tenth of one, so at the default 15 s the
+#: peer's window closed before the slice joined (PERF.md "PR 15", call 1),
+#: and an overlapped peer ran ~150 grad steps on the shared card while it
+#: waited, then a last round no one joined (a slice's rounds are
+#: synchronous anyway); no global clip (the sharded clip norm sums each
+#: leaf's squares in another order than one process, so only an unclipped
+#: update is the one-process update on the same bits)
+POWERSGD_SLICE_COLLAB = dict(SLICE_COLLAB, run_id="psgd_slice",
+                             grad_compression="power_sgd", powersgd_rank=4,
+                             matchmaking_time=30,
+                             delay_optimizer_step=False)
+POWERSGD_SLICE_OPT = dict(max_grad_norm=None)
+
+
+def sharded_powersgd_phase(torch, smi, release_memory, root, dev="cuda",
+                           model_overrides=None,
+                           epochs=SLICE_EPOCHS) -> dict:
+    """16a: 14d's slice and peer with the slice sharded (``fsdp=2``: each
+    process holds half of every fsdp leaf and its 8-bit state) and
+    ``grad_compression="power_sgd"`` at rank 4, phase 8's flagship cut to
+    ``MESH_DEPTH`` layers (all five blocks kept), two epochs: every child
+    exits 0; after every epoch the slice's whole state (gathered) and the
+    peer's are bitwise equal; every round is a 2-peer group whose two
+    factor rounds completed on the slice's coordinator and on the peer;
+    ``wire_quantize_u8`` is launched 0 times (the factors cross as fp16).
+    Records the wire bytes a peer and round by leg, the gloo traffic of
+    the slice's rounds (``collectives.TRAFFIC``: the gathers of the
+    gradient shards and the broadcasts of flags and factors), the rounds'
+    s, the swarm's samples/s and the error feedback's bytes a process."""
+    release_memory()
+    overrides = {"depth": MESH_DEPTH, **(model_overrides or {})}
+    outs, wall_s = _run_slice(root, dev, overrides, POWERSGD_SLICE_COLLAB,
+                              dict(fsdp=2), epochs, "powersgd_slice",
+                              POWERSGD_SLICE_OPT)
+    rounds = _check_slice(outs, epochs, "powersgd_slice")
+    if not (outs["0"]["sharded"] and outs["1"]["sharded"]):
+        raise AssertionError("powersgd_slice: the slice is not sharded")
+    factor_rounds = {role: [r["factor_rounds"]
+                            for r in outs[role]["epochs"]]
+                     for role in ("0", "peer")}
+    if not all(all(r.values()) for rs in factor_rounds.values()
+               for r in rs):
+        raise AssertionError(f"powersgd_slice: factor rounds "
+                             f"{factor_rounds}, expected both complete in "
+                             "every round")
+    u8 = {role: out["launches"].get("wire_quantize_u8", 0)
+          for role, out in outs.items()}
+    if any(u8.values()):
+        raise AssertionError(f"powersgd_slice: wire_quantize_u8 launched "
+                             f"{u8}")
+    wire = {role: [sum(leg["bytes"] for leg in r["wire"].values())
+                   for r in outs[role]["epochs"]]
+            for role in ("0", "peer")}
+    rec = dict(phase="powersgd_slice", card=smi, processes=2, peers=2,
+               mesh=dict(dp=1, fsdp=2, tp=1, sp=1), epochs=epochs,
+               depth=overrides["depth"], collab=POWERSGD_SLICE_COLLAB,
+               optimizer=POWERSGD_SLICE_OPT, wall_s=wall_s,
+               digests_equal=True, factor_rounds=factor_rounds,
+               wire_bytes_per_round=wire, wire_quantize_u8=u8,
+               rounds=rounds, swarm_samples_per_s=_slice_rate(outs),
+               error_feedback_bytes={role: out["ef_bytes"]
+                                     for role, out in outs.items()},
+               peak_gb={role: out["peak_gb"] for role, out in outs.items()},
+               launches={role: out["launches"]
+                         for role, out in outs.items()})
+    emit(**rec)
+    release_memory()
+    return rec
+
+
+def untied_phase(torch, smi, release_memory, root, dev="cuda",
+                 model_overrides=None) -> dict:
+    """16b: the flagship with an untied head (``lm_head/kernel`` as
+    ``P("fsdp", "tp")``), cut to ``MESH_DEPTH`` layers, four processes at
+    ``dp=1 fsdp=2 tp=2`` against one process: 15c's checks and limits
+    (one grad step, the 8-bit update from the one-process gradients), and
+    ``return_logits``' logits of rank 0's rows within 2^-4 of the logit
+    range (phase 4's limit)."""
+    return mesh_case_phase(torch, smi, release_memory, root, "untied",
+                           dev=dev, model_overrides=model_overrides)
 
 
 def dryrun_phase(smi) -> dict:
@@ -3638,6 +3870,12 @@ def main() -> int:
          decode_s=dec_s)
 
     # -- 5. generation ----------------------------------------------------
+    del model, fn, logits, got, cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = init_params(
+        flagship_model_config(param_dtype="bfloat16", depth=GEN_DEPTH),
+        torch.Generator(device=dev).manual_seed(SEED)).eval()
     captions = torch.from_numpy(rng.integers(1, cfg.vocab_text,
                                              (2, TT))).to(dev)
     prompts = captions.repeat_interleave(2, dim=0)
@@ -3666,7 +3904,7 @@ def main() -> int:
     serving_phase(torch, np, dev, smi, model, captions, seeds, knobs,
                   codes.cpu().numpy(), release_memory)
 
-    del model, fn, logits, got, cache, codes
+    del model, codes
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -4588,7 +4826,9 @@ def main() -> int:
     data_phase(torch, smi, root)
     release_memory()
     router_phase(torch, np, smi, root,
-                 lambda: entry(device="cuda", batch=1, seed=SEED)[1][0],
+                 lambda: init_params(flagship_model_config(
+                     param_dtype="bfloat16", depth=ROUTER_DEPTH),
+                     torch.Generator(device=dev).manual_seed(SEED)).eval(),
                  release_memory)
     auth_rounds = auth_phase(torch, smi, release_memory)
 
@@ -4605,7 +4845,11 @@ def main() -> int:
     # -- 15. the sharded mesh: long context, ring, fsdp x tp, Ulysses ------
     mesh_phase(torch, smi, release_memory, cuda_ms, root)
 
-    # -- 16. kernels line and the end ------------------------------------
+    # -- 16. PowerSGD on a sharded peer, the untied head on a mesh --------
+    sharded_powersgd_phase(torch, smi, release_memory, root)
+    untied_phase(torch, smi, release_memory, root)
+
+    # -- 17. kernels line and the end ------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_line = {"kernels": [{k: rec[k] for k in keys}

@@ -17,10 +17,19 @@ rows of the tied table, ``token_emb`` being vocab-sharded over ``tp``
 (``P("tp", None)``): the embedding looks up the ids in its rows and sums
 over ``tp``, the head gives this rank's vocabulary slice of the logits,
 and the loss takes a vocab-parallel logsumexp and target gather
-(:class:`VocabParallelNLL`). Its returned loss is this rank's part of the
-global loss (its tokens' sums over the global denominators), so the
-gradients summed over the batch and sequence axes are the global mesh's
-(``training/steps.reduce_gradients``); ``aux`` holds the global values.
+(:class:`VocabParallelNLL`). An untied head's ``lm_head/kernel`` (dim,
+vocab_total) is ``P("fsdp", "tp")``: it is gathered over ``fsdp`` as the
+blocks' kernels are, and each ``tp`` rank computes its columns of the
+vocabulary (no BOS row, no padding); where ``tp`` does not divide
+``vocab_total`` the axis is dropped (``param_shardings``) and every rank
+computes the whole vocabulary, as JAX's replicated leaf does. Its returned
+loss is this rank's part of the global loss (its tokens' sums over the
+global denominators), so the gradients summed over the batch and sequence
+axes are the global mesh's (``training/steps.reduce_gradients``); ``aux``
+holds the global values. ``return_logits`` gives this process's rows of
+the batch with the whole token axis and the whole vocabulary, summed
+into place over ``tp`` and ``sp`` with the identity as backward (each
+rank keeps its own tokens' and columns' part of the gradient).
 """
 
 from __future__ import annotations
@@ -46,14 +55,41 @@ def _head_logits(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return h.float() @ table.to(h.dtype).float().t()
 
 
+def _dense_logits(h: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The untied head, ``h @ kernel`` in h's dtype (flax ``nn.Dense``
+    with ``dtype``), then f32."""
+    return (h @ kernel.to(h.dtype)).float()
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets[..., None].long())[..., 0]
+
+
+class _HeadPart:
+    """This rank's part of the output head on a mesh: the logits of the
+    vocabulary columns ``[c0, c0 + width)`` (``group``: the ``tp`` group
+    the vocabulary is split over, None when every rank holds it whole)."""
+
+    def __init__(self, weight, tied: bool, c0: int, width: int, group):
+        self.weight, self.tied = weight, tied
+        self.c0, self.width, self.group = c0, width, group
+
+    def logits(self, h: torch.Tensor, a: int, b: int) -> torch.Tensor:
+        """Logits of the vocabulary ids ``[a, b)`` (inside this part)."""
+        lo, hi = a - self.c0, b - self.c0
+        if self.tied:
+            return _head_logits(h, self.weight[lo:hi])
+        return _dense_logits(h, self.weight[:, lo:hi])
+
+
 def _segment_nll(h: torch.Tensor, table: torch.Tensor,
                  targets: torch.Tensor) -> torch.Tensor:
     """Per-token NLL of ``targets`` under the tied-head logits over one
     segment's vocabulary slice, (B, T). The JAX head's vocabulary chunking
     (``head_chunk``) bounds its training memory and gives the same values,
     so the port takes the logsumexp in one pass."""
-    logp = torch.log_softmax(_head_logits(h, table), dim=-1)
-    return -logp.gather(-1, targets[..., None].long())[..., 0]
+    return _nll(_head_logits(h, table), targets)
 
 
 class VocabParallelNLL(torch.autograd.Function):
@@ -132,13 +168,12 @@ class DALLE(nn.Module):
         if cfg.heads % mesh.tp:
             raise ValueError(f"heads {cfg.heads} not divisible by "
                              f"tp={mesh.tp}")
-        if not cfg.tied_embeddings:
-            raise NotImplementedError(
-                "a sharded mesh needs the tied head (the vocab-sharded "
-                "token_emb)")
         rules, specs = param_specs(self), param_shardings(mesh, self)
         for name, spec in specs.items():
-            if "tp" in rules[name] and "tp" not in spec:
+            # an untied head that tp does not divide computes the whole
+            # vocabulary on every rank (JAX replicates the leaf)
+            if ("tp" in rules[name] and "tp" not in spec
+                    and name != "lm_head.kernel"):
                 raise ValueError(
                     f"{name} {tuple(self.get_parameter(name).shape)} does "
                     f"not split over tp={mesh.tp}")
@@ -194,11 +229,8 @@ class DALLE(nn.Module):
         (B, T) multiplier. On a sharded mesh: this process's rows, and the
         loss is its part of the global loss (module docstring)."""
         if self.mesh is not None:
-            if return_logits:
-                raise NotImplementedError(
-                    "return_logits on a sharded mesh: the logits are "
-                    "vocab- and token-sharded")
-            return self._mesh_forward(text_tokens, image_tokens, loss_mask)
+            return self._mesh_forward(text_tokens, image_tokens, loss_mask,
+                                      return_logits)
         cfg = self.cfg
         labels = torch.cat([text_tokens, image_tokens + cfg.vocab_text], 1)
         bos = torch.full((labels.shape[0], 1), self.bos_id,
@@ -253,23 +285,65 @@ class DALLE(nn.Module):
             table.dtype)
         return collectives.all_reduce(x, group)
 
-    def _segment_sums(self, h, lo: int, hi: int, targets, mask):
+    def _head_part(self) -> _HeadPart:
+        """This rank's head: the tied table's rows over ``tp``, or the
+        untied kernel gathered over ``fsdp`` (its backward reduce-scatters
+        the gradient) with its columns over ``tp``."""
+        mesh = self.mesh
+        if self.cfg.tied_embeddings:
+            group = tp_group(mesh)
+            rows = self.token_emb.shape[0]
+            c0 = mesh.index("tp") * rows if group is not None else 0
+            return _HeadPart(self.token_emb, True, c0, rows, group)
+        spec = self.shard_specs["lm_head.kernel"]
+        kernel = self.lm_head.kernel
+        if "fsdp" in spec and mesh.fsdp > 1:
+            kernel = collectives.all_gather(kernel, spec.index("fsdp"),
+                                            mesh.group("fsdp"))
+        group = tp_group(mesh) if "tp" in spec else None
+        cols = kernel.shape[1]
+        c0 = mesh.index("tp") * cols if group is not None else 0
+        return _HeadPart(kernel, False, c0, cols, group)
+
+    def _segment_sums(self, h, head: _HeadPart, lo: int, hi: int, targets,
+                      mask):
         """The (B, t) NLL of ``targets`` (ids into the vocabulary segment
-        ``[lo, hi)``) under the tied head, masked by ``mask``; over ``tp``
-        from this rank's rows of the segment."""
-        group = tp_group(self.mesh)
-        table = self.token_emb
-        if group is None:
-            nll = _segment_nll(h, table[lo:hi], targets)
+        ``[lo, hi)``) under the head, masked by ``mask``; over ``tp`` from
+        this rank's columns of the segment."""
+        if head.group is None:
+            nll = _nll(head.logits(h, lo, hi), targets)
         else:
-            rows = table.shape[0]
-            r0 = self.mesh.index("tp") * rows
-            a, b = max(lo, r0), max(min(hi, r0 + rows), max(lo, r0))
-            logits = _head_logits(h, table[a - r0:b - r0])
-            nll = VocabParallelNLL.apply(logits, targets, a - lo, group)
+            c0, c1 = head.c0, head.c0 + head.width
+            a, b = max(lo, c0), max(min(hi, c1), max(lo, c0))
+            nll = VocabParallelNLL.apply(head.logits(h, a, b), targets,
+                                         a - lo, head.group)
         return nll * mask if mask is not None else nll
 
-    def _mesh_forward(self, text_tokens, image_tokens, loss_mask):
+    def _mesh_logits(self, h, head: _HeadPart, t0: int) -> torch.Tensor:
+        """This process's rows of the logits, (B, T, vocab_total) f32 with
+        segment masking: its columns and tokens summed into place over
+        ``tp`` and ``sp`` (the identity as backward)."""
+        cfg, mesh = self.cfg, self.mesh
+        v, tl = cfg.vocab_total, h.shape[1]
+        a, e = min(head.c0, v), min(head.c0 + head.width, v)
+        logits = head.logits(h, a, e)
+        if head.group is not None:
+            logits = collectives.all_reduce(
+                nn.functional.pad(logits, (a, v - e)), head.group)
+        pos = torch.arange(t0, t0 + tl, device=h.device)
+        valid = ((pos < cfg.text_seq_len)[None, :, None]
+                 == (torch.arange(v, device=h.device)
+                     < cfg.vocab_text)[None, None, :])
+        logits = torch.where(valid, logits, NEG_INF)
+        if mesh.sp > 1:
+            logits = collectives.all_reduce(
+                nn.functional.pad(
+                    logits, (0, 0, t0, cfg.total_seq_len - t0 - tl)),
+                mesh.group("sp"))
+        return logits
+
+    def _mesh_forward(self, text_tokens, image_tokens, loss_mask,
+                      return_logits=False):
         if not self.sharded:
             raise RuntimeError("the model was built for a sharded mesh: "
                                "call parallel.sharding.shard_train_state")
@@ -284,7 +358,9 @@ class DALLE(nn.Module):
         mask = None if loss_mask is None else loss_mask[:, t0:t0 + tl]
         x = self._embed(inputs) + self.positional()[t0:t0 + tl][None]
         h = self.transformer(x.to(torch_dtype(cfg.dtype)), t0)
-        h = column_input(h, self.mesh)
+        head = self._head_part()
+        if head.group is not None:
+            h = column_input(h, self.mesh)
 
         n_text = min(max(cfg.text_seq_len - t0, 0), tl)
         axes = [mesh.group("batch"), mesh.group("sp")]
@@ -294,7 +370,7 @@ class DALLE(nn.Module):
                                     slice(n_text, tl), cfg.vocab_text)):
             m = None if mask is None else mask[:, sl]
             if sl.stop > sl.start:
-                nll_sum = self._segment_sums(h[:, sl], lo, hi,
+                nll_sum = self._segment_sums(h[:, sl], head, lo, hi,
                                              labels[:, sl] - offset,
                                              m).sum()
             else:
@@ -314,6 +390,8 @@ class DALLE(nn.Module):
             torch.stack([loss, parts[0], parts[1]]).detach(), axes)
         aux = {"loss": total[0], "loss_text": total[1],
                "loss_img": total[2]}
+        if return_logits:
+            return loss, aux, self._mesh_logits(h, head, t0)
         return loss, aux
 
 

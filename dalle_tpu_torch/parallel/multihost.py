@@ -23,11 +23,13 @@ gives. On a sharded mesh (``fsdp``, ``tp``, ``sp``) each process holds its
 shards (``parallel/sharding.py``) and :func:`host_global` gathers them.
 
 Single-process runs (no group, or a group of one) take none of these
-paths: every helper is a passthrough.
+paths: every helper is a passthrough. The broadcasts count their bytes
+and seconds in ``collectives.TRAFFIC`` (kind ``"broadcast"``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -72,14 +74,22 @@ def is_coordinator() -> bool:
     return process_index() == 0
 
 
+def _count_broadcast(buf: torch.Tensor, t0: float) -> None:
+    """A broadcast's bytes and seconds in ``collectives.TRAFFIC``."""
+    from dalle_tpu_torch.parallel.collectives import _count
+    _count("broadcast", buf, t0)
+
+
 def broadcast_decision(value: int) -> int:
     """Broadcast a small integer decision from the coordinator to every
     process (followers pass any value; the coordinator's wins). A
     passthrough for one process."""
     if process_count() == 1:
         return int(value)
+    t0 = time.perf_counter()
     t = torch.tensor([int(value)], dtype=torch.int64)
     _dist().broadcast(t, src=0)
+    _count_broadcast(t, t0)
     return int(t[0])
 
 
@@ -103,6 +113,7 @@ def broadcast_arrays(arrays: Optional[Sequence[np.ndarray]],
     them)."""
     if process_count() == 1:
         return list(arrays if arrays is not None else like)
+    t0 = time.perf_counter()
     src = [np.ascontiguousarray(a) for a in
            (arrays if arrays is not None else like)]
     sizes = [a.nbytes for a in src]
@@ -113,6 +124,7 @@ def broadcast_arrays(arrays: Optional[Sequence[np.ndarray]],
     else:
         buf = torch.empty(sum(sizes), dtype=torch.uint8)
     _dist().broadcast(buf, src=0)
+    _count_broadcast(buf, t0)
     raw = buf.numpy()
     out, offset = [], 0
     for a, size in zip(src, sizes):

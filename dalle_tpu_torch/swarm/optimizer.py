@@ -68,7 +68,20 @@ process keeps its shards of the averaged gradients, of a state-averaging
 result and of a downloaded state. The alignment's state leaves are
 gathered whole too (``multihost.host_global``). A sharded peer serves no
 state to joiners (its server thread cannot gather across processes, as
-in the JAX package) and runs no PowerSGD.
+in the JAX package). Under PowerSGD every process of a sharded peer runs
+the compressor in lockstep, as the JAX package's slices do: the
+coordinator broadcasts the round's mode (alone, or the factor rounds);
+each process projects its whole gathered gradients (``phase1_ps``), the
+coordinator alone runs the two factor rounds on the wire, and every
+process receives each round's completeness flag and then the averaged
+factors (``multihost.broadcast_decision`` / ``broadcast_arrays``), so
+every process orthogonalises and reconstructs from the same bytes and
+keeps its shards of the result. Only the rank-r factors and the
+unplanned tail cross the process group after the gather, not the
+averaged gradients. An incomplete factor round makes every process keep
+its exact local gradients and record no error feedback. The error
+feedback is whole on every process (the JAX package's is sharded by
+GSPMD).
 """
 
 from __future__ import annotations
@@ -201,10 +214,6 @@ class CollaborativeOptimizer:
             raise ValueError("the peer's coordinator needs a DHT")
         # a sharded model's mesh (None: whole leaves on every process)
         self._mesh = getattr(state.model, "mesh", None)
-        if self._mesh is not None and cfg.grad_compression == "power_sgd":
-            raise NotImplementedError(
-                "PowerSGD on a sharded peer: its factors need the whole "
-                "gradients on every process of the peer")
         self.dht = dht
         self.cfg = cfg
         self.state = state
@@ -274,6 +283,7 @@ class CollaborativeOptimizer:
             self._codec_backend == compression.DEVICE_BACKEND
             and self.role.n_processes == 1)
         self._powersgd = None
+        self._lockstep_powersgd = False
         if cfg.grad_compression == "power_sgd":
             # rank-r factor exchange; the factors ride the wire as fp16
             from dalle_tpu_torch.swarm.powersgd import PowerSGDCompressor
@@ -283,6 +293,10 @@ class CollaborativeOptimizer:
                 keep_factors_on_device=self._device_grad_handoff,
                 device=self._device)
             self._grad_codec = compression.FLOAT16
+            # a sharded peer's processes all run the compressor's device
+            # phases, and only the wire is the coordinator's
+            self._lockstep_powersgd = (self._mesh is not None
+                                       and self.role.n_processes > 1)
         else:
             self._grad_codec = _CODECS[cfg.grad_compression]
         self._state_codec = _CODECS[cfg.state_compression]
@@ -715,24 +729,44 @@ class CollaborativeOptimizer:
         raises :class:`~dalle_tpu_torch.swarm.powersgd.IncompleteRound`
         (the epoch falls back to local gradients). Each round is audited
         under its phase prefix, and a queued correction for that prefix
-        lands in the averaged factors before they are used."""
+        lands in the averaged factors before they are used. On a sharded
+        peer the wire is the coordinator's (the followers pass no group):
+        every process receives its completeness flag, then its averaged
+        factors, so all raise or proceed together."""
         from dalle_tpu_torch.swarm.powersgd import IncompleteRound
+        lockstep = self._lockstep_powersgd
 
         def reduce_fn(tensors, phase):
+            ok, out = 1, None
             prefix = f"{self.cfg.run_id}_grads_{phase}"
-            rep: dict = {}
-            ra = self._new_round_audit(epoch, f"grads_{phase}")
-            out = run_allreduce(
-                self.dht, group, prefix, epoch, tensors, weight=weight,
-                allreduce_timeout=budget / 2, codec=self._grad_codec,
-                adaptive_threshold=self.cfg.size_adaptive_threshold,
-                report=rep, codec_backend=self._codec_backend,
-                ledger=self.ledger, screen=self._screen,
-                max_peer_weight=self._max_peer_weight, audit=ra)
-            self._submit_audit(ra)
-            reports[phase] = rep
-            if not rep.get("complete", False):
+            if self.role.swarm_enabled:
+                rep: dict = {}
+                ra = self._new_round_audit(epoch, f"grads_{phase}")
+                try:
+                    out = run_allreduce(
+                        self.dht, group, prefix, epoch, tensors,
+                        weight=weight, allreduce_timeout=budget / 2,
+                        codec=self._grad_codec,
+                        adaptive_threshold=self.cfg.size_adaptive_threshold,
+                        report=rep, codec_backend=self._codec_backend,
+                        ledger=self.ledger, screen=self._screen,
+                        max_peer_weight=self._max_peer_weight, audit=ra)
+                except Exception:
+                    if not lockstep:
+                        raise
+                    # the followers wait for this round's flag: they
+                    # abandon the round with the coordinator
+                    logger.warning("factor round %s failed", phase,
+                                   exc_info=True)
+                self._submit_audit(ra)
+                reports[phase] = rep
+                ok = int(bool(rep.get("complete", False)))
+            if lockstep:
+                ok = broadcast_decision(ok)
+            if not ok:
                 raise IncompleteRound(phase)
+            if lockstep:
+                return self._share(out, [t.shape for t in tensors])
             return self._repaired(out, prefix)
 
         return reduce_fn
@@ -852,12 +886,16 @@ class CollaborativeOptimizer:
         self._grad_acc = None
         self.local_samples = 0
 
+    # a sharded PowerSGD peer's round modes, broadcast coordinator ->
+    # followers (the JAX package's _X_ALONE / _X_POWERSGD)
+    _X_ALONE, _X_POWERSGD = 0, 2
+
     def _run_global_step(self) -> None:
         t0 = time.monotonic()
         leaves = self._wire_leaves(self._grad_acc)
         weight = float(max(self.local_samples, 1))
         if not self.role.swarm_enabled:
-            self._follower_exchange(leaves)
+            self._follower_exchange(leaves, weight)
             return
         group = make_group(
             self.dht, f"{self.cfg.run_id}_grads", self.local_epoch,
@@ -872,7 +910,11 @@ class CollaborativeOptimizer:
                     self.local_epoch), t0, t_match - t0,
                 group=group.size if group is not None else 1)
         pull_s = 0.0
-        if group is not None and group.size > 1:
+        exchanging = group is not None and group.size > 1
+        if self._lockstep_powersgd:
+            broadcast_decision(self._X_POWERSGD if exchanging
+                               else self._X_ALONE)
+        if exchanging:
             budget = min(self.cfg.allreduce_timeout,
                          max(1.0, self.cfg.averaging_timeout
                              - (time.monotonic() - t0)))
@@ -881,8 +923,10 @@ class CollaborativeOptimizer:
         else:
             # alone this epoch: the grads never leave the device
             averaged = [g / weight for g in leaves]
-        # deliver the averaged gradients to this peer's followers
-        averaged = self._share(averaged, None)
+        if not (self._lockstep_powersgd and exchanging):
+            # deliver the averaged gradients to this peer's followers (a
+            # lockstep PowerSGD result is on every process already)
+            averaged = self._share(averaged, None)
         t_reduce = time.monotonic()
         self._apply_averaged(averaged)
         self.last_timings = {
@@ -897,10 +941,25 @@ class CollaborativeOptimizer:
                     self.local_epoch, time.monotonic() - t0,
                     group.size if group else 1, self.last_timings)
 
-    def _follower_exchange(self, leaves: List[torch.Tensor]) -> None:
+    def _follower_exchange(self, leaves: List[torch.Tensor],
+                           weight: float) -> None:
         """The follower half of a multi-process peer's global step: the
-        coordinator's averaged gradients, applied as it applies them."""
-        self._apply_averaged(self._share(None, [g.shape for g in leaves]))
+        coordinator's averaged gradients, applied as it applies them. A
+        sharded PowerSGD peer's follower mirrors the announced mode: the
+        factor rounds' device phases on its whole gradients, with the
+        coordinator's flags and averaged factors."""
+        mode = (broadcast_decision(self._X_ALONE)
+                if self._lockstep_powersgd else self._X_ALONE)
+        if mode == self._X_POWERSGD:
+            from dalle_tpu_torch.swarm.powersgd import average_with_powersgd
+            averaged = average_with_powersgd(
+                self._powersgd, [g / weight for g in leaves],
+                self._powersgd_reduce_fn(None, weight, 0.0,
+                                         self.local_epoch, {}),
+                epoch=self.local_epoch)
+        else:
+            averaged = self._share(None, [g.shape for g in leaves])
+        self._apply_averaged(averaged)
         self.last_timings = dict(self._apply_timings)
 
     def _note_epoch_advanced(self) -> None:

@@ -7,14 +7,19 @@ stack; Ulysses at fsdp=2 tp=2 sp=2 over the axial zoo; both
 weight-shared, rematerialised), plus the zoo with its final
 ``conv_like`` block at dp=1 fsdp=2 tp=2 with two micro-batches and a loss
 mask whose rows keep different counts (JAX's masked mean over all the
-processes' tokens, not a mean of per-process means): the port's
+processes' tokens, not a mean of per-process means), and an untied head
+(``lm_head/kernel`` as ``P("fsdp", "tp")``) at dp=1 fsdp=2 tp=2, and one
+whose vocabulary ``tp`` does not divide (``P("fsdp", None)``, every rank
+computing the whole vocabulary, as JAX replicates the leaf): the port's
 processes (``gloo`` on the CPU, ``parallel/launch.spawn``)
 each hold their shards of the JAX package's weights, run ``grad_step`` on
 their rows and token slices, and gather every gradient whole. The loss and
 every gradient are held to the JAX package's single-device values (which
 JAX's own test holds its mesh to), and for the two sp cases also to JAX's
 mesh model, at JAX's tolerances: loss 1e-5, gradients rtol 5e-4 with atol
-5e-5 (f32).
+5e-5 (f32). Each case's ``return_logits`` logits (the process's rows, the
+whole token axis and vocabulary, gathered over the batch axes) are held
+to the JAX package's single-device logits at the loss tolerance.
 """
 
 from pathlib import Path
@@ -53,6 +58,14 @@ CASES = {
                                 final_conv_block=True, conv_kernel=3,
                                 remat=True),
                            dict(dp=1, fsdp=2, tp=2, sp=1), 2),
+    "untied_fsdp_tp": (dict(attn_types=("axial_row", "axial_col"),
+                            tied_embeddings=False, depth=3,
+                            shared_block_cycle=2),
+                       dict(dp=1, fsdp=2, tp=2, sp=1), 1),
+    # tp=2 does not divide vocab_total 193: the head is whole on each rank
+    "untied_whole_vocab": (dict(tied_embeddings=False, vocab_image=65,
+                                depth=2),
+                           dict(dp=1, fsdp=2, tp=2, sp=1), 1),
 }
 
 
@@ -76,6 +89,13 @@ def _batch(cfg, masked, seed=0):
         batch["mask"] = (rng.rand(B, cfg.total_seq_len) < keep).astype(
             np.float32)
     return batch
+
+
+def _jax_logits(model, params, batch):
+    fn = jax.jit(lambda p, t, i, m: model.apply(p, t, i, m,
+                                                return_logits=True)[2])
+    return np.asarray(fn(params, batch["text"], batch["image"],
+                         batch.get("mask")))
 
 
 def _jax_loss_and_grads(model, params, batch, accum):
@@ -114,6 +134,10 @@ def test_mesh_model_loss_and_grads_match_jax(tmp_path, case):
         jm = jax_make_mesh(**mesh, devices=jax.devices()[:n])
         wants.append(_jax_loss_and_grads(JaxDALLE(cfg, mesh=jm), params,
                                          batch, accum))
+    logits = _jax_logits(JaxDALLE(ref_cfg), params, batch)
+    for r in results:
+        np.testing.assert_allclose(r["logits"], logits, **LOSS_TOL,
+                                   err_msg=f"{case} logits")
     for loss, grads in wants:
         np.testing.assert_allclose(float(got["loss"]), loss, **LOSS_TOL)
         flat = _by_port_name(grads)

@@ -3,13 +3,28 @@ sharded mesh).
 
 Two processes at fsdp=2 (a ``gloo`` group on loopback, each holding its
 shards of a tiny model and its 8-bit state) form one peer beside a
-one-process peer; both push constant gradients for two epochs with state
+one-process peer; both push the same gradients for two epochs with state
 averaging after each. The slice gathers its gradient shards whole for the
 round, keeps its shards of the averaged gradients and of the averaged
 state, and its whole state (``multihost.host_global``) ends every epoch
 bitwise equal to the one-process peer's: with no clip (``max_grad_norm``
 None) the whole-leaf update is the one-process update on the same bits.
-Tolerance: exact. Each child has its own timeout.
+Tolerance: exact.
+
+Under ``grad_compression="power_sgd"`` (as JAX's
+``_run_sharded_slice_with_peer("power_sgd")``) both slice processes run
+the compressor in lockstep on their whole gradients and only the
+coordinator's factor rounds cross the wire. The gradients are small
+integers times 2^-10, so every peer's accumulated mean is exactly them.
+The slice's applied averaged gradients, gathered whole, are held to the
+JAX package's ``average_with_powersgd`` on the same whole gradients
+within 1e-5 of each leaf's largest magnitude (the f32 tolerance of
+tests/test_torch_powersgd.py). Its ``reduce_fn`` is the plain mean of the
+peers' factors; the wire carries the mean as fp16, so the reference
+checks the slice's averaged factors against that mean within one fp16
+rounding (rtol 2^-10, atol 2^-24) and reconstructs from the wire's
+bytes, as tests/test_torch_swarm_mixed.py does across packages. Each
+child has its own timeout.
 """
 
 import json
@@ -18,20 +33,28 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from dalle_tpu_torch.parallel.launch import free_port
 
 REPO = Path(__file__).resolve().parent.parent
 CHILD_TIMEOUT = 80
+#: the PowerSGD reference: the f32 tolerance of tests/test_torch_powersgd.py
+REL_TOL = 1e-5
+#: the wire's fp16 rounding of an averaged factor
+FP16_RTOL, FP16_ATOL = 2 ** -10, 2 ** -24
 
 _CHILD = r"""
 import datetime, hashlib, json, sys, time
+import numpy as np
 import torch
 import torch.distributed as dist
 torch.set_num_threads(1)
 from dalle_tpu_torch import config as tconfig
 rank, port, dht_port = int(sys.argv[1]), sys.argv[2], int(sys.argv[3])
+compression, out_dir, mode = sys.argv[4], sys.argv[5], sys.argv[6]
+epochs = 1 if mode == "incomplete" else 2
 if rank >= 0:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=2, rank=rank,
@@ -40,7 +63,12 @@ from dalle_tpu_torch.models.dalle import init_params
 from dalle_tpu_torch.optim import make_optimizer
 from dalle_tpu_torch.parallel.mesh import make_mesh
 from dalle_tpu_torch.parallel.multihost import SliceRole
-from dalle_tpu_torch.parallel.sharding import shard_train_state
+from dalle_tpu_torch.parallel.sharding import (shard_tensor,
+                                               shard_train_state,
+                                               unshard_tensor)
+from dalle_tpu_torch.params import jax_leaf_names
+from dalle_tpu_torch.swarm import optimizer as opt_mod
+from dalle_tpu_torch.swarm import powersgd
 from dalle_tpu_torch.swarm.dht import DHT
 from dalle_tpu_torch.swarm.identity import Identity
 from dalle_tpu_torch.swarm.optimizer import CollaborativeOptimizer
@@ -61,21 +89,68 @@ elif rank < 0:
 cfg = tconfig.CollabConfig(
     run_id="ms", target_batch_size=32, matchmaking_time=2.0,
     allreduce_timeout=15.0, averaging_timeout=25.0, average_state_every=1,
-    grad_compression="none", audit_gather=False, encrypt_data_plane=False)
-model = init_params(tconfig.tiny_model_config(),
-                    torch.Generator().manual_seed(0), mesh=mesh)
+    grad_compression=compression, audit_gather=False,
+    encrypt_data_plane=False)
+model_cfg = tconfig.tiny_model_config()
+model = init_params(model_cfg, torch.Generator().manual_seed(0), mesh=mesh)
 tx = make_optimizer(tconfig.OptimizerConfig(
     warmup_steps=0, total_steps=10, max_grad_norm=None, min_8bit_size=1024,
     block_size=256))
 state = TrainState.create(model, tx)
 if mesh is not None:
     state = shard_train_state(mesh, state)
-opt = CollaborativeOptimizer(dht, cfg, state,
-                             lambda s, g: apply_step(s, g, tx),
-                             serve_state=False, role=role)
+applied, calls, wire = [], [], {}
+
+
+def apply(s, g):
+    applied.append({n: t.clone() for n, t in g.items()})
+    return apply_step(s, g, tx)
+
+
+def host(x):
+    return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x)).astype(np.float32)
+
+
+average = powersgd.average_with_powersgd
+
+
+def recorded(comp, leaves, reduce_fn, epoch=0):
+    calls.append(dict(epoch=epoch, leaves=[host(x) for x in leaves]))
+    return average(comp, leaves, reduce_fn, epoch=epoch)
+
+
+powersgd.average_with_powersgd = recorded
+run_allreduce = opt_mod.run_allreduce
+
+
+def wired(dht_, group, prefix, epoch, tensors, **kw):
+    out = run_allreduce(dht_, group, prefix, epoch, tensors, **kw)
+    wire[f"{prefix.rsplit('_', 1)[1]}{epoch}"] = [host(a) for a in out]
+    if mode == "incomplete" and rank == 0 and prefix.endswith("_grads_q"):
+        kw["report"]["complete"] = False
+    return out
+
+
+opt_mod.run_allreduce = wired
+opt = CollaborativeOptimizer(dht, cfg, state, apply, serve_state=False,
+                             role=role)
 opt.tracker.min_refresh_period = 0.05
-grads = {n: torch.full_like(p, 0.01 * (i % 7 - 3))
-         for i, (n, p) in enumerate(model.named_parameters())}
+names = jax_leaf_names(model_cfg)
+if compression == "none":
+    grads = {n: torch.full_like(p, 0.01 * (i % 7 - 3))
+             for i, (n, p) in enumerate(model.named_parameters())}
+else:
+    # small integers times 2^-10: every accumulated mean is exact
+    rng = np.random.RandomState(1)
+    grads = {}
+    for n in names:
+        whole = torch.from_numpy((rng.randint(-64, 65, model.whole_shapes[n]
+                                              if mesh is not None else
+                                              model.get_parameter(n).shape)
+                                  * 2.0 ** -10).astype(np.float32))
+        grads[n] = (shard_tensor(whole, model.shard_specs[n], mesh)
+                    if mesh is not None else whole)
 
 
 def digest():
@@ -86,14 +161,33 @@ def digest():
 
 
 rows, deadline = [], time.monotonic() + 60
-while opt.local_epoch < 2 and time.monotonic() < deadline:
+while opt.local_epoch < epochs and time.monotonic() < deadline:
     epoch = opt.local_epoch
     opt.step(grads, batch_size=8)
     if opt.local_epoch != epoch:
         rows.append(dict(epoch=opt.local_epoch, digest=digest(),
                          group=opt.last_timings.get("group_size")))
+arrays = {}
+for k, g in enumerate(applied):
+    for i, n in enumerate(names):
+        t = g[n]
+        if mesh is not None:
+            t = unshard_tensor(t, model.shard_specs[n], mesh)
+        arrays[f"applied{k}_{i}"] = host(t)
+for k, call in enumerate(calls):
+    arrays[f"epoch{k}"] = np.array(call["epoch"])
+    for i, x in enumerate(call["leaves"]):
+        arrays[f"input{k}_{i}"] = x
+for key, outs in wire.items():
+    for i, x in enumerate(outs):
+        arrays[f"wire_{key}_{i}"] = x
+np.savez(f"{out_dir}/rank{rank}.npz", **arrays)
+comp = opt._powersgd
 print(json.dumps({"rank": rank, "epoch": opt.local_epoch, "rows": rows,
-                  "sharded": mesh is not None and model.sharded}),
+                  "sharded": mesh is not None and model.sharded,
+                  "applied": len(applied), "calls": len(calls),
+                  "errors": len(comp._errors) if comp else 0,
+                  "cached": len(comp._mat_cache) if comp else 0}),
       flush=True)
 opt.shutdown()
 if dht is not None:
@@ -103,7 +197,9 @@ if rank >= 0:
 """
 
 
-def test_a_sharded_slice_and_a_peer_average_bitwise(tmp_path):
+def _run(tmp_path, compression, mode="bitwise"):
+    """The slice's two processes and the peer; each one's JSON line and
+    its arrays (``rank{r}.npz``)."""
     port, dht_port = free_port(), free_port()
     env = dict(os.environ, PYTHONPATH=str(REPO))
     procs = {}
@@ -111,8 +207,8 @@ def test_a_sharded_slice_and_a_peer_average_bitwise(tmp_path):
         log = open(tmp_path / f"log{rank}.txt", "w")
         procs[rank] = (subprocess.Popen(
             [sys.executable, "-c", _CHILD, str(rank), str(port),
-             str(dht_port)], cwd=REPO, env=env, stdout=subprocess.PIPE,
-            stderr=log, text=True), log)
+             str(dht_port), compression, str(tmp_path), mode], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=log, text=True), log)
     outs = {}
     try:
         for rank, (p, _) in procs.items():
@@ -127,6 +223,48 @@ def test_a_sharded_slice_and_a_peer_average_bitwise(tmp_path):
                 p.kill()
                 p.wait()
             log.close()
+    arrays = {}
+    for rank in outs:
+        with np.load(tmp_path / f"rank{rank}.npz") as data:
+            arrays[rank] = {k: data[k] for k in data.files}
+    return outs, arrays
+
+
+def _leaves(arrays, prefix):
+    n = sum(1 for k in arrays if k.startswith(prefix))
+    return [arrays[f"{prefix}{i}"] for i in range(n)]
+
+
+def _jax_reference(arrays, rank=4):
+    """The JAX package's ``average_with_powersgd`` on the slice's inputs,
+    epoch by epoch, with the plain-mean ``reduce_fn`` (module docstring);
+    each epoch's averaged gradients in the wire order."""
+    from dalle_tpu.swarm import powersgd as jps
+    comp = jps.PowerSGDCompressor(rank=rank)
+    outs = []
+    for k in range(sum(1 for key in arrays if key.startswith("epoch"))):
+        epoch = int(arrays[f"epoch{k}"])
+
+        def reduce_fn(tensors, phase, epoch=epoch):
+            # the two peers push the same gradients: their factors'
+            # plain mean is either's
+            mean = [(np.asarray(t, np.float32) + np.asarray(t, np.float32))
+                    / np.float32(2) for t in tensors]
+            got = _leaves(arrays, f"wire_{phase}{epoch}_")
+            assert len(got) == len(mean)
+            for g, m in zip(got, mean):
+                np.testing.assert_allclose(g.reshape(m.shape), m,
+                                           rtol=FP16_RTOL, atol=FP16_ATOL)
+            return [g.reshape(m.shape) for g, m in zip(got, mean)]
+
+        outs.append([np.asarray(x) for x in jps.average_with_powersgd(
+            comp, _leaves(arrays, f"input{k}_"), reduce_fn, epoch=epoch)])
+    return outs
+
+
+@pytest.mark.parametrize("compression", ["none", "power_sgd"])
+def test_a_sharded_slice_and_a_peer_average_bitwise(tmp_path, compression):
+    outs, arrays = _run(tmp_path, compression)
     assert outs[0]["sharded"] and outs[1]["sharded"]
     for rank, out in outs.items():
         assert out["epoch"] == 2, (rank, out)
@@ -136,6 +274,51 @@ def test_a_sharded_slice_and_a_peer_average_bitwise(tmp_path):
                    for rank, out in outs.items()}
         assert len(set(digests.values())) == 1, (e, digests)
     assert [r["group"] for r in outs[0]["rows"]] == [2, 2]
+    if compression == "none":
+        return
+    # every process of the slice ran the compressor on the same whole
+    # gradients, and carries error feedback
+    for rank in (0, 1, -1):
+        assert outs[rank]["calls"] == 2 and outs[rank]["errors"] > 0
+    for key, val in arrays[0].items():
+        if key.startswith(("input", "applied")):
+            assert val.tobytes() == arrays[1][key].tobytes(), key
+    want = _jax_reference(arrays[0])
+    for k, leaves in enumerate(want):
+        got = _leaves(arrays[0], f"applied{k}_")
+        assert len(got) == len(leaves)
+        for i, (g, w) in enumerate(zip(got, leaves)):
+            scale = max(float(np.abs(w).max()), 1e-30)
+            np.testing.assert_allclose(g.reshape(w.shape), w, rtol=0,
+                                       atol=REL_TOL * scale,
+                                       err_msg=f"epoch {k} leaf {i}")
+
+
+def test_an_incomplete_factor_round_leaves_the_slice_its_local_gradients(
+        tmp_path):
+    """The slice's coordinator sees its Q round incomplete (its report
+    marked so after the wire completed): both processes of the slice
+    abandon the round together and apply their exact local gradients,
+    recording no error feedback and keeping no cached matrix, while the
+    peer, whose round completed, applies the rank-r average."""
+    outs, arrays = _run(tmp_path, "power_sgd", mode="incomplete")
+    for rank, out in outs.items():
+        assert out["epoch"] == 1 and out["applied"] == 1, (rank, out)
+        assert out["calls"] == 1 and out["cached"] == 0, (rank, out)
+    assert outs[0]["rows"][0]["group"] == 2
+    for rank in (0, 1):
+        assert outs[rank]["errors"] == 0, outs[rank]
+        local = _leaves(arrays[rank], "input0_")
+        got = _leaves(arrays[rank], "applied0_")
+        assert len(got) == len(local)
+        for i, (g, x) in enumerate(zip(got, local)):
+            assert g.reshape(x.shape).tobytes() == x.tobytes(), (rank, i)
+    assert outs[0]["rows"][0]["digest"] == outs[1]["rows"][0]["digest"]
+    assert outs[-1]["errors"] > 0
+    peer = _leaves(arrays[-1], "applied0_")
+    local = _leaves(arrays[-1], "input0_")
+    assert any(g.reshape(x.shape).tobytes() != x.tobytes()
+               for g, x in zip(peer, local))
 
 
 def test_a_sharded_peer_checkpoints_and_resumes_in_the_loop(tmp_path):

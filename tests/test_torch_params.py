@@ -179,7 +179,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "dalle_tpu_torch.data.remote",
                 "dalle_tpu_torch.cli.prepare_data",
                 "dalle_tpu_torch.cli.run_router",
-                "dalle_tpu_torch.cli.issue_token"):
+                "dalle_tpu_torch.cli.issue_token",
+                "dalle_tpu_torch.cli.manage_fleet"):
         assert mod in mods, mod
     # chip_smoke.py imports inside main(): read every import it names
     tree = ast.parse((root / "chip_smoke.py").read_text())

@@ -196,16 +196,27 @@ def test_collectives_forward_and_backward_in_a_group():
 
 def test_a_mesh_the_model_cannot_shard_is_refused():
     """The port shards the token axis over ``sp`` and the vocabulary over
-    ``tp`` through the tied head: a mesh with ``sp > 1`` and no
-    ``sequence_parallel`` mode, an untied head on any sharded mesh, heads
-    or a tp-sharded leaf that ``tp`` does not divide, raise when the model
-    is built (never a quiet replicated run)."""
+    ``tp``: a mesh with ``sp > 1`` and no ``sequence_parallel`` mode,
+    heads or a tp-sharded leaf that ``tp`` does not divide, raise when the
+    model is built (never a quiet replicated run). An untied head builds
+    and shards on any mesh: its kernel is ``P("fsdp", "tp")``, the tp axis
+    dropped where it does not divide the vocabulary (the head then
+    computes the whole vocabulary on every rank, as JAX's replicated
+    leaf)."""
     cfg = tconfig.tiny_model_config()
     with pytest.raises(ValueError, match="sequence_parallel"):
         DALLE(cfg, mesh=tmesh.make_mesh(1, 1, 1, 2, n_devices=2))
-    with pytest.raises(NotImplementedError, match="tied head"):
-        DALLE(tconfig.tiny_model_config(tied_embeddings=False),
-              mesh=tmesh.make_mesh(1, 2, 1, 1, n_devices=2))
+    for kw, axes, spec in ((dict(), (1, 2, 1, 1), ("fsdp", "tp")),
+                           (dict(), (1, 2, 2, 1), ("fsdp", "tp")),
+                           (dict(vocab_image=65), (1, 2, 2, 1),
+                            ("fsdp", None))):
+        untied = DALLE(tconfig.tiny_model_config(tied_embeddings=False,
+                                                 **kw),
+                       mesh=tmesh.make_mesh(*axes,
+                                            n_devices=axes[1] * axes[2]))
+        assert untied.shard_specs["lm_head.kernel"] == spec, (kw, axes)
+        assert untied.whole_shapes["lm_head.kernel"] == (
+            64, untied.cfg.vocab_total)
     with pytest.raises(ValueError, match="heads 2 not divisible by tp=4"):
         DALLE(tconfig.tiny_model_config(heads=2, head_dim=32),
               mesh=tmesh.make_mesh(1, 1, 4, 1, n_devices=4))

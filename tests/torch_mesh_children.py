@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from dalle_tpu_torch import config as tconfig
+from dalle_tpu_torch.parallel.collectives import gather_whole
 from dalle_tpu_torch.parallel.mesh import batch_sharding, make_mesh
 from dalle_tpu_torch.parallel.sharding import (moment_spec, shard_tensor,
                                                shard_train_state,
@@ -132,7 +133,8 @@ def sequence(rank, n, args):
 
 def model_grads(rank, n, args):
     """The port model on its mesh from the JAX weights: ``grad_step`` on
-    this process's rows of the batch; the loss and every gradient whole."""
+    this process's rows of the batch; the loss, every gradient whole, and
+    the logits of ``return_logits`` gathered over the batch axes."""
     from dalle_tpu_torch.optim import make_optimizer
     from dalle_tpu_torch.training.steps import TrainState, grad_step
     mesh = make_mesh(**args["mesh"])
@@ -145,10 +147,15 @@ def model_grads(rank, n, args):
     batch = {k: torch.from_numpy(data[k]).long() for k in ("text", "image")}
     if "mask" in data:
         batch["mask"] = torch.from_numpy(data["mask"])
+    rows = batch_sharding(mesh, batch)
     batch = batch_sharding(mesh, batch, accum)
     loss, aux, grads = grad_step(model, batch, accum)
+    with torch.no_grad():
+        logits = model(rows["text"], rows["image"], rows.get("mask"),
+                       return_logits=True)[2]
     return {"loss": float(loss), "loss_img": float(aux["loss_img"]),
-            **_whole_grads(model, grads, mesh)}
+            "logits": gather_whole(logits, [(0, mesh.group("batch"))])
+            .numpy(), **_whole_grads(model, grads, mesh)}
 
 
 def train_steps(rank, n, args):
