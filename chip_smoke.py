@@ -32,12 +32,11 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    (129 LayerNorm / 127 line / 1 window / 15 GEGLU) and its peak memory;
    every flagship phase (2-9) must run no generic-route kernel
    (``ops.GENERIC_LAUNCHES`` stays 0);
-4. teacher-forced cached decode of one sequence's first
-   ``DECODE_POSITIONS`` positions against the forward's logits on the
-   card;
-5. ``generate_images`` for 2 captions x 2 seeds (temperature 1, top-k 64;
-   the fourth row greedy), one noise seed a row, on the flagship's weights
+4. teacher-forced cached decode of all 1280 positions of one sequence
+   against the forward's logits on the card, on the flagship's weights
    cut to ``GEN_DEPTH`` layers;
+5. ``generate_images`` for 2 captions x 2 seeds (temperature 1, top-k 64;
+   the fourth row greedy), one noise seed a row, on phase 4's model;
    then the serving slice on the same model (no kernel runs there: the
    counters must not move): a ``DecodeEngine`` (4 slots, 8-position
    chunks, a 256 MiB prefix cache) whose chunk is one CUDA graph a visible
@@ -251,12 +250,9 @@ TINY_TOL = 2e-4                # the tiny model on the card vs the CPU (the
 LSE_TOL = 1e-4                 # f32 logsumexp
 SUM_TOL = 1e-4                 # f32 sums over 5120 rows (LN dscale/dbias)
 ARGMAX_AGREE = 0.9             # cached decode vs forward, share of positions
-DECODE_POSITIONS = 320         # phase 4's positions of 1280 (the text and
-                               # 2 image rows; cut for time: the whole
-                               # script must end within 1200 s)
-GEN_DEPTH = 16                 # phases 5 and 5b: the flagship (the same
-                               # five blocks and weights) cut to 16 layers
-                               # for time
+GEN_DEPTH = 16                 # phases 4, 5 and 5b: the flagship (the
+                               # same five blocks and weights) cut to 16
+                               # layers for time
 SEED = 0                       # weights, inputs and sampling noise
 TRAIN_STEPS = 6                # flagship train steps on one fixed batch
 MICRO, ACCUM = 4, 2            # micro-batch size, micro-batches per step
@@ -3831,29 +3827,36 @@ def main() -> int:
         rec["launches"] = launches[name]
 
     # -- 4. teacher-forced cached decode vs the forward's logits ----------
+    # every position of one sequence, on the flagship's weights cut to
+    # GEN_DEPTH layers (phase 5's model: the same five blocks)
+    del model, fn
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    gcfg = flagship_model_config(param_dtype="bfloat16", depth=GEN_DEPTH)
+    model = init_params(
+        gcfg, torch.Generator(device=dev).manual_seed(SEED)).eval()
     with torch.inference_mode():
         _, _, logits = model(text[:1], image[:1], return_logits=True)
         labels = torch.cat([text[:1], image[:1] + cfg.vocab_text], 1)
         inputs = torch.cat([torch.full((1, 1), cfg.vocab_total, device=dev,
                                        dtype=labels.dtype),
                             labels[:, :-1]], 1)
-        cache = init_cache(cfg, 1, dev)
-        tables = decode_tables(cfg, dev)
+        cache = init_cache(gcfg, 1, dev)
+        tables = decode_tables(gcfg, dev)
         t0 = time.perf_counter()
         steps = []
-        for p in range(DECODE_POSITIONS):
+        for p in range(T):
             lp, cache = decode_step(model, cache, inputs[:, p], p, tables)
             steps.append(lp)
         got = torch.stack(steps, 1)
         torch.cuda.synchronize()
         dec_s = time.perf_counter() - t0
-        logits = logits[:, :DECODE_POSITIONS]
     valid = logits > -1e8
     diff = (got - logits).abs()[valid].max().item()
     scale = logits[valid].abs().max().item()
     # bf16 keeps 8 significant bits; the two paths round at different
-    # places through 64 layers (~sqrt(64) = 8 independent roundings of
-    # 2^-8), doubled for margin: 2^-4 of the logit range
+    # places through the layers (at 64 layers ~sqrt(64) = 8 independent
+    # roundings of 2^-8), doubled for margin: 2^-4 of the logit range
     dec_tol = 2 ** -4 * scale
     agree = (got.argmax(-1) == logits.argmax(-1)).float().mean().item()
     if not diff <= dec_tol:
@@ -3864,18 +3867,15 @@ def main() -> int:
     if not agree >= ARGMAX_AGREE:
         raise AssertionError(f"cached decode vs forward: argmax agrees on "
                              f"{agree:.3f} of positions < {ARGMAX_AGREE}")
-    emit(phase="decode_vs_forward", positions=DECODE_POSITIONS,
+    emit(phase="decode_vs_forward", positions=T, depth=GEN_DEPTH,
          max_abs_err=diff,
          tolerance=dec_tol, logit_range=scale, argmax_agreement=agree,
          decode_s=dec_s)
 
     # -- 5. generation ----------------------------------------------------
-    del model, fn, logits, got, cache
+    del logits, got, cache
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    model = init_params(
-        flagship_model_config(param_dtype="bfloat16", depth=GEN_DEPTH),
-        torch.Generator(device=dev).manual_seed(SEED)).eval()
     captions = torch.from_numpy(rng.integers(1, cfg.vocab_text,
                                              (2, TT))).to(dev)
     prompts = captions.repeat_interleave(2, dim=0)

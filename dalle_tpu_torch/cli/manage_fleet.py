@@ -10,12 +10,12 @@ Compute Engine VM with one H100, made by ``gcloud compute instances
 create`` (no cloud SDK to pin) with these documented flags:
 ``--machine-type`` (default ``a3-highgpu-1g``, GCP's one-H100 A3 type,
 whose GPU comes with the machine type), ``--provisioning-model=SPOT``,
-``--instance-termination-action`` (default ``DELETE``),
+``--instance-termination-action=DELETE``,
 ``--maintenance-policy=TERMINATE`` (a GPU VM cannot live-migrate),
 ``--image-family`` / ``--image-project`` (default a Deep Learning VM
 PyTorch image, with the ``install-nvidia-driver=True`` metadata key),
-``--boot-disk-size`` and ``--metadata=startup-script=...``. The startup
-script clones the repository and launches ``python3 -m
+``--boot-disk-size=200GB`` and ``--metadata=startup-script=...``. The
+startup script clones the repository and launches ``python3 -m
 dalle_tpu_torch.cli.run_trainer --device cuda`` from the clone into the
 swarm: it installs nothing (the image carries PyTorch, Triton and the CUDA
 toolkit; no JAX, no package of finished kernels) and the kernels build at
@@ -97,11 +97,12 @@ def build_create_command(args, index: int) -> List[str]:
         f"--project={args.project}", f"--zone={args.zone}",
         f"--machine-type={args.machine_type}",
         "--provisioning-model=SPOT",   # the reference's spot VMs
-        f"--instance-termination-action={args.termination_action}",
+        # an evicted worker is deleted, so a later create re-makes it
+        "--instance-termination-action=DELETE",
         "--maintenance-policy=TERMINATE",
         f"--image-family={args.image_family}",
         f"--image-project={args.image_project}",
-        f"--boot-disk-size={args.boot_disk_size}",
+        "--boot-disk-size=200GB",
         "--metadata=install-nvidia-driver=True,"
         f"startup-script={startup_script(args)}",
     ]
@@ -139,11 +140,6 @@ def build_parser() -> argparse.ArgumentParser:
                              "toolkit (the JAX CLI's --runtime-version)")
     parser.add_argument("--image-project",
                         default="deeplearning-platform-release")
-    parser.add_argument("--boot-disk-size", default="200GB")
-    parser.add_argument("--termination-action", default="DELETE",
-                        choices=("DELETE", "STOP"),
-                        help="what an eviction does to a worker; DELETE "
-                             "lets a later create re-make it")
     parser.add_argument("--swarm-size", type=int, default=4,
                         help="number of worker VMs (reference "
                              "SWARM_SIZE=4, manage_scaleset.py:22)")

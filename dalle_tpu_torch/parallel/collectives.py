@@ -48,27 +48,14 @@ share of a step spent in collectives.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from dalle_tpu_torch.parallel.multihost import BACKEND
+from dalle_tpu_torch.parallel.multihost import (BACKEND, TRAFFIC, count,
+                                                reset_traffic)
 
 Perm = Sequence[Tuple[int, int]]
-
-#: kind -> [calls, bytes this rank sent, seconds], since reset_traffic()
-TRAFFIC: Dict[str, List[float]] = {}
-
-
-def reset_traffic() -> None:
-    TRAFFIC.clear()
-
-
-def _count(kind: str, host: torch.Tensor, t0: float) -> None:
-    row = TRAFFIC.setdefault(kind, [0, 0, 0.0])
-    row[0] += 1
-    row[1] += host.numel() * host.element_size()
-    row[2] += time.perf_counter() - t0
 
 
 def _dist():
@@ -115,7 +102,7 @@ def _host_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = [torch.empty_like(host) for _ in range(n)]
     _dist().all_gather(parts, host, group=group)
     out = _back(torch.cat(parts, dim=dim), t)
-    _count("all_gather", host, t0)
+    count("all_gather", host, t0)
     return out
 
 
@@ -124,7 +111,7 @@ def _host_sum(t: torch.Tensor, group) -> torch.Tensor:
     host = _wire(t)
     _dist().all_reduce(host, group=group)
     out = _back(host, t)
-    _count("all_reduce", host, t0)
+    count("all_reduce", host, t0)
     return out
 
 
@@ -171,7 +158,7 @@ def _host_ppermute(x: torch.Tensor, perms: Sequence[Perm],
             result[p] = out[offset:offset + piece]
             offset += piece
     back = _back(result.reshape(host.shape), x)
-    _count("ppermute", inp, t0)
+    count("ppermute", inp, t0)
     return back
 
 
@@ -187,7 +174,7 @@ def _host_all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
     out = torch.empty_like(chunks)
     _dist().all_to_all_single(out, chunks, group=group)
     back = _back(torch.cat(out.unbind(0), dim=concat_dim), x)
-    _count("all_to_all", chunks, t0)
+    count("all_to_all", chunks, t0)
     return back
 
 
@@ -357,7 +344,7 @@ def max_over(x: torch.Tensor, group) -> torch.Tensor:
     host = _wire(x.detach())
     _dist().all_reduce(host, op=_dist().ReduceOp.MAX, group=group)
     out = _back(host, x)
-    _count("all_reduce", host, t0)
+    count("all_reduce", host, t0)
     return out
 
 

@@ -30,12 +30,29 @@ and seconds in ``collectives.TRAFFIC`` (kind ``"broadcast"``).
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 BACKEND = "gloo"
+
+#: kind -> [calls, bytes this rank sent, seconds] of the peer's host
+#: collectives since :func:`reset_traffic` (``collectives.TRAFFIC``)
+TRAFFIC: Dict[str, List[float]] = {}
+
+
+def reset_traffic() -> None:
+    TRAFFIC.clear()
+
+
+def count(kind: str, host: torch.Tensor, t0: float) -> None:
+    """One collective's call, the bytes of ``host`` and the seconds since
+    ``t0`` in :data:`TRAFFIC`."""
+    row = TRAFFIC.setdefault(kind, [0, 0, 0.0])
+    row[0] += 1
+    row[1] += host.numel() * host.element_size()
+    row[2] += time.perf_counter() - t0
 
 
 def _dist():
@@ -74,12 +91,6 @@ def is_coordinator() -> bool:
     return process_index() == 0
 
 
-def _count_broadcast(buf: torch.Tensor, t0: float) -> None:
-    """A broadcast's bytes and seconds in ``collectives.TRAFFIC``."""
-    from dalle_tpu_torch.parallel.collectives import _count
-    _count("broadcast", buf, t0)
-
-
 def broadcast_decision(value: int) -> int:
     """Broadcast a small integer decision from the coordinator to every
     process (followers pass any value; the coordinator's wins). A
@@ -89,7 +100,7 @@ def broadcast_decision(value: int) -> int:
     t0 = time.perf_counter()
     t = torch.tensor([int(value)], dtype=torch.int64)
     _dist().broadcast(t, src=0)
-    _count_broadcast(t, t0)
+    count("broadcast", t, t0)
     return int(t[0])
 
 
@@ -124,7 +135,7 @@ def broadcast_arrays(arrays: Optional[Sequence[np.ndarray]],
     else:
         buf = torch.empty(sum(sizes), dtype=torch.uint8)
     _dist().broadcast(buf, src=0)
-    _count_broadcast(buf, t0)
+    count("broadcast", buf, t0)
     raw = buf.numpy()
     out, offset = [], 0
     for a, size in zip(src, sizes):

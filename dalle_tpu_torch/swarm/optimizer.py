@@ -61,6 +61,23 @@ process applies the same update. Followers run no auditor, state server
 or strike gossip, and a multi-process peer runs no round repair (a
 correction would have to reach the followers, who audit nothing).
 
+Under PowerSGD every process of a multi-process peer runs the compressor
+in lockstep, as the JAX package's sharded slices do: the coordinator
+broadcasts the round's mode (alone, or the factor rounds); each process
+projects its whole gradients (``phase1_ps``; a data-parallel slice's
+processes hold the same mean, a sharded one's are gathered whole), the
+coordinator alone runs the two factor rounds on the wire, and every
+process receives each round's outcome and then the averaged factors
+(``multihost.broadcast_decision`` / ``broadcast_arrays``), so every
+process orthogonalises and reconstructs from the same bytes. Only the
+rank-r factors and the unplanned tail cross the process group, not the
+averaged gradients. An incomplete factor round makes every process keep
+its exact local gradients and record no error feedback; a factor round
+that raised on the coordinator raises on every process. The error
+feedback is whole on every process (the JAX package's is sharded by
+GSPMD on a sharded slice, and its data-parallel slices broadcast the
+coordinator's averaged gradients instead).
+
 On a sharded mesh (``parallel/sharding.py``) each process accumulates
 its shards of the gradients; the round's leaves are gathered whole on
 every process (the coordinator averages them with the swarm), and each
@@ -68,20 +85,8 @@ process keeps its shards of the averaged gradients, of a state-averaging
 result and of a downloaded state. The alignment's state leaves are
 gathered whole too (``multihost.host_global``). A sharded peer serves no
 state to joiners (its server thread cannot gather across processes, as
-in the JAX package). Under PowerSGD every process of a sharded peer runs
-the compressor in lockstep, as the JAX package's slices do: the
-coordinator broadcasts the round's mode (alone, or the factor rounds);
-each process projects its whole gathered gradients (``phase1_ps``), the
-coordinator alone runs the two factor rounds on the wire, and every
-process receives each round's completeness flag and then the averaged
-factors (``multihost.broadcast_decision`` / ``broadcast_arrays``), so
-every process orthogonalises and reconstructs from the same bytes and
-keeps its shards of the result. Only the rank-r factors and the
-unplanned tail cross the process group after the gather, not the
-averaged gradients. An incomplete factor round makes every process keep
-its exact local gradients and record no error feedback. The error
-feedback is whole on every process (the JAX package's is sharded by
-GSPMD).
+in the JAX package). Each process keeps its shards of a PowerSGD round's
+reconstruction.
 """
 
 from __future__ import annotations
@@ -293,10 +298,10 @@ class CollaborativeOptimizer:
                 keep_factors_on_device=self._device_grad_handoff,
                 device=self._device)
             self._grad_codec = compression.FLOAT16
-            # a sharded peer's processes all run the compressor's device
-            # phases, and only the wire is the coordinator's
-            self._lockstep_powersgd = (self._mesh is not None
-                                       and self.role.n_processes > 1)
+            # a multi-process peer's processes all run the compressor's
+            # device phases on the same whole gradients, and only the
+            # wire is the coordinator's
+            self._lockstep_powersgd = self.role.n_processes > 1
         else:
             self._grad_codec = _CODECS[cfg.grad_compression]
         self._state_codec = _CODECS[cfg.state_compression]
@@ -722,6 +727,9 @@ class CollaborativeOptimizer:
                               time.monotonic(), None, group.size)
         return averaged, 0.0, rep
 
+    # a factor round's outcome, broadcast coordinator -> followers
+    _ROUND_INCOMPLETE, _ROUND_COMPLETE, _ROUND_FAILED = 0, 1, 2
+
     def _powersgd_reduce_fn(self, group, weight: float, budget: float,
                             epoch: int, reports: dict):
         """Reduce callback for the PowerSGD factor rounds: P, then Q and
@@ -729,15 +737,18 @@ class CollaborativeOptimizer:
         raises :class:`~dalle_tpu_torch.swarm.powersgd.IncompleteRound`
         (the epoch falls back to local gradients). Each round is audited
         under its phase prefix, and a queued correction for that prefix
-        lands in the averaged factors before they are used. On a sharded
-        peer the wire is the coordinator's (the followers pass no group):
-        every process receives its completeness flag, then its averaged
-        factors, so all raise or proceed together."""
+        lands in the averaged factors before they are used. On a
+        multi-process peer the wire is the coordinator's (the followers
+        pass no group): every process receives its outcome, then its
+        averaged factors, so all raise or proceed together. A round that raised on
+        the coordinator is broadcast as failed: the coordinator re-raises
+        its error and every follower raises too, so no process falls back
+        alone."""
         from dalle_tpu_torch.swarm.powersgd import IncompleteRound
         lockstep = self._lockstep_powersgd
 
         def reduce_fn(tensors, phase):
-            ok, out = 1, None
+            ok, out, error = self._ROUND_COMPLETE, None, None
             prefix = f"{self.cfg.run_id}_grads_{phase}"
             if self.role.swarm_enabled:
                 rep: dict = {}
@@ -751,19 +762,24 @@ class CollaborativeOptimizer:
                         report=rep, codec_backend=self._codec_backend,
                         ledger=self.ledger, screen=self._screen,
                         max_peer_weight=self._max_peer_weight, audit=ra)
-                except Exception:
+                except Exception as e:
                     if not lockstep:
                         raise
-                    # the followers wait for this round's flag: they
-                    # abandon the round with the coordinator
-                    logger.warning("factor round %s failed", phase,
-                                   exc_info=True)
+                    # the followers wait for this round's flag
+                    error = e
                 self._submit_audit(ra)
                 reports[phase] = rep
-                ok = int(bool(rep.get("complete", False)))
+                ok = (self._ROUND_FAILED if error is not None
+                      else self._ROUND_COMPLETE if rep.get("complete")
+                      else self._ROUND_INCOMPLETE)
             if lockstep:
                 ok = broadcast_decision(ok)
-            if not ok:
+            if error is not None:
+                raise error
+            if ok == self._ROUND_FAILED:
+                raise RuntimeError(f"factor round {phase} failed on the "
+                                   "peer's coordinator")
+            if ok == self._ROUND_INCOMPLETE:
                 raise IncompleteRound(phase)
             if lockstep:
                 return self._share(out, [t.shape for t in tensors])

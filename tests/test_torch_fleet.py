@@ -26,6 +26,8 @@ def test_dry_run_prints_gcloud_commands(capsys):
     out = capsys.readouterr().out
     assert out.count("gcloud compute instances create") == 2
     assert out.count("--provisioning-model=SPOT") == 2
+    # an evicted worker is deleted, so create can make it again
+    assert out.count("--instance-termination-action=DELETE") == 2
     assert out.count("--machine-type=a3-highgpu-1g") == 2
     assert "dalle-h100-worker-0" in out and "dalle-h100-worker-1" in out
     assert "--initial-peers 10.0.0.2:31334" in out

@@ -23,8 +23,12 @@ tests/test_torch_powersgd.py). Its ``reduce_fn`` is the plain mean of the
 peers' factors; the wire carries the mean as fp16, so the reference
 checks the slice's averaged factors against that mean within one fp16
 rounding (rtol 2^-10, atol 2^-24) and reconstructs from the wire's
-bytes, as tests/test_torch_swarm_mixed.py does across packages. Each
-child has its own timeout.
+bytes, as tests/test_torch_swarm_mixed.py does across packages. A
+data-parallel slice (two processes with the same whole gradients and no
+mesh) runs PowerSGD in the same lockstep and is held to the same
+reference. A factor round that is incomplete on the slice's coordinator
+leaves every process of the slice its exact local gradients; one that
+raises there raises on every process. Each child has its own timeout.
 """
 
 import json
@@ -54,7 +58,8 @@ torch.set_num_threads(1)
 from dalle_tpu_torch import config as tconfig
 rank, port, dht_port = int(sys.argv[1]), sys.argv[2], int(sys.argv[3])
 compression, out_dir, mode = sys.argv[4], sys.argv[5], sys.argv[6]
-epochs = 1 if mode == "incomplete" else 2
+layout = sys.argv[7]
+epochs = 1 if mode in ("incomplete", "raise") else 2
 if rank >= 0:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=2, rank=rank,
@@ -75,7 +80,7 @@ from dalle_tpu_torch.swarm.optimizer import CollaborativeOptimizer
 from dalle_tpu_torch.training.steps import TrainState, apply_step
 
 role = SliceRole()
-mesh = make_mesh(dp=1, fsdp=2) if rank >= 0 else None
+mesh = make_mesh(dp=1, fsdp=2) if rank >= 0 and layout == "fsdp" else None
 dht = None
 if rank == 0:
     dht = DHT(host="127.0.0.1", port=dht_port, identity=Identity.generate())
@@ -127,8 +132,11 @@ run_allreduce = opt_mod.run_allreduce
 def wired(dht_, group, prefix, epoch, tensors, **kw):
     out = run_allreduce(dht_, group, prefix, epoch, tensors, **kw)
     wire[f"{prefix.rsplit('_', 1)[1]}{epoch}"] = [host(a) for a in out]
-    if mode == "incomplete" and rank == 0 and prefix.endswith("_grads_q"):
-        kw["report"]["complete"] = False
+    if rank == 0 and prefix.endswith("_grads_q"):
+        if mode == "incomplete":
+            kw["report"]["complete"] = False
+        elif mode == "raise":
+            raise TypeError("injected after the Q round")
     return out
 
 
@@ -160,10 +168,14 @@ def digest():
     return h.hexdigest()
 
 
-rows, deadline = [], time.monotonic() + 60
+rows, error, deadline = [], None, time.monotonic() + 60
 while opt.local_epoch < epochs and time.monotonic() < deadline:
     epoch = opt.local_epoch
-    opt.step(grads, batch_size=8)
+    try:
+        opt.step(grads, batch_size=8)
+    except Exception as e:
+        error = f"{type(e).__name__}: {e}"
+        break
     if opt.local_epoch != epoch:
         rows.append(dict(epoch=opt.local_epoch, digest=digest(),
                          group=opt.last_timings.get("group_size")))
@@ -184,6 +196,7 @@ for key, outs in wire.items():
 np.savez(f"{out_dir}/rank{rank}.npz", **arrays)
 comp = opt._powersgd
 print(json.dumps({"rank": rank, "epoch": opt.local_epoch, "rows": rows,
+                  "error": error,
                   "sharded": mesh is not None and model.sharded,
                   "applied": len(applied), "calls": len(calls),
                   "errors": len(comp._errors) if comp else 0,
@@ -197,9 +210,10 @@ if rank >= 0:
 """
 
 
-def _run(tmp_path, compression, mode="bitwise"):
-    """The slice's two processes and the peer; each one's JSON line and
-    its arrays (``rank{r}.npz``)."""
+def _run(tmp_path, compression, mode="bitwise", layout="fsdp"):
+    """The slice's two processes (``layout`` "fsdp": sharded; "dp":
+    whole leaves, no mesh) and the peer; each one's JSON line and its
+    arrays (``rank{r}.npz``)."""
     port, dht_port = free_port(), free_port()
     env = dict(os.environ, PYTHONPATH=str(REPO))
     procs = {}
@@ -207,8 +221,9 @@ def _run(tmp_path, compression, mode="bitwise"):
         log = open(tmp_path / f"log{rank}.txt", "w")
         procs[rank] = (subprocess.Popen(
             [sys.executable, "-c", _CHILD, str(rank), str(port),
-             str(dht_port), compression, str(tmp_path), mode], cwd=REPO,
-            env=env, stdout=subprocess.PIPE, stderr=log, text=True), log)
+             str(dht_port), compression, str(tmp_path), mode, layout],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=log,
+            text=True), log)
     outs = {}
     try:
         for rank, (p, _) in procs.items():
@@ -262,22 +277,23 @@ def _jax_reference(arrays, rank=4):
     return outs
 
 
-@pytest.mark.parametrize("compression", ["none", "power_sgd"])
-def test_a_sharded_slice_and_a_peer_average_bitwise(tmp_path, compression):
-    outs, arrays = _run(tmp_path, compression)
-    assert outs[0]["sharded"] and outs[1]["sharded"]
+def _check_two_epochs(outs):
+    """Every process ended both epochs, in 2-peer rounds, with one whole
+    state digest a epoch."""
     for rank, out in outs.items():
-        assert out["epoch"] == 2, (rank, out)
+        assert out["epoch"] == 2 and out["error"] is None, (rank, out)
         assert [r["epoch"] for r in out["rows"]] == [1, 2], (rank, out)
     for e in range(2):
         digests = {rank: out["rows"][e]["digest"]
                    for rank, out in outs.items()}
         assert len(set(digests.values())) == 1, (e, digests)
     assert [r["group"] for r in outs[0]["rows"]] == [2, 2]
-    if compression == "none":
-        return
-    # every process of the slice ran the compressor on the same whole
-    # gradients, and carries error feedback
+
+
+def _check_powersgd(outs, arrays):
+    """Every process of the slice ran the compressor on the same whole
+    gradients and carries error feedback, and the slice's applied
+    averaged gradients are the JAX package's."""
     for rank in (0, 1, -1):
         assert outs[rank]["calls"] == 2 and outs[rank]["errors"] > 0
     for key, val in arrays[0].items():
@@ -292,6 +308,26 @@ def test_a_sharded_slice_and_a_peer_average_bitwise(tmp_path, compression):
             np.testing.assert_allclose(g.reshape(w.shape), w, rtol=0,
                                        atol=REL_TOL * scale,
                                        err_msg=f"epoch {k} leaf {i}")
+
+
+@pytest.mark.parametrize("compression", ["none", "power_sgd"])
+def test_a_sharded_slice_and_a_peer_average_bitwise(tmp_path, compression):
+    outs, arrays = _run(tmp_path, compression)
+    assert outs[0]["sharded"] and outs[1]["sharded"]
+    _check_two_epochs(outs)
+    if compression == "power_sgd":
+        _check_powersgd(outs, arrays)
+
+
+def test_a_dp_slice_and_a_peer_average_under_powersgd(tmp_path):
+    """A data-parallel slice (two processes holding the same whole
+    gradients, no mesh) runs the compressor in lockstep as a sharded one
+    does: the same digests, error feedback on every process, and the JAX
+    package's averaged gradients."""
+    outs, arrays = _run(tmp_path, "power_sgd", layout="dp")
+    assert not outs[0]["sharded"] and not outs[1]["sharded"]
+    _check_two_epochs(outs)
+    _check_powersgd(outs, arrays)
 
 
 def test_an_incomplete_factor_round_leaves_the_slice_its_local_gradients(
@@ -321,6 +357,24 @@ def test_an_incomplete_factor_round_leaves_the_slice_its_local_gradients(
                for g, x in zip(peer, local))
 
 
+def test_a_factor_round_that_raises_on_the_coordinator_raises_everywhere(
+        tmp_path):
+    """The slice's coordinator raises in its Q round (after the wire
+    completed): it raises its own error from ``step``, its follower raises
+    with it, and neither applies anything, while the peer, whose round
+    completed, applies the rank-r average."""
+    outs, arrays = _run(tmp_path, "power_sgd", mode="raise")
+    assert outs[0]["error"] == "TypeError: injected after the Q round"
+    assert outs[1]["error"].startswith("RuntimeError: factor round q "
+                                       "failed"), outs[1]
+    for rank in (0, 1):
+        out = outs[rank]
+        assert out["epoch"] == 0 and out["applied"] == 0, (rank, out)
+        assert out["calls"] == 1 and out["rows"] == [], (rank, out)
+    assert outs[-1]["error"] is None
+    assert outs[-1]["epoch"] == 1 and outs[-1]["errors"] > 0, outs[-1]
+
+
 def test_a_sharded_peer_checkpoints_and_resumes_in_the_loop(tmp_path):
     """A sharded peer (fsdp=2, two processes) trains two solo epochs
     through ``train_loop`` with a checkpoint directory: the coordinator's
@@ -346,3 +400,4 @@ def test_a_sharded_peer_checkpoints_and_resumes_in_the_loop(tmp_path):
             assert (r[f"leaf{i}"] == want).all(), i
         got = first[0][f"file{i}"]
         assert got.reshape(want.shape).tobytes() == want.tobytes(), i
+
