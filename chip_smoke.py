@@ -6,7 +6,9 @@ the stacked ``dense_scan`` model, the averaging assistant, fault
 injection, ``save_ctx`` remat on the XL model, the offloaded optimizer
 state, a multi-process peer, the long-context model, the sharded mesh
 (fsdp, tp, ring and Ulysses sequence parallelism), PowerSGD on a sharded
-peer and the untied head on a mesh on one NVIDIA GPU.
+peer, the untied head on a mesh, and the meshes whose axes JAX leaves
+undivided (``sp`` as a replica axis, XL's heads at ``tp=8``) on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--out RECORDS.json] [--profile TABLE.txt]
 
@@ -63,7 +65,13 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
 7. six flagship training steps through ``dalle_tpu_torch.entry.train_entry``
    (micro-batch 4, accumulation 2, fp32 LAMB, one fixed batch): finite and
    falling loss, the exact launch counts of the eight wrappers (forward,
-   remat replay, backward), step time, img/s and peak memory;
+   remat replay, backward), step time, img/s and peak memory (the tied
+   head's logsumexp streamed over ``head_chunk=2048`` vocabulary rows, as
+   ``FLAGSHIP_TUNED`` sets; then the peak and seconds of more steps with
+   the chunks and with ``head_chunk=0``, the one-pass head, beside them,
+   alternated: ``HEAD_ROUNDS`` rounds of chunked, one-pass, one-pass,
+   chunked here and in 8b, one pair in 14a; and here the head's loss
+   alone, forward and backward, both routes by CUDA events);
 8. the three quantizer kernels against their plain versions on the card,
    codes and scales identical: ``quantize_blockwise`` on every float32 in
    [-1, 1] (blocks led by a 1.0, so that the codebook lookup sees each bit
@@ -217,7 +225,17 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    samples/s, the error feedback's bytes a process; (b) 15c with an
    untied head (``lm_head/kernel`` as ``P("fsdp", "tp")``): 15c's checks,
    and ``return_logits`` within 2^-4 of the logit range of one process's;
-17. the ``kernels`` line (the eleven ported kernels and the six generic
+17. the meshes whose axes JAX's rules leave undivided: (a) 15c's flagship
+   at ``dp=1 fsdp=2 tp=1 sp=2`` with ``sequence_parallel="none"`` (the
+   ``sp`` ranks replicas on whole sequences), against 15c's one-process
+   run: the loss and gradients within 15c's limits, every process's
+   gradients bitwise equal, no collective over ``sp``; (b)
+   ``xl_model_config()`` at full width cut to ``MESH_DEPTH`` layers,
+   eight processes at ``tp=8`` (28 heads: each rank gathers q/k/v and
+   attends on all of them) against one process, 15c's limits, with the
+   warm grad step's s and gloo's share; every mesh of 15-17 launches each
+   kernel as often as one process's grad step;
+18. the ``kernels`` line (the eleven ported kernels and the six generic
    instances).
 
 With ``--profile``, one flagship forward and one training micro-batch are
@@ -250,12 +268,15 @@ TINY_TOL = 2e-4                # the tiny model on the card vs the CPU (the
 LSE_TOL = 1e-4                 # f32 logsumexp
 SUM_TOL = 1e-4                 # f32 sums over 5120 rows (LN dscale/dbias)
 ARGMAX_AGREE = 0.9             # cached decode vs forward, share of positions
-GEN_DEPTH = 16                 # phases 4, 5 and 5b: the flagship (the
-                               # same five blocks and weights) cut to 16
-                               # layers for time
+GEN_DEPTH = 9                  # phases 4, 5 and 5b: the flagship (the
+                               # same five blocks and weights) cut for
+                               # time to 9 layers, each shared block
+                               # called twice, as MESH_DEPTH
 SEED = 0                       # weights, inputs and sampling noise
 TRAIN_STEPS = 6                # flagship train steps on one fixed batch
 MICRO, ACCUM = 4, 2            # micro-batch size, micro-batches per step
+HEAD_ROUNDS = 2                # 7 and 8b: rounds of chunked, one-pass,
+                               # one-pass, chunked head steps timed
 LOSS_FALL = 0.2                # least fall of the loss over the six steps
                                # (0.489 in the first run on one H100)
 LOSS_GAP = 0.02                # 8-bit LAMB vs fp32: largest loss gap as a
@@ -2142,6 +2163,99 @@ if role != "peer":
 """
 
 
+def head_chunk_peaks(torch, model, run, rounds: int = 1,
+                     images: int = MICRO * ACCUM) -> dict:
+    """The peak memory and seconds of ``run()`` (a training step of
+    ``model`` on ``images`` images) with the model's ``head_chunk`` (the
+    tied head's logsumexp streamed over vocabulary chunks) and with
+    ``head_chunk=0`` (the whole vocabulary's f32 logits, their log-softmax
+    and gradients in one pass), each from a reset of the peak counter, in
+    ``rounds`` rounds of chunked, one-pass, one-pass, chunked (one round
+    of chunked, one-pass where ``rounds`` is 1), so that the host's drift
+    falls on both routes alike; what the chunks save."""
+    import dataclasses
+    cfg = model.cfg
+    order = (["head_chunk", "one_pass"] if rounds == 1 else
+             ["head_chunk", "one_pass", "one_pass", "head_chunk"] * rounds)
+    chunks = {"head_chunk": cfg.head_chunk, "one_pass": 0}
+    out = {label: dict(head_chunk=chunk, peak_gb=0.0,
+                       peak_above_start_gb=0.0, step_s=[])
+           for label, chunk in chunks.items()}
+    try:
+        for label in order:
+            model.cfg = dataclasses.replace(cfg, head_chunk=chunks[label])
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            rec = out[label]
+            rec["step_s"].append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            rec["peak_gb"] = max(rec["peak_gb"], peak / 1e9)
+            rec["peak_above_start_gb"] = max(rec["peak_above_start_gb"],
+                                             (peak - base) / 1e9)
+    finally:
+        model.cfg = cfg
+    for rec in out.values():
+        rec["step_s_mean"] = sum(rec["step_s"]) / len(rec["step_s"])
+        rec["img_per_s"] = images / rec["step_s_mean"]
+    out["saved_gb"] = out["one_pass"]["peak_gb"] - out["head_chunk"][
+        "peak_gb"]
+    return out
+
+
+def head_pass_ms(torch, cfg, reps: int = 5) -> dict:
+    """The tied head's loss alone, forward and backward, on one
+    micro-batch at ``cfg``'s shapes (both segments; ``h`` in the
+    computation dtype, the f32 table): ms by CUDA events, launch to
+    finish, with ``cfg.head_chunk`` and with the one-pass route,
+    alternated ``reps`` times (chunked, one-pass, one-pass, chunked ...),
+    and the largest relative difference of their losses and gradients."""
+    from dalle_tpu_torch.models.dalle import _segment_nll
+    from dalle_tpu_torch.models.transformer import torch_dtype
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cd = torch_dtype(cfg.dtype)
+    h = (torch.randn(MICRO, cfg.total_seq_len, cfg.dim, device="cuda",
+                     generator=gen).to(cd).requires_grad_())
+    table = (torch.randn(cfg.vocab_total, cfg.dim, device="cuda",
+                         generator=gen) * 0.02).requires_grad_()
+    segs = ((slice(0, cfg.text_seq_len), 0, cfg.vocab_text),
+            (slice(cfg.text_seq_len, None), cfg.vocab_text, cfg.vocab_total))
+    targets = [torch.randint(0, b - a, (MICRO, h[:, sl].shape[1]),
+                             device="cuda", generator=gen)
+               for sl, a, b in segs]
+
+    def once(chunk):
+        h.grad = table.grad = None
+        loss = sum(_segment_nll(h[:, sl], table[a:b], t, chunk).sum()
+                   for (sl, a, b), t in zip(segs, targets))
+        loss.backward()
+        return loss.detach(), h.grad, table.grad
+
+    results = {}
+    for chunk in (cfg.head_chunk, 0):            # warm both routes
+        results[chunk] = once(chunk)
+    diff = max(_rel_err(x, y) for x, y in zip(results[cfg.head_chunk],
+                                              results[0]))
+    times = {cfg.head_chunk: [], 0: []}
+    for i in range(2 * reps):
+        chunk = (cfg.head_chunk, 0)[(i + i // 2) % 2]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        torch.cuda.synchronize()
+        start.record()
+        once(chunk)
+        end.record()
+        torch.cuda.synchronize()
+        times[chunk].append(start.elapsed_time(end))
+    return dict(head_chunk=cfg.head_chunk, micro=MICRO,
+                chunked_ms=times[cfg.head_chunk],
+                chunked_ms_mean=sum(times[cfg.head_chunk]) / reps,
+                one_pass_ms=times[0], one_pass_ms_mean=sum(times[0]) / reps,
+                max_rel_diff=diff)
+
+
 def _moment_tensors(opt_state) -> list:
     """Every tensor of the optimizer state's moments (a quantized moment's
     codes and absmax)."""
@@ -2287,6 +2401,9 @@ def xl_phase(torch, smi, release_memory, dev="cuda",
                     for i in range(1, XL_STEPS - 1))):
         raise AssertionError(f"xl: the loss does not fall: {losses}")
     steady = step_s[1:]
+    peak, launches = torch.cuda.max_memory_allocated(), dict(LAUNCHES)
+    heads = head_chunk_peaks(torch, model,
+                             lambda: train_step(state, batch, tx, ACCUM))
     emit(phase="xl", card=smi, config=dict(
         dim=cfg.dim, depth=cfg.depth, heads=cfg.heads,
         head_dim=cfg.head_dim, vocab_image=cfg.vocab_image,
@@ -2297,9 +2414,8 @@ def xl_phase(torch, smi, release_memory, dev="cuda",
         state_gb=optimizer_state_bytes(state.opt_state) / 1e9,
         steps=XL_STEPS, losses=losses, step_s=step_s,
         step_s_mean=sum(steady) / len(steady),
-        img_per_s=n * len(steady) / sum(steady),
-        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-        launches=dict(LAUNCHES))
+        img_per_s=n * len(steady) / sum(steady), peak_gb=peak / 1e9,
+        head_chunk_peaks=heads, launches=launches)
     del state, model, batch, metrics
     release_memory()
 
@@ -2705,10 +2821,15 @@ def slice_phase(torch, smi, release_memory, root, dev="cuda",
 
 LONG_MICRO, LONG_STEPS = 2, 2  # 15a: micro-batch (accumulation 1), steps
 RING_DEPTH = 4                 # 15b: the long-context depth, cut for time
-MESH_DEPTH = 8                 # 15c-d: the flagship's depth, cut for time
-                               # (every collective crosses gloo through
-                               # host memory: 66 s a grad step at depth 64
-                               # in 15c, 31 s at 16; all five blocks kept)
+MESH_DEPTH = 9                 # 15c-d, 16 and 17: the flagship's and XL's
+                               # depth, cut for time to the fewest layers
+                               # that call each of the four shared blocks
+                               # twice (their gradients summed over calls
+                               # through the fsdp gathers and the tp
+                               # partials) and keep w_conv: every
+                               # collective crosses gloo through host
+                               # memory (66 s a grad step at depth 64 in
+                               # 15c, 31 s at 16, 4.8 s at 8)
 MESH_TIMEOUT_S = 600           # each spawned group of 15b-e, start to exit
 # 15b-d tolerances, each against one process on the same weights and batch
 # (bf16 activations, so rounding differs where the sharded program sums in
@@ -2754,10 +2875,13 @@ def _mesh_batch(torch, cfg, n, dev):
 
 def _mesh_cfg(case: str, overrides):
     from dalle_tpu_torch.config import (flagship_model_config,
-                                        long_context_model_config)
+                                        long_context_model_config,
+                                        xl_model_config)
     if case == "ring":
         return long_context_model_config(**{"depth": RING_DEPTH,
                                             **overrides})
+    if case == "xl_tp8":
+        return xl_model_config(**{"depth": MESH_DEPTH, **overrides})
     overrides = {"depth": MESH_DEPTH, **overrides}
     if case == "ulysses":
         return flagship_model_config(sequence_parallel="ulysses",
@@ -2767,25 +2891,36 @@ def _mesh_cfg(case: str, overrides):
     return flagship_model_config(**overrides)
 
 
-#: 15b-d and 16b: (mesh axes, micro-batch, accumulation, 8-bit update?)
+#: 15b-d, 16b and 17: (mesh axes, micro-batch, accumulation, 8-bit
+#: update?)
 MESH_CASES = {
     "ring": (dict(dp=1, fsdp=1, tp=1, sp=2), LONG_MICRO, 1, False),
     "fsdp_tp": (dict(dp=1, fsdp=2, tp=2, sp=1), MICRO, 1, True),
     "ulysses": (dict(dp=1, fsdp=1, tp=2, sp=2), MICRO, 1, False),
     "untied": (dict(dp=1, fsdp=2, tp=2, sp=1), MICRO, 1, True),
+    # 17a: sp a replica axis (sequence_parallel "none")
+    "sp_none": (dict(dp=1, fsdp=2, tp=1, sp=2), MICRO, 1, False),
+    # 17b: XL's 28 heads at tp=8 (3.5 a rank: q/k/v gathered, every rank
+    # attends on all 28)
+    "xl_tp8": (dict(dp=1, fsdp=1, tp=8, sp=1), MICRO, 1, False),
 }
+#: a case held to another case's one-process run (the same model, weights
+#: and batch): 17a reuses 15c's
+MESH_REFS = {"sp_none": "fsdp_tp"}
 #: 16b: return_logits against one process, as phase 4's decode: max |diff|
 #: over the unmasked logits within this share of their largest magnitude
 LOGITS_TOL = 2 ** -4
 
 
 def mesh_child(rank: int, world: int, args) -> dict:
-    """One process of 15b-d (``parallel/launch.spawn``): the case's model
-    on its mesh from the seed, sharded; one grad step on its rows after a
-    warm-up step (and,
-    for fsdp_tp, one 8-bit update from the one-process gradients, cut to
-    its shards); every leaf gathered whole and held to the one-process
-    reference at ``args["ref"]`` on rank 0."""
+    """One process of 15b-d, 16b and 17 (``parallel/launch.spawn``): the
+    case's model on its mesh from the seed, sharded; one grad step on its
+    rows after a warm-up step (and, with the update, one 8-bit update from
+    the one-process gradients, cut to its shards); every leaf gathered
+    whole and held to the one-process reference at ``args["ref"]`` on rank
+    0; where ``sp`` is a replica axis, a digest of every whole gradient."""
+    import hashlib
+
     import numpy as np
     import torch
 
@@ -2793,6 +2928,7 @@ def mesh_child(rank: int, world: int, args) -> dict:
     from dalle_tpu_torch.config import OptimizerConfig
     from dalle_tpu_torch.models import attention as attn_mod
     from dalle_tpu_torch.models.dalle import init_params
+    from dalle_tpu_torch.models.transformer import token_shards
     from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, reset_launches
     from dalle_tpu_torch.ops.quant import Quantized
     from dalle_tpu_torch.optim import make_optimizer, optimizer_state_bytes
@@ -2848,10 +2984,12 @@ def mesh_child(rank: int, world: int, args) -> dict:
     _sync(torch, dev)
     grad_s = time.perf_counter() - t0
     traffic = {k: list(v) for k, v in collectives.TRAFFIC.items()}
+    axis_traffic = {k: list(v) for k, v in collectives.AXIS_TRAFFIC.items()}
     launches, generic = dict(LAUNCHES), dict(GENERIC_LAUNCHES)
     out = dict(loss=float(loss), grad_s=grad_s, resident=resident,
                allocated=allocated,
                traffic_json=json.dumps(traffic),
+               axis_traffic_json=json.dumps(axis_traffic),
                launches_json=json.dumps(launches),
                generic_json=json.dumps(generic),
                heads=np.array(sorted(set(heads)) or [0]))
@@ -2915,9 +3053,13 @@ def mesh_child(rank: int, world: int, args) -> dict:
                                 collectives.TRAFFIC.values()) / 3
     # every leaf whole, held to the reference on rank 0
     errs, perrs, codes_diff, codes_total = {}, {}, 0, 0
+    replica = mesh.sp > 1 and token_shards(mesh, cfg) == 1
+    digest = hashlib.sha256()
     for name, g in grads.items():
         spec = model.shard_specs[name]
         whole = unshard_tensor(g, spec, mesh).cpu()
+        if replica:
+            digest.update(whole.numpy().tobytes())
         if rank == 0:
             errs[name] = _rel_err(whole, ref["grads"][name])
         if update:
@@ -2935,6 +3077,8 @@ def mesh_child(rank: int, world: int, args) -> dict:
                         codes = ref[moment][name]
                         codes_diff += int((w.codes.cpu() != codes).sum())
                         codes_total += codes.numel()
+    if replica:
+        out["grad_digest"] = digest.hexdigest()
     if rank == 0:
         out["loss_err"] = abs(float(loss) - float(ref["loss"])) / abs(
             float(ref["loss"]))
@@ -3035,34 +3179,63 @@ def _mesh_reference(torch, case, overrides, dev, path, release_memory):
 
 
 def mesh_case_phase(torch, smi, release_memory, root, case, dev="cuda",
-                    model_overrides=None) -> dict:
-    """15b-d and 16b: the case's one-process reference, then its mesh of
-    processes on the card (``parallel/launch.spawn``, a ``gloo`` group):
-    every process exits 0 within ``MESH_TIMEOUT_S``; the loss within
-    ``MESH_LOSS_TOL``, every gradient within ``MESH_GRAD_TOL`` (and, with
-    the update, every parameter within ``MESH_PARAM_TOL`` and at most
-    ``MESH_CODES_SHARE`` of the 8-bit codes different; for the untied
-    head, the logits within ``LOGITS_TOL`` of their range); no generic
-    launch; the attention kernels launched (on ``H/(tp*sp)`` heads under
-    Ulysses)."""
+                    model_overrides=None, refs=None) -> dict:
+    """15b-d, 16b and 17: the case's one-process reference (or that of
+    the case ``MESH_REFS`` names, already in ``refs``, a directory kept
+    across the phases), then its mesh of processes on the card
+    (``parallel/launch.spawn``, a ``gloo`` group): every process exits 0
+    within ``MESH_TIMEOUT_S``; the loss within ``MESH_LOSS_TOL``, every
+    gradient within ``MESH_GRAD_TOL`` (and, with the update, every
+    parameter within ``MESH_PARAM_TOL`` and at most ``MESH_CODES_SHARE``
+    of the 8-bit codes different; for the untied head, the logits within
+    ``LOGITS_TOL`` of their range); no generic launch; each process's
+    kernel launches those of one process's grad step
+    (``wrapper_calls``), the attention kernels on the heads each rank
+    attends on (``H/tp`` where ``tp`` splits whole heads, over ``sp``
+    again under Ulysses, and all of them where ``tp`` splits a head),
+    none under the ring; where ``sp`` is a replica axis, every process's
+    gradients bitwise equal and no collective over ``sp``."""
+    import contextlib
     import tempfile
 
     import numpy as np
 
+    from dalle_tpu_torch.models.transformer import (token_shards,
+                                                    wrapper_calls)
     from dalle_tpu_torch.parallel.launch import spawn
+    from dalle_tpu_torch.parallel.mesh import Mesh
     overrides = dict(model_overrides or {})
     axes, micro, accum, update = MESH_CASES[case]
     n = axes["dp"] * axes["fsdp"] * axes["tp"] * axes["sp"]
     cfg = _mesh_cfg(case, overrides)
-    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as tmp:
-        path = os.path.join(tmp, "ref.pt")
-        ref = _mesh_reference(torch, case, overrides, dev, path,
-                              release_memory)
+    ref_case = MESH_REFS.get(case, case)
+    if (_mesh_cfg(ref_case, overrides) != cfg
+            or MESH_CASES[ref_case][1:3] != (micro, accum)):
+        raise AssertionError(f"{case}: {ref_case}'s reference runs another "
+                             "model or batch")
+    with contextlib.ExitStack() as stack:
+        if refs is None:
+            refs = stack.enter_context(tempfile.TemporaryDirectory(
+                dir=os.path.join(root, "build")))
+        path = os.path.join(refs, f"{ref_case}.pt")
+        if os.path.exists(path):
+            with open(path + ".json") as f:
+                ref = json.load(f)
+        else:
+            ref = _mesh_reference(torch, ref_case, overrides, dev, path,
+                                  release_memory)
+            with open(path + ".json", "w") as f:
+                json.dump(ref, f)
         t0 = time.perf_counter()
         outs = spawn(f"{os.path.abspath(__file__)}:mesh_child", n,
                      dict(case=case, ref=path, dev=str(dev),
                           overrides=overrides), timeout=MESH_TIMEOUT_S)
         wall_s = time.perf_counter() - t0
+        if case != ref_case or ref_case not in MESH_REFS.values():
+            # no later case reads it (nor its record and logits)
+            for name in os.listdir(refs):
+                if name.startswith(f"{ref_case}.pt"):
+                    os.remove(os.path.join(refs, name))
     r0 = outs[0]
     launches = [json.loads(str(o["launches_json"])) for o in outs]
     generic = [json.loads(str(o["generic_json"])) for o in outs]
@@ -3098,14 +3271,24 @@ def mesh_case_phase(torch, smi, release_memory, root, case, dev="cuda",
                                  f"{launches}")
     else:
         # (a CPU rehearsal runs the plain versions, which count nothing)
-        if torch.device(dev).type == "cuda" and not all(
-                l[k] > 0 for l in launches for k in attn):
-            raise AssertionError(f"{case}: attention kernels not "
-                                 f"launched {launches}")
-        want = cfg.heads // (axes["tp"] * axes["sp"])
+        calls = {k: accum * v
+                 for k, v in wrapper_calls(cfg, training=True).items()}
+        if torch.device(dev).type == "cuda" and any(
+                l != calls for l in launches):
+            raise AssertionError(f"{case}: launch counts {launches}, "
+                                 f"expected {calls} a process")
+        tp = axes["tp"] if cfg.heads % axes["tp"] == 0 else 1
+        want = cfg.heads // (tp * token_shards(Mesh(**axes), cfg))
         if heads != [want]:
             raise AssertionError(f"{case}: the attention kernels saw "
                                  f"{heads} heads, expected {want}")
+    axis_traffic = [json.loads(str(o["axis_traffic_json"])) for o in outs]
+    if "grad_digest" in r0:
+        digests = {str(o["grad_digest"]) for o in outs}
+        if len(digests) != 1 or any("sp" in a for a in axis_traffic):
+            raise AssertionError(
+                f"{case}: sp replicas' gradients differ ({len(digests)} "
+                f"digests) or a collective ran over sp {axis_traffic}")
     rec = dict(phase=f"mesh_{case}", card=smi, mesh=axes, processes=n,
                config=dict(dim=cfg.dim, depth=cfg.depth,
                            image_grid=cfg.image_grid,
@@ -3122,7 +3305,13 @@ def mesh_case_phase(torch, smi, release_memory, root, case, dev="cuda",
                allocated_after_shard_bytes=[int(o["allocated"])
                                             for o in outs],
                traffic=[json.loads(str(o["traffic_json"])) for o in outs],
+               axis_traffic=axis_traffic,
+               gloo_share=[sum(v[2] for v in json.loads(
+                   str(o["traffic_json"])).values()) / float(o["grad_s"])
+                   for o in outs],
                attention_heads=heads, launches=launches)
+    if "grad_digest" in r0:
+        rec["grad_digests_equal"] = True
     if update:
         rec["apply_s"] = [float(o["apply_s"]) for o in outs]
         rec["quantize_launches"] = [int(o["quantize_launches"])
@@ -3353,7 +3542,7 @@ def sharded_powersgd_phase(torch, smi, release_memory, root, dev="cuda",
     """16a: 14d's slice and peer with the slice sharded (``fsdp=2``: each
     process holds half of every fsdp leaf and its 8-bit state) and
     ``grad_compression="power_sgd"`` at rank 4, phase 8's flagship cut to
-    ``MESH_DEPTH`` layers (all five blocks kept), two epochs: every child
+    ``MESH_DEPTH`` layers (every block kept), two epochs: every child
     exits 0; after every epoch the slice's whole state (gathered) and the
     peer's are bitwise equal; every round is a 2-peer group whose two
     factor rounds completed on the slice's coordinator and on the peer;
@@ -3404,7 +3593,7 @@ def sharded_powersgd_phase(torch, smi, release_memory, root, dev="cuda",
 
 
 def untied_phase(torch, smi, release_memory, root, dev="cuda",
-                 model_overrides=None) -> dict:
+                 model_overrides=None, refs=None) -> dict:
     """16b: the flagship with an untied head (``lm_head/kernel`` as
     ``P("fsdp", "tp")``), cut to ``MESH_DEPTH`` layers, four processes at
     ``dp=1 fsdp=2 tp=2`` against one process: 15c's checks and limits
@@ -3412,7 +3601,25 @@ def untied_phase(torch, smi, release_memory, root, dev="cuda",
     ``return_logits``' logits of rank 0's rows within 2^-4 of the logit
     range (phase 4's limit)."""
     return mesh_case_phase(torch, smi, release_memory, root, "untied",
-                           dev=dev, model_overrides=model_overrides)
+                           dev=dev, model_overrides=model_overrides,
+                           refs=refs)
+
+
+def undivided_phase(torch, smi, release_memory, root, refs,
+                    dev="cuda", model_overrides=None) -> None:
+    """17: the meshes JAX runs whose axes its rules leave undivided. (a)
+    15c's flagship at ``dp=1 fsdp=2 tp=1 sp=2`` with
+    ``sequence_parallel="none"`` (every ``sp`` rank a replica on whole
+    sequences), held to 15c's one-process run: 15c's limits, the
+    processes' gradients bitwise equal, no collective over ``sp``. (b)
+    ``xl_model_config()`` at full width cut to ``MESH_DEPTH`` layers at
+    ``tp=8``, eight processes: 28 heads over 8 ranks, so each gathers
+    q/k/v and attends on all 28, the projections and the vocabulary
+    split; against one process, 15c's limits; the warm grad step's s and
+    gloo's share of it recorded."""
+    for case in ("sp_none", "xl_tp8"):
+        mesh_case_phase(torch, smi, release_memory, root, case, dev=dev,
+                        model_overrides=model_overrides, refs=refs)
 
 
 def dryrun_phase(smi) -> dict:
@@ -3438,14 +3645,15 @@ def dryrun_phase(smi) -> dict:
     return rec
 
 
-def mesh_phase(torch, smi, release_memory, cuda_ms, root) -> None:
+def mesh_phase(torch, smi, release_memory, cuda_ms, root, refs) -> None:
     """15: the long-context model in one process (15a), then ring (15b),
     fsdp x tp (15c) and Ulysses (15d) meshes of processes on the card
-    against one process, and the dry run (15e); each path with the launch
-    counts set to 0 just before it and read just after."""
+    against one process (the references kept in ``refs``), and the dry
+    run (15e); each path with the launch counts set to 0 just before it
+    and read just after."""
     long_context_phase(torch, smi, release_memory, cuda_ms)
     for case in ("ring", "fsdp_tp", "ulysses"):
-        mesh_case_phase(torch, smi, release_memory, root, case)
+        mesh_case_phase(torch, smi, release_memory, root, case, refs=refs)
     dryrun_phase(smi)
 
 
@@ -4444,6 +4652,9 @@ def main() -> int:
                 emb_numel=state.model.token_emb.numel(),
                 n_params=sum(p.numel() for p in state.model.parameters()),
                 sizes=[p.numel() for p in state.model.parameters()])
+    heads = head_chunk_peaks(torch, state.model, lambda: step(state, batch),
+                             rounds=HEAD_ROUNDS)
+    heads["head_alone"] = head_pass_ms(torch, tcfg)
     emit(phase="train", micro=MICRO, accum=ACCUM, steps=TRAIN_STEPS,
          optimizer="fp32 LAMB, OptimizerConfig(state_bits=32, "
                    "warmup_steps=2, total_steps=100)",
@@ -4451,7 +4662,7 @@ def main() -> int:
          launches=train_launches, launches_per_micro_batch=per_micro,
          step_s=step_s, step_s_mean=sum(steady) / len(steady),
          img_per_s=MICRO * ACCUM * len(steady) / sum(steady),
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         peak_mem_gb=fp32["peak"] / 1e9, head_chunk_peaks=heads,
          mem_before_gb=mem_base / 1e9, card=smi)
     # the step's split: its gradient half alone (the rest is LAMB and the
     # metrics)
@@ -4694,6 +4905,8 @@ def main() -> int:
                              f"is not below the fp32 run's "
                              f"{fp32['peak'] / 1e9:.3f} GB")
     steady = step_s[1:]
+    heads = head_chunk_peaks(torch, state.model, lambda: step(state, batch),
+                             rounds=HEAD_ROUNDS)
     emit(phase="train_8bit", micro=MICRO, accum=ACCUM, steps=TRAIN_STEPS,
          optimizer="8-bit LAMB, OptimizerConfig(state_bits=8, "
                    "warmup_steps=2, total_steps=100)",
@@ -4706,7 +4919,7 @@ def main() -> int:
          img_per_s=MICRO * ACCUM * len(steady) / sum(steady),
          fp32_step_s_mean=fp32["step_s"],
          peak_mem_gb=peak / 1e9, fp32_peak_mem_gb=fp32["peak"] / 1e9,
-         mem_before_gb=mem_base / 1e9, card=smi)
+         head_chunk_peaks=heads, mem_before_gb=mem_base / 1e9, card=smi)
     kernels["quantize_blockwise"]["launches"] = \
         train_launches["quantize_blockwise"]
 
@@ -4842,14 +5055,19 @@ def main() -> int:
     xl_cli_phase(torch, smi, release_memory, root)
     slice_phase(torch, smi, release_memory, root)
 
-    # -- 15. the sharded mesh: long context, ring, fsdp x tp, Ulysses ------
-    mesh_phase(torch, smi, release_memory, cuda_ms, root)
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as refs:
+        # -- 15. the sharded mesh: long context, ring, fsdp x tp, Ulysses --
+        mesh_phase(torch, smi, release_memory, cuda_ms, root, refs)
 
-    # -- 16. PowerSGD on a sharded peer, the untied head on a mesh --------
-    sharded_powersgd_phase(torch, smi, release_memory, root)
-    untied_phase(torch, smi, release_memory, root)
+        # -- 16. PowerSGD on a sharded peer, the untied head on a mesh ----
+        sharded_powersgd_phase(torch, smi, release_memory, root)
+        untied_phase(torch, smi, release_memory, root, refs=refs)
 
-    # -- 17. kernels line and the end ------------------------------------
+        # -- 17. sp as a replica axis, XL's heads split by tp=8 -----------
+        undivided_phase(torch, smi, release_memory, root, refs)
+
+    # -- 18. kernels line and the end ------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel_line = {"kernels": [{k: rec[k] for k in keys}

@@ -17,10 +17,12 @@ The training knobs ``remat``, ``remat_policy``, ``remat_skip_blocks`` and
 ``param_cast_hoist`` shape the port's training step as they shape the JAX
 one (``remat`` and ``remat_skip_blocks`` also decide which blocks run the
 fused GEGLU kernel, ``fuse_ff``); ``sequence_parallel`` picks ring or
-Ulysses attention on a mesh with ``sp > 1`` (``parallel/sequence.py``).
-``scan_unroll`` and ``head_chunk`` are kept so both packages build the
-same configuration: ``scan_unroll`` decides which parameter layout the JAX
-model writes, and the port ignores ``head_chunk``.
+Ulysses attention on a mesh with ``sp > 1`` (``parallel/sequence.py``),
+and ``"none"`` leaves the token axis whole (the ``sp`` ranks are then
+replicas, as in JAX); ``head_chunk`` streams the tied head's logsumexp
+over that many vocabulary rows (``models/dalle.py``). ``scan_unroll`` is
+kept so both packages build the same configuration: it decides which
+parameter layout the JAX model writes.
 """
 
 from __future__ import annotations
@@ -179,9 +181,9 @@ def tiny_model_config(**overrides: Any) -> ModelConfig:
 
 # The JAX package's flagship training knobs. ``ln_fusion`` and
 # ``remat_skip_blocks`` (through ``fuse_ff``) change what the forward runs;
-# ``remat_policy`` and ``param_cast_hoist`` shape the training step;
-# ``head_chunk`` and ``scan_unroll`` are kept so the two packages build the
-# same configuration.
+# ``remat_policy``, ``param_cast_hoist`` and ``head_chunk`` shape the
+# training step; ``scan_unroll`` is kept so the two packages build the same
+# configuration.
 FLAGSHIP_TUNED = dict(remat_skip_blocks=1, head_chunk=2048, scan_unroll=2,
                       ln_fusion=True, remat_policy="save_attn",
                       param_cast_hoist=True)

@@ -8,28 +8,46 @@ One tied table over ``vocab_total + 1`` rows rounded up to a multiple of
 128; text positions may only predict text ids and image positions only image
 ids (segment masking with -1e9).
 
+The tied head's loss streams over vocabulary chunks of ``cfg.head_chunk``
+rows where a segment is wider (:class:`ChunkedNLL`, JAX's
+``_segment_nll``): the same values without the (B, T, V) logits, each
+chunk recomputed in backward. ``head_chunk=0``, the untied head and
+``return_logits`` take the whole vocabulary in one pass, as in JAX.
+
 ``DALLE(cfg, mesh=...)`` on a sharded mesh (``parallel/mesh.py``, ``fsdp``,
 ``tp`` or ``sp`` above 1) computes on this process's shards once
 ``parallel/sharding.shard_train_state`` has cut them (:meth:`DALLE.
-mark_sharded`): its rows of the batch, its token slice (``sp``: positions
-``[i*T/sp, (i+1)*T/sp)``, which ranks of one batch index share), and its
-rows of the tied table, ``token_emb`` being vocab-sharded over ``tp``
-(``P("tp", None)``): the embedding looks up the ids in its rows and sums
-over ``tp``, the head gives this rank's vocabulary slice of the logits,
-and the loss takes a vocab-parallel logsumexp and target gather
-(:class:`VocabParallelNLL`). An untied head's ``lm_head/kernel`` (dim,
-vocab_total) is ``P("fsdp", "tp")``: it is gathered over ``fsdp`` as the
-blocks' kernels are, and each ``tp`` rank computes its columns of the
-vocabulary (no BOS row, no padding); where ``tp`` does not divide
-``vocab_total`` the axis is dropped (``param_shardings``) and every rank
-computes the whole vocabulary, as JAX's replicated leaf does. Its returned
-loss is this rank's part of the global loss (its tokens' sums over the
-global denominators), so the gradients summed over the batch and sequence
-axes are the global mesh's (``training/steps.reduce_gradients``); ``aux``
-holds the global values. ``return_logits`` gives this process's rows of
-the batch with the whole token axis and the whole vocabulary, summed
-into place over ``tp`` and ``sp`` with the identity as backward (each
-rank keeps its own tokens' and columns' part of the gradient).
+mark_sharded`), on every mesh the JAX package runs:
+
+- its rows of the batch (those of its ``(dp, fsdp)`` index);
+- under ring or Ulysses, its token slice (positions ``[i*T/sp,
+  (i+1)*T/sp)``, which ranks of one batch index share); with
+  ``sequence_parallel="none"`` every ``sp`` rank runs whole sequences, a
+  replica axis (``transformer.token_shards``, the one decision);
+- its rows of the tied table where ``tp`` divides them (``token_emb``
+  ``P("tp", None)``): the embedding looks up the ids in its rows and sums
+  over ``tp``, the head gives this rank's vocabulary slice of the logits,
+  and the loss takes a vocab-parallel logsumexp and target gather
+  (:class:`VocabParallelNLL`, or :class:`ChunkedNLL` over the slice);
+  where ``tp`` does not divide them the table is whole on every rank
+  (``param_shardings`` drops the axis, as JAX's does) and the embedding
+  and head run as on one process;
+- the blocks' ``tp`` shards where ``tp`` divides their leaves, whole
+  leaves otherwise (``models/transformer.py``).
+
+An untied head's ``lm_head/kernel`` (dim, vocab_total) is ``P("fsdp",
+"tp")``: it is gathered over ``fsdp`` as the blocks' kernels are, and each
+``tp`` rank computes its columns of the vocabulary (no BOS row, no
+padding); where ``tp`` does not divide ``vocab_total`` every rank computes
+the whole vocabulary, as JAX's replicated leaf does. The returned loss is
+this rank's part of the global loss (its tokens' sums over the global
+denominators), so the gradients summed over the batch axes (and the token
+shards) are the global mesh's (``training/steps.reduce_gradients``);
+``aux`` holds the global values. ``return_logits`` gives this process's
+rows of the batch with the whole token axis and the whole vocabulary,
+summed into place over ``tp`` and the token shards with the identity as
+backward (each rank keeps its own tokens' and columns' part of the
+gradient).
 """
 
 from __future__ import annotations
@@ -40,9 +58,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from dalle_tpu_torch.config import SP_NONE, ModelConfig
+from dalle_tpu_torch.config import ModelConfig
 from dalle_tpu_torch.models.transformer import (Dense, Transformer,
-                                                column_input, tp_group,
+                                                column_input, seq_group,
+                                                token_shards, tp_group,
                                                 torch_dtype)
 from dalle_tpu_torch.parallel import collectives
 
@@ -84,12 +103,77 @@ class _HeadPart:
 
 
 def _segment_nll(h: torch.Tensor, table: torch.Tensor,
-                 targets: torch.Tensor) -> torch.Tensor:
+                 targets: torch.Tensor, head_chunk: int = 0
+                 ) -> torch.Tensor:
     """Per-token NLL of ``targets`` under the tied-head logits over one
-    segment's vocabulary slice, (B, T). The JAX head's vocabulary chunking
-    (``head_chunk``) bounds its training memory and gives the same values,
-    so the port takes the logsumexp in one pass."""
-    return _nll(_head_logits(h, table), targets)
+    segment's vocabulary slice, (B, T): in one pass, or, with
+    ``head_chunk > 0`` and a segment wider than it, streamed over chunks
+    of ``head_chunk`` rows (:class:`ChunkedNLL`; JAX's ``_segment_nll``)."""
+    if head_chunk <= 0 or table.shape[0] <= head_chunk:
+        return _nll(_head_logits(h, table), targets)
+    return ChunkedNLL.apply(h, table, targets, 0, head_chunk, None)
+
+
+class ChunkedNLL(torch.autograd.Function):
+    """Per-token NLL of ``targets`` (ids into the segment) under the
+    tied-head logits ``h @ table^T`` of a vocabulary slice ``table`` (the
+    segment's ids ``offset`` onward), streamed over chunks of ``chunk``
+    rows: the target's logit from its gathered row, and the logsumexp as
+    a running max and sum of exponentials, chunk by chunk, so no (B, T,
+    V) tensor is kept. The last chunk is as narrow as the rows left (JAX
+    pads it and masks the padding out). Over the ``tp`` group ``group``
+    each rank streams its slice, and the ranks' maxima, sums and target
+    logits combine once. Backward rebuilds each chunk's logits and takes
+    softmax minus one-hot, chunk by chunk; the gradients round where the
+    one-pass head's do (f32 products from operands in ``h``'s dtype, the
+    sums in f32, each gradient cast once)."""
+
+    @staticmethod
+    def forward(ctx, h, table, targets, offset, chunk, group):
+        hf = h.float()
+        v = table.shape[0]
+        m = hf.new_full(h.shape[:-1], float("-inf"))
+        total = hf.new_zeros(h.shape[:-1])
+        for a in range(0, v, chunk):
+            s = hf @ table[a:a + chunk].to(h.dtype).float().t()
+            top = torch.maximum(m, s.amax(dim=-1))
+            total = total * torch.exp(m - top) + torch.exp(
+                s - top[..., None]).sum(dim=-1)
+            m = top
+        local = targets.long() - offset
+        inside = (local >= 0) & (local < v)
+        target = torch.zeros_like(m)
+        if v:
+            rows = table[local.clamp(0, v - 1)].to(h.dtype).float()
+            target = torch.where(inside, (hf * rows).sum(dim=-1), target)
+        if group is not None:
+            top = collectives.max_over(m, group)
+            total = collectives.sum_over(total * torch.exp(m - top),
+                                         [group])
+            m = top
+            target = collectives.sum_over(target, [group])
+        lse = m + torch.log(total)
+        ctx.chunk = chunk
+        ctx.save_for_backward(h, table, local, lse)
+        return lse - target
+
+    @staticmethod
+    def backward(ctx, g):
+        h, table, local, lse = ctx.saved_tensors
+        hf = h.float()
+        rows = hf.reshape(-1, hf.shape[-1])
+        dh = torch.zeros_like(hf)
+        dtable = torch.zeros(table.shape, dtype=torch.float32,
+                             device=table.device)
+        for a in range(0, table.shape[0], ctx.chunk):
+            w = table[a:a + ctx.chunk].to(h.dtype).float()
+            ids = torch.arange(a, a + w.shape[0], device=w.device)
+            p = torch.exp(hf @ w.t() - lse[..., None])
+            p = (p - (local[..., None] == ids).to(p.dtype)) * g[..., None]
+            dh += p @ w
+            dtable[a:a + w.shape[0]] = p.reshape(-1, w.shape[0]).t() @ rows
+        return (dh.to(h.dtype), dtable.to(h.dtype).to(table.dtype), None,
+                None, None, None)
 
 
 class VocabParallelNLL(torch.autograd.Function):
@@ -153,34 +237,23 @@ class DALLE(nn.Module):
             self._place_on_mesh()
 
     def _place_on_mesh(self) -> None:
-        """Check that the mesh can run this model, and record each block
-        kernel's fsdp dimension for the blocks' gathers."""
-        from dalle_tpu_torch.parallel.sharding import (param_shardings,
-                                                       param_specs)
+        """Raise what JAX's sequence-parallel attention raises where the
+        token axis is split (the sequence over ``sp``, or ``2*sp`` for the
+        ring; the heads over ``tp``; Ulysses' heads per ``tp`` rank over
+        ``sp``), and record each leaf's spec: the one record of which
+        leaves ``fsdp`` and ``tp`` split, which the blocks' gathers and
+        ``tp`` layers, the embedding and the head read."""
+        from dalle_tpu_torch.parallel.sequence import check_sp
+        from dalle_tpu_torch.parallel.sharding import param_shardings
         cfg, mesh = self.cfg, self.mesh
-        if mesh.sp > 1 and cfg.sequence_parallel == SP_NONE:
-            raise ValueError(
-                f"mesh sp={mesh.sp} needs sequence_parallel 'ring' or "
-                "'ulysses': the port shards the token axis over sp")
-        if cfg.total_seq_len % mesh.sp:
-            raise ValueError(f"sequence {cfg.total_seq_len} not divisible "
-                             f"by sp={mesh.sp}")
-        if cfg.heads % mesh.tp:
-            raise ValueError(f"heads {cfg.heads} not divisible by "
-                             f"tp={mesh.tp}")
-        rules, specs = param_specs(self), param_shardings(mesh, self)
-        for name, spec in specs.items():
-            # an untied head that tp does not divide computes the whole
-            # vocabulary on every rank (JAX replicates the leaf)
-            if ("tp" in rules[name] and "tp" not in spec
-                    and name != "lm_head.kernel"):
-                raise ValueError(
-                    f"{name} {tuple(self.get_parameter(name).shape)} does "
-                    f"not split over tp={mesh.tp}")
-        self.shard_specs = specs
+        if token_shards(mesh, cfg) > 1:
+            for attn_type in sorted({a for _, a in cfg.layer_schedule()}):
+                check_sp(mesh, cfg.sequence_parallel, attn_type,
+                         mesh.dp * mesh.fsdp, cfg.total_seq_len, cfg.heads)
+        self.shard_specs = specs = param_shardings(mesh, self)
         self.whole_shapes = {n: tuple(p.shape)
                              for n, p in self.named_parameters()}
-        self.transformer.set_fsdp_dims(
+        self.transformer.set_specs(
             {n[len("transformer."):]: s for n, s in specs.items()
              if n.startswith("transformer.")})
 
@@ -246,10 +319,11 @@ class DALLE(nn.Module):
         else:
             table = self.token_emb
             nll_text = _segment_nll(h[:, :cfg.text_seq_len],
-                                    table[:cfg.vocab_text], text_tokens)
+                                    table[:cfg.vocab_text], text_tokens,
+                                    cfg.head_chunk)
             nll_img = _segment_nll(h[:, cfg.text_seq_len:],
                                    table[cfg.vocab_text:cfg.vocab_total],
-                                   image_tokens)
+                                   image_tokens, cfg.head_chunk)
 
         if loss_mask is not None:
             mask_text = loss_mask[:, :cfg.text_seq_len]
@@ -271,10 +345,15 @@ class DALLE(nn.Module):
         return loss, aux
 
 
+    def _tp_of(self, name: str):
+        """The ``tp`` group that splits parameter ``name`` (None: it is
+        whole on every rank)."""
+        return tp_group(self.mesh, self.shard_specs[name])
+
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         """The token embedding; over ``tp`` each rank looks up the ids in
         its rows of the table and the lookups are summed."""
-        group = tp_group(self.mesh)
+        group = self._tp_of("token_emb")
         table = self.token_emb
         if group is None:
             return table[ids.long()]
@@ -291,7 +370,7 @@ class DALLE(nn.Module):
         the gradient) with its columns over ``tp``."""
         mesh = self.mesh
         if self.cfg.tied_embeddings:
-            group = tp_group(mesh)
+            group = self._tp_of("token_emb")
             rows = self.token_emb.shape[0]
             c0 = mesh.index("tp") * rows if group is not None else 0
             return _HeadPart(self.token_emb, True, c0, rows, group)
@@ -300,7 +379,7 @@ class DALLE(nn.Module):
         if "fsdp" in spec and mesh.fsdp > 1:
             kernel = collectives.all_gather(kernel, spec.index("fsdp"),
                                             mesh.group("fsdp"))
-        group = tp_group(mesh) if "tp" in spec else None
+        group = self._tp_of("lm_head.kernel")
         cols = kernel.shape[1]
         c0 = mesh.index("tp") * cols if group is not None else 0
         return _HeadPart(kernel, False, c0, cols, group)
@@ -309,12 +388,17 @@ class DALLE(nn.Module):
                       mask):
         """The (B, t) NLL of ``targets`` (ids into the vocabulary segment
         ``[lo, hi)``) under the head, masked by ``mask``; over ``tp`` from
-        this rank's columns of the segment."""
-        if head.group is None:
+        this rank's columns of the segment; the tied head's streamed over
+        ``head_chunk`` rows where the segment is wider."""
+        chunk = self.cfg.head_chunk
+        c0, c1 = head.c0, head.c0 + head.width
+        a, b = max(lo, c0), max(min(hi, c1), max(lo, c0))
+        if head.tied and 0 < chunk < hi - lo:
+            nll = ChunkedNLL.apply(h, head.weight[a - c0:b - c0], targets,
+                                   a - lo, chunk, head.group)
+        elif head.group is None:
             nll = _nll(head.logits(h, lo, hi), targets)
         else:
-            c0, c1 = head.c0, head.c0 + head.width
-            a, b = max(lo, c0), max(min(hi, c1), max(lo, c0))
             nll = VocabParallelNLL.apply(head.logits(h, a, b), targets,
                                          a - lo, head.group)
         return nll * mask if mask is not None else nll
@@ -322,8 +406,8 @@ class DALLE(nn.Module):
     def _mesh_logits(self, h, head: _HeadPart, t0: int) -> torch.Tensor:
         """This process's rows of the logits, (B, T, vocab_total) f32 with
         segment masking: its columns and tokens summed into place over
-        ``tp`` and ``sp`` (the identity as backward)."""
-        cfg, mesh = self.cfg, self.mesh
+        ``tp`` and the token shards (the identity as backward)."""
+        cfg = self.cfg
         v, tl = cfg.vocab_total, h.shape[1]
         a, e = min(head.c0, v), min(head.c0 + head.width, v)
         logits = head.logits(h, a, e)
@@ -335,11 +419,11 @@ class DALLE(nn.Module):
                  == (torch.arange(v, device=h.device)
                      < cfg.vocab_text)[None, None, :])
         logits = torch.where(valid, logits, NEG_INF)
-        if mesh.sp > 1:
+        group = seq_group(self.mesh, cfg)
+        if group is not None:
             logits = collectives.all_reduce(
                 nn.functional.pad(
-                    logits, (0, 0, t0, cfg.total_seq_len - t0 - tl)),
-                mesh.group("sp"))
+                    logits, (0, 0, t0, cfg.total_seq_len - t0 - tl)), group)
         return logits
 
     def _mesh_forward(self, text_tokens, image_tokens, loss_mask,
@@ -352,18 +436,18 @@ class DALLE(nn.Module):
         bos = torch.full((labels.shape[0], 1), self.bos_id,
                          dtype=labels.dtype, device=labels.device)
         inputs = torch.cat([bos, labels[:, :-1]], dim=1)
-        tl = cfg.total_seq_len // mesh.sp
-        t0 = mesh.index("sp") * tl
+        shards = token_shards(mesh, cfg)
+        tl = cfg.total_seq_len // shards
+        t0 = mesh.index("sp") * tl if shards > 1 else 0
         inputs, labels = inputs[:, t0:t0 + tl], labels[:, t0:t0 + tl]
         mask = None if loss_mask is None else loss_mask[:, t0:t0 + tl]
         x = self._embed(inputs) + self.positional()[t0:t0 + tl][None]
         h = self.transformer(x.to(torch_dtype(cfg.dtype)), t0)
         head = self._head_part()
-        if head.group is not None:
-            h = column_input(h, self.mesh)
+        h = column_input(h, head.group)
 
         n_text = min(max(cfg.text_seq_len - t0, 0), tl)
-        axes = [mesh.group("batch"), mesh.group("sp")]
+        axes = [mesh.group("batch"), seq_group(mesh, cfg)]
         parts = []
         for lo, hi, sl, offset in ((0, cfg.vocab_text, slice(0, n_text), 0),
                                    (cfg.vocab_text, cfg.vocab_total,

@@ -68,7 +68,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dalle_tpu_torch.config import ATTN_AXIAL_COL, ATTN_AXIAL_ROW, ModelConfig
+from dalle_tpu_torch.config import (ATTN_AXIAL_COL, ATTN_AXIAL_ROW, SP_NONE,
+                                    ModelConfig)
 from dalle_tpu_torch.models.attention import (apply_rotary, join_halves,
                                               rotary_cos_sin,
                                               zoo_attention_halves)
@@ -150,14 +151,34 @@ class ZooAttention(nn.Module):
         self.v = Dense(cfg.dim, cfg.dim, False, pd, stack)
         self.out = Dense(cfg.dim, cfg.dim, True, pd, stack)
 
+    def tp(self):
+        """The ``tp`` group that splits q/k/v's columns and out's rows, as
+        their specs say (None: they are whole on every rank and the layer
+        runs replicated over ``tp``)."""
+        return tp_group(self.mesh, spec_of(self.q))
+
+    def heads_split(self) -> bool:
+        """Whether ``tp`` splits whole heads: False where it splits the
+        columns but not the heads (XL's 28 heads at ``tp=8``), and each
+        rank then gathers q/k/v and attends on every head."""
+        return self.cfg.heads % self.mesh.tp == 0
+
     def qkv(self, x: torch.Tensor, rot):
-        """The rotated (B, T, H, d) q, k and v of the normed input."""
+        """The rotated (B, T, H, d) q, k and v of the normed input; over
+        ``tp``, this rank's heads, or every head where ``tp`` does not
+        split them (the projected columns gathered, the gather's backward
+        this rank's columns of the gradient: every rank computes the same
+        attention)."""
         cfg = self.cfg
         cd = torch_dtype(cfg.dtype)
         b, t, _ = x.shape
-        x = column_input(x, self.mesh)
-        q, k, v = (proj(x, cd).reshape(b, t, -1, cfg.head_dim)
-                   for proj in (self.q, self.k, self.v))
+        group = self.tp()
+        x = column_input(x, group)
+        q, k, v = (proj(x, cd) for proj in (self.q, self.k, self.v))
+        if group is not None and not self.heads_split():
+            q, k, v = collectives.all_gather(
+                torch.stack((q, k, v)), -1, group, grad="split").unbind(0)
+        q, k, v = (y.reshape(b, t, -1, cfg.head_dim) for y in (q, k, v))
         if rot is not None:
             cos, sin = rot
             q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
@@ -165,10 +186,11 @@ class ZooAttention(nn.Module):
 
     def attend(self, q, k, v, saved=None):
         """The attention kernels' (text, image) outputs, (B, H, t, d), or
-        on a mesh with ``sp > 1`` the one sequence-parallel output (B, t,
-        H, d) in a tuple; ``saved``: the calls' ``save_ctx`` holders."""
+        where the token axis is split over ``sp`` (:func:`token_shards`)
+        the one sequence-parallel output (B, t, H, d) in a tuple;
+        ``saved``: the calls' ``save_ctx`` holders."""
         cfg, mesh = self.cfg, self.mesh
-        if mesh is not None and mesh.sp > 1:
+        if seq_group(mesh, cfg) is not None:
             from dalle_tpu_torch.parallel.sequence import sp_zoo_attention
             return (sp_zoo_attention(
                 q, k, v, mesh=mesh, mode=cfg.sequence_parallel,
@@ -186,10 +208,15 @@ class ZooAttention(nn.Module):
         b, t = out.shape[:2]
         cd = torch_dtype(self.cfg.dtype)
         out = out.reshape(b, t, -1)
-        if tp_group(self.mesh) is None:
+        group = self.tp()
+        if group is None:
             return self.out(out, cd)
+        if not self.heads_split():
+            # every head on every rank: this rank's columns of the context
+            # (the backward gathers each rank's part of the gradient)
+            out = collectives.split(out, -1, group)
         return row_output(out.to(cd) @ self.out.kernel.to(cd),
-                          self.out.bias, self.mesh)
+                          self.out.bias, group)
 
 
 class GEGLUFeedForward(nn.Module):
@@ -210,8 +237,9 @@ class GEGLUFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = torch_dtype(self.cfg.dtype)
-        if tp_group(self.mesh) is not None:
-            return self._forward_tp(x, cd)
+        group = tp_group(self.mesh, spec_of(self.wi))
+        if group is not None:
+            return self._forward_tp(x, cd, group)
         if self.fuse:
             b, t, d = x.shape
             out = GEGLUFn.apply(x.reshape(b * t, d).to(cd),
@@ -224,13 +252,15 @@ class GEGLUFeedForward(nn.Module):
         gate = self.gate(x, cd)
         return self.wo(h * F.gelu(gate, approximate="tanh"), cd)
 
-    def _forward_tp(self, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    def _forward_tp(self, x: torch.Tensor, cd: torch.dtype, group
+                    ) -> torch.Tensor:
         """Column-parallel ``wi``/``gate`` on the local ``K/tp`` columns
         (biases sliced to them), row-parallel ``wo``: the fused kernel
         (or the unfused product) gives this rank's partial output without
-        ``bo``, which :func:`row_output` adds after the sum over ``tp``."""
-        group = tp_group(self.mesh)
-        x = column_input(x, self.mesh)
+        ``bo``, which :func:`row_output` adds after the sum over ``tp``.
+        Where ``tp`` does not divide ``K`` the FF is whole on every rank
+        and :meth:`forward` runs it as one process does."""
+        x = column_input(x, group)
         bi, bg = (collectives.split(b, -1, group).to(cd)
                   for b in (self.wi.bias, self.gate.bias))
         wi, wg, wo = (p.kernel.to(cd) for p in (self.wi, self.gate, self.wo))
@@ -243,27 +273,54 @@ class GEGLUFeedForward(nn.Module):
             xc = x.to(cd)
             h = xc @ wi + bi
             part = (h * F.gelu(xc @ wg + bg, approximate="tanh")) @ wo
-        return row_output(part, self.wo.bias, self.mesh)
+        return row_output(part, self.wo.bias, group)
 
 
-def tp_group(mesh):
-    """The tensor-parallel group of ``mesh`` (None: no tensor
-    parallelism)."""
-    return mesh.group("tp") if mesh is not None and mesh.tp > 1 else None
+def spec_of(module: nn.Module, leaf: str = "kernel") -> Tuple:
+    """The spec of ``module``'s parameter ``leaf`` on the mesh, as
+    :meth:`Transformer.set_specs` recorded it (``()``: whole)."""
+    return getattr(module, "_specs", {}).get(leaf, ())
 
 
-def column_input(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The input of a column-parallel product: ``x``, whose gradient is
-    summed over ``tp`` (each rank's product sees its columns only)."""
-    group = tp_group(mesh)
+def tp_group(mesh, spec: Tuple):
+    """The tensor-parallel group that splits a leaf of spec ``spec``
+    (None: no tensor parallelism, or ``param_shardings`` keeps the leaf
+    whole on every rank, as JAX's does where ``tp`` does not divide it;
+    the layer that owns it then runs replicated over ``tp``)."""
+    if mesh is None or mesh.tp == 1 or "tp" not in spec:
+        return None
+    return mesh.group("tp")
+
+
+def token_shards(mesh, cfg: ModelConfig) -> int:
+    """How many ways the token axis is split: ``sp`` under ring or
+    Ulysses; 1 without a mesh or with ``sequence_parallel="none"``, where
+    every ``sp`` rank runs whole sequences on the rows its batch index
+    holds (a replica axis, as in JAX, whose model then has no mesh and
+    whose shardings name no ``sp``). The one place that decides it."""
+    if mesh is None or cfg.sequence_parallel == SP_NONE:
+        return 1
+    return mesh.sp
+
+
+def seq_group(mesh, cfg: ModelConfig):
+    """The group the token axis is split over (None: whole sequences)."""
+    return mesh.group("sp") if token_shards(mesh, cfg) > 1 else None
+
+
+def column_input(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of a column-parallel product over the ``tp`` group
+    ``group``: ``x``, whose gradient is summed over ``tp`` (each rank's
+    product sees its columns only); ``x`` itself for None."""
     return x if group is None else collectives.reduce_grad(x, group)
 
 
-def row_output(part: torch.Tensor, bias: torch.Tensor, mesh) -> torch.Tensor:
+def row_output(part: torch.Tensor, bias: torch.Tensor, group
+               ) -> torch.Tensor:
     """A row-parallel product's output: this rank's partial product summed
-    over ``tp`` in f32, plus the replicated ``bias``, rounded once to the
-    partial's dtype."""
-    total = collectives.all_reduce(part.float(), tp_group(mesh))
+    over the ``tp`` group in f32, plus the replicated ``bias``, rounded
+    once to the partial's dtype."""
+    total = collectives.all_reduce(part.float(), group)
     return (total + bias.float()).to(part.dtype)
 
 
@@ -346,7 +403,7 @@ def bound(params: Optional[Slices]):
 @contextlib.contextmanager
 def gathered(block: nn.Module):
     """Within the block, each fsdp-sharded kernel of ``block`` (the
-    modules' ``_fsdp_dims``, set by ``models.dalle.DALLE`` on a mesh with
+    modules' ``_specs``, set by ``models.dalle.DALLE`` on a mesh with
     ``fsdp > 1``) is its all-gather over ``fsdp``, whose backward
     reduce-scatters the gradient; after it, the shard again."""
     mesh = getattr(block, "mesh", None)
@@ -356,11 +413,13 @@ def gathered(block: nn.Module):
     group = mesh.group("fsdp")
     swapped = []
     for module in block.modules():
-        for leaf, dim in getattr(module, "_fsdp_dims", {}).items():
+        for leaf, spec in getattr(module, "_specs", {}).items():
+            if "fsdp" not in spec:
+                continue
             shard = module._parameters[leaf]
             swapped.append((module, leaf, shard))
-            module._parameters[leaf] = collectives.all_gather(shard, dim,
-                                                              group)
+            module._parameters[leaf] = collectives.all_gather(
+                shard, spec.index("fsdp"), group)
     try:
         yield
     finally:
@@ -459,22 +518,21 @@ class Transformer(nn.Module):
                 out.append((self.blocks[block_name(uid)], None))
         return out
 
-    def set_fsdp_dims(self, specs: Dict[str, Tuple]) -> None:
+    def set_specs(self, specs: Dict[str, Tuple]) -> None:
         """Record, on each module of the blocks (and the stacked layout's
-        views), the dimension of each leaf that is sharded over ``fsdp``;
-        ``specs``: each parameter's spec, by its name under this module."""
+        views, without the repetitions' axis), the spec of each of its
+        leaves: the one record of how a layer's leaves are split, which
+        the fsdp gathers (:func:`gathered`) and the ``tp`` layers
+        (:func:`tp_group`) read; ``specs``: each parameter's spec, by its
+        name under this module."""
         for name, spec in specs.items():
-            if "fsdp" not in spec:
-                continue
             owner, leaf = name.rsplit(".", 1)
             module = self.get_submodule(owner)
-            module.__dict__.setdefault("_fsdp_dims", {})[leaf] = \
-                spec.index("fsdp")
+            module.__dict__.setdefault("_specs", {})[leaf] = tuple(spec)
         for _, block_param, leaf, subs in self._slots:
-            dim = getattr(block_param, "_fsdp_dims", {}).get(leaf)
+            spec = spec_of(block_param, leaf)
             for sub in subs:
-                if dim is not None:
-                    sub.__dict__.setdefault("_fsdp_dims", {})[leaf] = dim - 1
+                sub.__dict__.setdefault("_specs", {})[leaf] = spec[1:]
 
     def forward(self, x: torch.Tensor, start: int = 0) -> torch.Tensor:
         """``x``: (B, t, dim) at positions ``[start, start + t)``."""

@@ -6,8 +6,10 @@ transposes each. The port's processes are the mesh's devices
 (``parallel/mesh.py``), so the model calls these collectives itself, each
 an ``autograd.Function`` whose backward is the transposed collective:
 
-- :func:`all_gather` (backward: reduce-scatter) and :func:`reduce_scatter`
-  (backward: all-gather), along one dimension, chunks in group order;
+- :func:`all_gather` (backward: reduce-scatter, or with ``grad="split"``
+  this rank's chunk, where every rank's gradient of the whole is the
+  same) and :func:`reduce_scatter` (backward: all-gather), along one
+  dimension, chunks in group order;
 - :func:`all_reduce`, the sum, whose backward is the identity (Megatron's
   ``g``: the gradient of the sum is the same on every rank) or, with
   ``grad="all_reduce"``, the sum of the gradients;
@@ -42,7 +44,8 @@ tensor a rank needs first.
 :data:`TRAFFIC` counts, per kind of collective, the calls, the bytes this
 rank hands to gloo and the seconds each took end to end (staging
 included; the device is synchronised by the copies), for the chip smoke's
-share of a step spent in collectives.
+share of a step spent in collectives; :data:`AXIS_TRAFFIC` counts the
+same by the mesh axis whose line carried each one.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from dalle_tpu_torch.parallel.multihost import (BACKEND, TRAFFIC, count,
+from dalle_tpu_torch.parallel.multihost import (AXIS_TRAFFIC, BACKEND,
+                                                TRAFFIC, count,
                                                 reset_traffic)
 
 Perm = Sequence[Tuple[int, int]]
@@ -102,7 +106,7 @@ def _host_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = [torch.empty_like(host) for _ in range(n)]
     _dist().all_gather(parts, host, group=group)
     out = _back(torch.cat(parts, dim=dim), t)
-    count("all_gather", host, t0)
+    count("all_gather", host, t0, group)
     return out
 
 
@@ -111,7 +115,7 @@ def _host_sum(t: torch.Tensor, group) -> torch.Tensor:
     host = _wire(t)
     _dist().all_reduce(host, group=group)
     out = _back(host, t)
-    count("all_reduce", host, t0)
+    count("all_reduce", host, t0, group)
     return out
 
 
@@ -158,7 +162,7 @@ def _host_ppermute(x: torch.Tensor, perms: Sequence[Perm],
             result[p] = out[offset:offset + piece]
             offset += piece
     back = _back(result.reshape(host.shape), x)
-    count("ppermute", inp, t0)
+    count("ppermute", inp, t0, group)
     return back
 
 
@@ -174,19 +178,22 @@ def _host_all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
     out = torch.empty_like(chunks)
     _dist().all_to_all_single(out, chunks, group=group)
     back = _back(torch.cat(out.unbind(0), dim=concat_dim), x)
-    count("all_to_all", chunks, t0)
+    count("all_to_all", chunks, t0, group)
     return back
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
+    def forward(ctx, x, dim, group, grad_sum):
+        ctx.dim, ctx.group, ctx.grad_sum = dim, group, grad_sum
         return _host_gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _host_scatter_sum(g, ctx.dim, ctx.group), None, None
+        if ctx.grad_sum:
+            return _host_scatter_sum(g, ctx.dim, ctx.group), None, None, None
+        n, r = group_size(ctx.group), group_rank(ctx.group)
+        return g.chunk(n, ctx.dim)[r].contiguous(), None, None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -259,11 +266,17 @@ class _AllToAll(torch.autograd.Function):
                 None, None, None)
 
 
-def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def all_gather(x: torch.Tensor, dim: int, group,
+               grad: str = "reduce_scatter") -> torch.Tensor:
     """The group's chunks of ``x`` concatenated along ``dim`` in rank
-    order."""
+    order; backward: ``grad="reduce_scatter"`` sums the gradient over the
+    group and keeps this rank's chunk, ``grad="split"`` keeps this rank's
+    chunk of its own gradient (every rank computes the same function of
+    the whole, so a sum would count it once a rank)."""
     check_group(group)
-    return _AllGather.apply(x, dim, group)
+    if grad not in ("reduce_scatter", "split"):
+        raise ValueError(f"unknown all_gather grad {grad!r}")
+    return _AllGather.apply(x, dim, group, grad == "reduce_scatter")
 
 
 def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -344,7 +357,7 @@ def max_over(x: torch.Tensor, group) -> torch.Tensor:
     host = _wire(x.detach())
     _dist().all_reduce(host, op=_dist().ReduceOp.MAX, group=group)
     out = _back(host, x)
-    count("all_reduce", host, t0)
+    count("all_reduce", host, t0, group)
     return out
 
 
@@ -361,4 +374,4 @@ def chunk_of(x: torch.Tensor, dim: int, n: int, index: int
 __all__: List[str] = [
     "all_gather", "reduce_scatter", "all_reduce", "reduce_grad", "split",
     "ppermute", "all_to_all", "gather_whole", "sum_over", "max_over",
-    "chunk_of", "check_group", "TRAFFIC", "reset_traffic"]
+    "chunk_of", "check_group", "TRAFFIC", "AXIS_TRAFFIC", "reset_traffic"]

@@ -32,8 +32,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dalle_tpu_torch.parallel.multihost import (check_backend, process_count,
-                                                process_index)
+from dalle_tpu_torch.parallel.multihost import (check_backend, name_group,
+                                                process_count, process_index)
 
 AXES = ("dp", "fsdp", "tp", "sp")
 # the batch is sharded over every data-like axis
@@ -121,6 +121,7 @@ def _build_groups(sizes: Tuple[int, int, int, int]) -> Dict[str, object]:
             group = dist.new_group(ranks, backend="gloo")
             if me in ranks:
                 groups[name] = group
+                name_group(group, name)
     return groups
 
 

@@ -42,17 +42,36 @@ BACKEND = "gloo"
 TRAFFIC: Dict[str, List[float]] = {}
 
 
+#: the same by the mesh axis whose line carried the collective (the
+#: groups ``parallel/mesh.py`` names, :func:`name_group`; the peer's
+#: broadcasts over all its processes are not in it)
+AXIS_TRAFFIC: Dict[str, List[float]] = {}
+_AXES: Dict[int, str] = {}
+
+
 def reset_traffic() -> None:
     TRAFFIC.clear()
+    AXIS_TRAFFIC.clear()
 
 
-def count(kind: str, host: torch.Tensor, t0: float) -> None:
+def name_group(group, axis: str) -> None:
+    """Count the collectives over ``group`` under ``axis`` in
+    :data:`AXIS_TRAFFIC`."""
+    _AXES[id(group)] = axis
+
+
+def count(kind: str, host: torch.Tensor, t0: float, group=None) -> None:
     """One collective's call, the bytes of ``host`` and the seconds since
-    ``t0`` in :data:`TRAFFIC`."""
-    row = TRAFFIC.setdefault(kind, [0, 0, 0.0])
-    row[0] += 1
-    row[1] += host.numel() * host.element_size()
-    row[2] += time.perf_counter() - t0
+    ``t0`` in :data:`TRAFFIC` (and, over a named ``group``, in
+    :data:`AXIS_TRAFFIC`)."""
+    seconds = time.perf_counter() - t0
+    rows = [TRAFFIC.setdefault(kind, [0, 0, 0.0])]
+    if id(group) in _AXES:
+        rows.append(AXIS_TRAFFIC.setdefault(_AXES[id(group)], [0, 0, 0.0]))
+    for row in rows:
+        row[0] += 1
+        row[1] += host.numel() * host.element_size()
+        row[2] += seconds
 
 
 def _dist():

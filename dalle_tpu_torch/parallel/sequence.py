@@ -1,8 +1,10 @@
 """Sequence/context parallelism over the mesh's ``sp`` axis (counterpart of
 ``dalle_tpu/parallel/sequence.py``).
 
-The token axis shards over the ``sp`` ranks: each holds one contiguous
-slice of every sequence (``models/dalle.py`` cuts it), and attention, the
+Under ``sequence_parallel`` "ring" or "ulysses" the token axis shards over
+the ``sp`` ranks (with "none" they are replicas that run whole sequences,
+``models.transformer.token_shards``): each holds one contiguous slice of
+every sequence (``models/dalle.py`` cuts it), and attention, the
 one layer that mixes tokens, runs as one of two programs whose collectives
 are ``parallel/collectives.py``'s:
 

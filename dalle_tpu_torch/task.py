@@ -21,7 +21,8 @@ are their mean over the processes. On a sharded mesh (``fsdp``, ``tp`` or
 each process's shards (``parallel/sharding.shard_train_state``); processes
 that share a batch index (the same ``dp``/``fsdp`` coordinate, any
 ``tp``/``sp``) read the same rows, the ``sp`` ranks take their token
-slices, and the grad step's gradients are this process's shards of the
+slices under ring or Ulysses (and run whole sequences, as replicas, with
+``sequence_parallel="none"``), and the grad step's gradients are this process's shards of the
 global mesh's (the collaborative optimizer gathers them whole for the
 swarm round, ``swarm/optimizer.py``). Only the coordinator (rank 0) opens
 the DHT and speaks the swarm protocol; the followers learn its decisions

@@ -28,8 +28,8 @@ because the rematerialised blocks run their forward again there.
 On a sharded mesh (``models/dalle.py``) each process's loss is its part of
 the global loss, and :func:`grad_step` accumulates the micro-batches'
 gradients on its shards, then :func:`reduce_gradients` sums them over the
-batch and sequence axes: the gradients of JAX's grad step over the global
-mesh, each process holding its shards.
+batch axes and the token shards: the gradients of JAX's grad step over the
+global mesh, each process holding its shards.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ from typing import Any, Dict, Tuple
 import torch
 from torch import nn
 
-from dalle_tpu_torch.models.transformer import torch_dtype
+from dalle_tpu_torch.models.transformer import seq_group, torch_dtype
 from dalle_tpu_torch.optim.lamb import (apply_updates, global_norm,
                                         sharded_global_norm)
 
@@ -132,18 +132,22 @@ def grad_step(model: nn.Module, batch: Batch, accum_steps: int = 1
 def reduce_gradients(model: nn.Module, grads: Dict[str, torch.Tensor]
                      ) -> None:
     """Sum each shard's gradient, in place, over the processes whose
-    parts of the loss it has not yet summed: the ``sp`` ranks (each saw
-    its tokens) and the batch ranks, where a kernel's fsdp all-gather has
-    already reduce-scattered it over ``fsdp`` (then over ``dp`` alone).
-    The ``tp`` ranks' gradients are whole already (column- and
-    row-parallel products, ``models/transformer.py``). One collective a
-    group over the flat concatenation."""
+    parts of the loss it has not yet summed: the token shards (each saw
+    its tokens; under ring or Ulysses, ``models.transformer.
+    token_shards``) and the batch ranks, where a kernel's fsdp all-gather
+    has already reduce-scattered it over ``fsdp`` (then over ``dp``
+    alone). The ``tp`` ranks' gradients are whole already (column- and
+    row-parallel products, and the leaves ``tp`` does not divide computed
+    whole on every rank, ``models/transformer.py``), and so are the
+    ``sp`` ranks' where ``sp`` is a replica axis: each holds the whole
+    gradient of its rows, the same bits on every ``sp`` rank. One
+    collective a group over the flat concatenation."""
     from dalle_tpu_torch.parallel.collectives import sum_over
     mesh = model.mesh
     specs = model.shard_specs
-    for axes, pick in (([mesh.group("dp"), mesh.group("sp")],
-                        lambda s: "fsdp" in s),
-                       ([mesh.group("batch"), mesh.group("sp")],
+    seq = seq_group(mesh, model.cfg)
+    for axes, pick in (([mesh.group("dp"), seq], lambda s: "fsdp" in s),
+                       ([mesh.group("batch"), seq],
                         lambda s: "fsdp" not in s)):
         names = [n for n in grads if pick(specs[n])]
         if not names or all(g is None for g in axes):

@@ -29,11 +29,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding
 
 from dalle_tpu.config import tiny_model_config as jax_tiny
 from dalle_tpu.models.dalle import DALLE as JaxDALLE
 from dalle_tpu.models.dalle import init_params as jax_init
+from dalle_tpu.parallel.mesh import BATCH_SPEC
 from dalle_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from dalle_tpu.parallel.sharding import param_shardings
 from dalle_tpu.training.steps import make_grad_step
 from dalle_tpu_torch.parallel.launch import spawn
 from dalle_tpu_torch.params import _port_name
@@ -110,13 +113,32 @@ def _by_port_name(grads):
             for path, g in flat}
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_mesh_model_loss_and_grads_match_jax(tmp_path, case):
-    kw, mesh, accum = CASES[case]
+def _jax_mesh_loss_and_grads(cfg, mesh, params, batch, accum):
+    """JAX's model on its mesh of CPU devices: under ring or Ulysses built
+    with the mesh; with ``sequence_parallel="none"`` without one, as JAX's
+    ``task.py`` builds it, its parameters placed by ``param_shardings`` and
+    the batch by ``BATCH_SPEC`` (every ``sp`` device a replica)."""
+    n = mesh["dp"] * mesh["fsdp"] * mesh["tp"] * mesh["sp"]
+    jm = jax_make_mesh(**mesh, devices=jax.devices()[:n])
+    if cfg.sequence_parallel != "none":
+        return _jax_loss_and_grads(JaxDALLE(cfg, mesh=jm), params, batch,
+                                   accum)
+    rows = NamedSharding(jm, BATCH_SPEC)
+    return _jax_loss_and_grads(
+        JaxDALLE(cfg), jax.device_put(params, param_shardings(jm, params)),
+        {k: jax.device_put(jnp.asarray(v), rows) for k, v in batch.items()},
+        accum)
+
+
+def check_case(tmp_path, case, kw, mesh, accum, masked=False):
+    """The port's mesh of processes on the JAX package's weights against
+    the JAX package on one device (and, with ``sp > 1``, on its mesh):
+    loss, every gradient and ``return_logits``; returns what each process
+    gave."""
     cfg = jax_tiny(**kw)
     ref_cfg = cfg.__class__(**{**cfg.__dict__, "sequence_parallel": "none"})
     params = jax_init(JaxDALLE(ref_cfg), jax.random.PRNGKey(0))
-    batch = _batch(cfg, case.endswith("masked"))
+    batch = _batch(cfg, masked)
     path = tmp_path / "inputs.npz"
     np.savez(path, **batch, **_flat(params))
 
@@ -131,9 +153,8 @@ def test_mesh_model_loss_and_grads_match_jax(tmp_path, case):
 
     wants = [_jax_loss_and_grads(JaxDALLE(ref_cfg), params, batch, accum)]
     if mesh["sp"] > 1:
-        jm = jax_make_mesh(**mesh, devices=jax.devices()[:n])
-        wants.append(_jax_loss_and_grads(JaxDALLE(cfg, mesh=jm), params,
-                                         batch, accum))
+        wants.append(_jax_mesh_loss_and_grads(cfg, mesh, params, batch,
+                                              accum))
     logits = _jax_logits(JaxDALLE(ref_cfg), params, batch)
     for r in results:
         np.testing.assert_allclose(r["logits"], logits, **LOSS_TOL,
@@ -145,3 +166,10 @@ def test_mesh_model_loss_and_grads_match_jax(tmp_path, case):
         for name, g in flat.items():
             np.testing.assert_allclose(got["g:" + name], g, **GRAD_TOL,
                                        err_msg=f"{case} {name}")
+    return results
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_mesh_model_loss_and_grads_match_jax(tmp_path, case):
+    kw, mesh, accum = CASES[case]
+    check_case(tmp_path, case, kw, mesh, accum, case.endswith("masked"))

@@ -194,33 +194,52 @@ def test_collectives_forward_and_backward_in_a_group():
         assert not bad, (rank, bad)
 
 
-def test_a_mesh_the_model_cannot_shard_is_refused():
-    """The port shards the token axis over ``sp`` and the vocabulary over
-    ``tp``: a mesh with ``sp > 1`` and no ``sequence_parallel`` mode,
-    heads or a tp-sharded leaf that ``tp`` does not divide, raise when the
-    model is built (never a quiet replicated run). An untied head builds
-    and shards on any mesh: its kernel is ``P("fsdp", "tp")``, the tp axis
-    dropped where it does not divide the vocabulary (the head then
-    computes the whole vocabulary on every rank, as JAX's replicated
-    leaf)."""
-    cfg = tconfig.tiny_model_config()
-    with pytest.raises(ValueError, match="sequence_parallel"):
-        DALLE(cfg, mesh=tmesh.make_mesh(1, 1, 1, 2, n_devices=2))
-    for kw, axes, spec in ((dict(), (1, 2, 1, 1), ("fsdp", "tp")),
-                           (dict(), (1, 2, 2, 1), ("fsdp", "tp")),
-                           (dict(vocab_image=65), (1, 2, 2, 1),
-                            ("fsdp", None))):
-        untied = DALLE(tconfig.tiny_model_config(tied_embeddings=False,
-                                                 **kw),
-                       mesh=tmesh.make_mesh(*axes,
-                                            n_devices=axes[1] * axes[2]))
-        assert untied.shard_specs["lm_head.kernel"] == spec, (kw, axes)
-        assert untied.whole_shapes["lm_head.kernel"] == (
-            64, untied.cfg.vocab_total)
-    with pytest.raises(ValueError, match="heads 2 not divisible by tp=4"):
-        DALLE(tconfig.tiny_model_config(heads=2, head_dim=32),
-              mesh=tmesh.make_mesh(1, 1, 4, 1, n_devices=4))
-    with pytest.raises(ValueError, match="does not split over tp"):
-        DALLE(tconfig.tiny_model_config(dim=96, heads=3, head_dim=32,
-                                        vocab_text=130),
-              mesh=tmesh.make_mesh(1, 1, 3, 1, n_devices=3))
+BUILDS = [
+    # sp a replica axis: sequence_parallel "none" at sp=2
+    ("tiny_model_config", dict(), (1, 2, 1, 2)),
+    # heads tp does not divide (XL: 28 heads at tp=8, 3.5 a rank)
+    ("xl_model_config", dict(), (1, 1, 8, 1)),
+    # tp divides no block leaf (dim 1024, inner 4096) but token_emb's rows
+    ("flagship_model_config", dict(), (1, 1, 3, 1)),
+    # blocks split by whole heads, the tied table's 256 rows whole
+    ("tiny_model_config", dict(dim=96, heads=3, head_dim=32,
+                               vocab_text=130), (1, 1, 3, 1)),
+    # untied heads: the vocabulary over tp, or whole where it does not
+    # divide (vocab_total 193)
+    ("tiny_model_config", dict(tied_embeddings=False), (1, 2, 1, 1)),
+    ("tiny_model_config", dict(tied_embeddings=False), (1, 2, 2, 1)),
+    ("tiny_model_config", dict(tied_embeddings=False, vocab_image=65),
+     (1, 2, 2, 1)),
+]
+
+
+def test_meshes_jax_runs_build_with_its_specs_and_its_refusals_stay():
+    """Every mesh the JAX package runs builds the port's model, with JAX's
+    shard specs on that mesh: ``sp > 1`` with ``sequence_parallel="none"``
+    (every ``sp`` rank a replica), heads that ``tp`` does not divide,
+    blocks that ``tp`` leaves whole, a tied table whose rows ``tp`` does
+    not divide, and untied heads (``P("fsdp", "tp")``, ``tp`` dropped where
+    it does not divide the vocabulary). What JAX's sequence-parallel
+    attention raises stays refused when the model is built: Ulysses with
+    heads per ``tp`` rank that ``sp`` does not divide, and the ring with a
+    sequence that ``2*sp`` does not divide."""
+    for maker, kw, axes in BUILDS:
+        jcfg = getattr(jconfig, maker)(**kw)
+        tcfg = getattr(tconfig, maker)(**kw)
+        n = axes[0] * axes[1] * axes[2] * axes[3]
+        jm = jmesh.make_mesh(*axes, devices=jax.devices()[:n])
+        with torch.device("meta"):
+            model = DALLE(tcfg, mesh=tmesh.make_mesh(*axes, n_devices=n))
+        jsh = _by_port_name(jsharding.param_shardings(
+            jm, _jax_shapes(jcfg)[0]))
+        assert set(model.shard_specs) == set(jsh), (maker, kw, axes)
+        for name, spec in model.shard_specs.items():
+            assert spec == _spec(jsh[name]), (maker, kw, axes, name)
+    with pytest.raises(ValueError, match="ulysses needs heads/tp"):
+        DALLE(tconfig.tiny_model_config(sequence_parallel="ulysses",
+                                        attn_types=("axial_row",)),
+              mesh=tmesh.make_mesh(1, 1, 2, 4, n_devices=8))
+    with pytest.raises(ValueError, match="zigzag ring needs"):
+        DALLE(tconfig.tiny_model_config(sequence_parallel="ring",
+                                        text_seq_len=12),
+              mesh=tmesh.make_mesh(1, 1, 1, 4, n_devices=4))

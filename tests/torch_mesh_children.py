@@ -133,9 +133,13 @@ def sequence(rank, n, args):
 
 def model_grads(rank, n, args):
     """The port model on its mesh from the JAX weights: ``grad_step`` on
-    this process's rows of the batch; the loss, every gradient whole, and
-    the logits of ``return_logits`` gathered over the batch axes."""
+    this process's rows of the batch; the loss, every gradient whole, the
+    mesh axes whose lines carried the grad step's collectives
+    (``collectives.AXIS_TRAFFIC``), and the logits of ``return_logits``
+    gathered over the batch axes."""
     from dalle_tpu_torch.optim import make_optimizer
+    from dalle_tpu_torch.parallel.collectives import (AXIS_TRAFFIC,
+                                                      reset_traffic)
     from dalle_tpu_torch.training.steps import TrainState, grad_step
     mesh = make_mesh(**args["mesh"])
     cfg = _cfg(args)
@@ -149,11 +153,14 @@ def model_grads(rank, n, args):
         batch["mask"] = torch.from_numpy(data["mask"])
     rows = batch_sharding(mesh, batch)
     batch = batch_sharding(mesh, batch, accum)
+    reset_traffic()
     loss, aux, grads = grad_step(model, batch, accum)
+    axes = sorted(AXIS_TRAFFIC)
     with torch.no_grad():
         logits = model(rows["text"], rows["image"], rows.get("mask"),
                        return_logits=True)[2]
     return {"loss": float(loss), "loss_img": float(aux["loss_img"]),
+            "axes": np.array(axes, dtype=str),
             "logits": gather_whole(logits, [(0, mesh.group("batch"))])
             .numpy(), **_whole_grads(model, grads, mesh)}
 
