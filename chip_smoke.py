@@ -96,12 +96,21 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    (dtype x head_dim) against its plain version, forward and backward twice
    bitwise, then each of the six generic wrappers timed at the flagship's
    widths in f32 (``flagship_model_config(dtype="float32")``'s shapes) with
-   bound and library yardstick, and the GEGLU instances in bf16 at widths
-   that are multiples of 8 only; then the tiny model
+   bound and library yardstick (the GEGLU pair also beside the bound of
+   three TF32 passes, ``bound_ms_3xtf32``, and with each instance's
+   registers and spills); the generic GEGLU entry points in bf16 at M =
+   5120, d = 1000, K = 4000 (widths only they take) and at the flagship's
+   (beside this run's fast kernels), each against its plain version twice
+   bitwise and timed beside cuBLAS's two products; the GEGLU instances in
+   bf16 at widths that are multiples of 8 only; then the tiny model
    (``tiny_model_config`` with every attention type, fused LayerNorm and
    GEGLU, f32, head_dim 16) through its forward and one ``grad_step`` on
    the card against the same weights on the CPU (loss, logits, every
-   gradient within ``TINY_TOL``), counting the generic launches of that run;
+   gradient within ``TINY_TOL``), counting the generic launches of that
+   run; and (e) ``flagship_model_config(dtype="float32")`` at full width
+   cut to ``MESH_DEPTH`` layers, micro-batch 1, the same on the card and on
+   the CPU (loss, logits, every gradient within ``TINY_TOL``), its generic
+   launches exactly the schedule's (``wrapper_calls``);
 11. the trainer peer at the JAX package's swarm defaults: (a) two
    flagship peers in this process (two threads, each a ``TrainingTask`` on
    a loopback DHT, the second bootstrapped from the first; micro-batch 4 x
@@ -192,7 +201,8 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    checkpoint restored into an offloaded and an on-device state
    ``torch.equal``, each serializing to the file's bytes; (d) a ``gloo``
    group of two processes (``dp=2``, phase 8's step on each process's 8
-   rows) as one peer beside a one-process peer, two epochs at
+   rows, the flagship cut to ``MESH_DEPTH`` layers) as one peer beside a
+   one-process peer, two epochs at
    ``target_batch_size=16`` and the JAX defaults otherwise: all three
    bitwise equal after every epoch, every round a 2-peer group, each
    child within its timeout; recorded: the slice's gradient mean s a
@@ -238,6 +248,15 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
 18. the ``kernels`` line (the eleven ported kernels and the six generic
    instances).
 
+The order differs from the numbers in one place: 15a runs right after
+10, and then phases 14d-17 (every path of more than one process but 11-12)
+run in a second process of this script (``--multiprocess``, at niceness
+``MULTIPROCESS_NICE``, in a session of its own that is killed at the end)
+beside 11-14c, so that no other process shares the card while a kernel
+is timed. The second process's records are printed after 14c's, with
+``t_s`` on the same clock; it fails the run if it fails or has not ended
+``MULTIPROCESS_DEADLINE_S`` after the start.
+
 With ``--profile``, one flagship forward and one training micro-batch are
 traced with ``torch.profiler`` and split by kernel class.
 
@@ -258,7 +277,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor cores
 F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12       # dense TF32 tensor cores (3 passes for f32)
 BF16_TOL = 2 ** -6             # rtol = atol for bf16 outputs (see phase 2)
+BF16_BWD_TOL = 2 ** -7         # bf16 backward tensors (tests/test_torch_cuda)
 F32_TOL = 1e-4                 # rtol = atol for f32 outputs of the generic
                                # kernels at flagship widths: sums of up to
                                # 4096 products in another order than the
@@ -297,6 +318,16 @@ def emit(**record) -> None:
     record["t_s"] = time.perf_counter() - T_START
     RECORDS.append(record)
     print(json.dumps(record), flush=True)
+
+
+def release_memory() -> None:
+    """Return cached blocks, the cuBLAS workspaces of the timing streams
+    included (each stream that ran cuBLAS keeps one), so that the next
+    phase's peak memory counts only its own."""
+    import torch
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
 
 
 def nvidia_smi() -> str:
@@ -2089,6 +2120,7 @@ task = TrainingTask(flagship_model_config(**overrides),
                                   **(trainer_kw if role != "peer" else {})),
                     CollabConfig(**collab_kw), peer, device=dev)
 collab = task.collab_optimizer
+open(f"{tmp}/dht_{role}", "w").close()   # the DHT is up: the peer may join
 warmup(task, 1)    # the first step's setup, before the start signal
 open(f"{tmp}/ready_{role}", "w").close()
 wait_for(f"{tmp}/go")
@@ -2707,10 +2739,10 @@ def _run_slice(root, dev, overrides, collab_kw, trainer_kw, epochs,
         try:
             start("0")
             start("1")
-            wait_file("ready_0", 300)
+            wait_file("dht_0", 300)    # the peer bootstraps from 0's DHT
             start("peer")
-            wait_file("ready_1", 300)
-            wait_file("ready_peer", 300)
+            for role in ("0", "1", "peer"):
+                wait_file(f"ready_{role}", 300)
             open(os.path.join(tmp, "go"), "w").close()
             t_go = time.perf_counter()
             for role, (p, _) in procs.items():
@@ -2792,7 +2824,8 @@ def slice_phase(torch, smi, release_memory, root, dev="cuda",
     """14d: a peer of two processes on the one card (a ``gloo`` group on
     loopback, ``dp=2``: each trains on its 8 rows of the slice's 16 a step,
     and the gradients are their mean) and a one-process peer, at flagship
-    width with phase 8's step (8-bit LAMB, micro-batch 4 x accumulation 2)
+    width cut to ``MESH_DEPTH`` layers for time (every block kept, as in
+    16a) with phase 8's step (8-bit LAMB, micro-batch 4 x accumulation 2)
     and ``SLICE_COLLAB`` (the JAX defaults otherwise), ``epochs`` epochs
     through ``train_loop``: every child exits 0 within
     ``SLICE_TIMEOUT_S``; after every epoch the slice's two processes and
@@ -2801,7 +2834,8 @@ def slice_phase(torch, smi, release_memory, root, dev="cuda",
     generic kernel runs. Records the slice's gradient mean s a step, the
     rounds' s and wire bytes a leg, and the swarm's samples/s."""
     release_memory()
-    outs, wall_s = _run_slice(root, dev, model_overrides, SLICE_COLLAB, {},
+    overrides = {"depth": MESH_DEPTH, **(model_overrides or {})}
+    outs, wall_s = _run_slice(root, dev, overrides, SLICE_COLLAB, {},
                               epochs, "slice")
     rounds = _check_slice(outs, epochs, "slice")
     means = outs["0"]["grad_mean_s"][1:] + outs["1"]["grad_mean_s"][1:]
@@ -2972,9 +3006,12 @@ def mesh_child(rank: int, world: int, args) -> dict:
     allocated = (torch.cuda.memory_allocated() if dev.type == "cuda"
                  else 0)
     # a first grad step warms the process up (CUDA context, cuBLAS
-    # handles, allocator: 15a's first step takes 9 s against 0.7); the
-    # second, on the same weights, is timed and checked
-    grad_step(model, batch, accum)
+    # handles: 15a's first step takes 9 s against 0.7), on one row a data
+    # rank, so that its collectives carry a fraction of the timed step's
+    # bytes; the second, on the same weights, is timed and checked
+    warm_rows = axes["dp"] * axes["fsdp"] * accum
+    grad_step(model, batch_sharding(
+        mesh, _mesh_batch(torch, cfg, warm_rows, dev), accum), accum)
     _sync(torch, dev)
     _reset_peak(torch, dev)
     reset_launches()
@@ -3622,6 +3659,90 @@ def undivided_phase(torch, smi, release_memory, root, refs,
                         model_overrides=model_overrides, refs=refs)
 
 
+F32_FLAGSHIP_BATCH = 1         # 10e: the f32 flagship's micro-batch
+
+
+def f32_flagship_phase(torch, np, compare, dev="cuda",
+                       model_overrides=None) -> dict:
+    """Phase 10e: ``flagship_model_config(dtype="float32")`` at full width
+    cut to ``MESH_DEPTH`` layers (each shared block called twice), random
+    weights from ``SEED`` with nonzero biases and scales, one forward with
+    logits and one ``grad_step`` of ``F32_FLAGSHIP_BATCH`` sample(s) on the
+    card against the same weights and batch on the CPU (plain versions):
+    loss, logits and every gradient within ``TINY_TOL``. Every wrapper
+    launches exactly as the schedule says (``wrapper_calls``), all of the
+    attention and GEGLU calls on the generic route (the GEGLU ones: the
+    fused blocks' FF, ``block_3`` twice at 9 layers)."""
+    import copy
+
+    from dalle_tpu_torch.config import flagship_model_config
+    from dalle_tpu_torch.models.dalle import init_params
+    from dalle_tpu_torch.models.transformer import wrapper_calls
+    from dalle_tpu_torch.ops import (GENERIC_LAUNCHES, LAUNCHES,
+                                     reset_launches)
+    from dalle_tpu_torch.training.steps import grad_step
+    t_phase = time.perf_counter()
+    cfg = flagship_model_config(**{"dtype": "float32", "depth": MESH_DEPTH,
+                                   **(model_overrides or {})})
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    with torch.no_grad():   # nonzero biases and scales: a dropped term shows
+        for pname, prm in cpu_model.named_parameters():
+            if pname.endswith(("bias", "scale")):
+                prm.add_(torch.from_numpy(0.05 * rng.standard_normal(
+                    prm.shape)).to(prm.dtype))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    b = F32_FLAGSHIP_BATCH
+    batch = {"text": torch.from_numpy(rng.integers(
+                 1, cfg.vocab_text, (b, cfg.text_seq_len))),
+             "image": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_image, (b, cfg.image_seq_len)))}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss_c, _, logits_c = cpu_model(batch["text"], batch["image"],
+                                        return_logits=True)
+    gloss_c, _, grads_c = grad_step(cpu_model, batch)
+    cpu_s = time.perf_counter() - t0
+    dbatch = {key: val.to(dev) for key, val in batch.items()}
+    _sync(torch, dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss_g, _, logits_g = card_model(dbatch["text"], dbatch["image"],
+                                         return_logits=True)
+    gloss_g, _, grads_g = grad_step(card_model, dbatch)
+    _sync(torch, dev)
+    card_s = time.perf_counter() - t0
+    launches, generic = dict(LAUNCHES), dict(GENERIC_LAUNCHES)
+    fwd_calls = wrapper_calls(cfg, training=False)
+    step_calls = wrapper_calls(cfg, training=True)
+    expected = {key: fwd_calls[key] + step_calls[key] for key in LAUNCHES}
+    expected_generic = {key: expected[key] for key in GENERIC_LAUNCHES}
+    if launches != expected or generic != expected_generic:
+        raise AssertionError(
+            f"f32 flagship: launches {launches} (generic {generic}) != the "
+            f"schedule's {expected} (generic {expected_generic})")
+    errs = {"loss": compare("f32 flagship loss", loss_g.cpu(), loss_c,
+                            TINY_TOL),
+            "logits": compare("f32 flagship logits", logits_g.cpu(),
+                              logits_c, TINY_TOL),
+            "grad_step loss": compare("f32 flagship grad_step loss",
+                                      gloss_g.cpu(), gloss_c, TINY_TOL)}
+    errs["gradients"] = max(compare(f"f32 flagship gradient {key}",
+                                    grads_g[key].cpu(), g, TINY_TOL)
+                            for key, g in grads_c.items())
+    rec = dict(widths=dict(dim=cfg.dim, depth=cfg.depth, heads=cfg.heads,
+                           head_dim=cfg.head_dim, vocab_text=cfg.vocab_text,
+                           vocab_image=cfg.vocab_image, dtype=cfg.dtype),
+               batch=b, loss_card=float(loss_g), loss_cpu=float(loss_c),
+               max_abs_err=errs, tolerance=f"rtol=atol={TINY_TOL}",
+               launches=launches, generic_launches=generic, card_s=card_s,
+               cpu_s=cpu_s, seconds=time.perf_counter() - t_phase)
+    emit(phase="generic_f32_flagship", **rec)
+    del cpu_model, card_model, grads_c, grads_g, logits_c, logits_g
+    return rec
+
+
 def dryrun_phase(smi) -> dict:
     """15e: ``entry.dryrun_multichip(4)`` on the card: four processes of
     one ``gloo`` group, its cases' lines with finite losses."""
@@ -3645,16 +3766,73 @@ def dryrun_phase(smi) -> dict:
     return rec
 
 
-def mesh_phase(torch, smi, release_memory, cuda_ms, root, refs) -> None:
-    """15: the long-context model in one process (15a), then ring (15b),
-    fsdp x tp (15c) and Ulysses (15d) meshes of processes on the card
-    against one process (the references kept in ``refs``), and the dry
-    run (15e); each path with the launch counts set to 0 just before it
-    and read just after."""
-    long_context_phase(torch, smi, release_memory, cuda_ms)
-    for case in ("ring", "fsdp_tp", "ulysses"):
-        mesh_case_phase(torch, smi, release_memory, root, case, refs=refs)
-    dryrun_phase(smi)
+#: the second process's niceness: the first process's phases (11-14c),
+#: whose swarm rounds keep time, come first where both want a CPU core
+MULTIPROCESS_NICE = 10
+#: the second process must have ended this many seconds after the start
+MULTIPROCESS_DEADLINE_S = 1150
+
+
+def multiprocess_phases(torch, smi, root) -> None:
+    """14d-17, the paths of more than one process (a slice beside a peer,
+    the meshes of 15-17, the dry run), in the order of their numbers,
+    each with the launch counts set to 0 just before it and read just
+    after. ``main()`` runs them in a second process of this script
+    (``--multiprocess``) beside phases 11-14c."""
+    import tempfile
+    slice_phase(torch, smi, release_memory, root)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as refs:
+        for case in ("ring", "fsdp_tp", "ulysses"):
+            mesh_case_phase(torch, smi, release_memory, root, case,
+                            refs=refs)
+        dryrun_phase(smi)
+        sharded_powersgd_phase(torch, smi, release_memory, root)
+        untied_phase(torch, smi, release_memory, root, refs=refs)
+        undivided_phase(torch, smi, release_memory, root, refs)
+
+
+def start_multiprocess(root):
+    """Starts ``--multiprocess`` (phases 14d-17) in a session of its own,
+    its output into anonymous temporary files; ``(process, out, err)``."""
+    import tempfile
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multiprocess",
+         "--t-start", repr(T_START)],
+        cwd=root, stdout=out, stderr=err, start_new_session=True)
+    return proc, out, err
+
+
+def stop_multiprocess(second, deadline_s=None) -> int:
+    """Waits for the second process until ``deadline_s`` after the start
+    (``None``: not at all), then kills its session, the groups it spawned
+    included; prints its output (its records also go to ``RECORDS``) and
+    returns its exit code (``None`` if it was still running)."""
+    import signal
+    proc, out, err = second
+    rc = proc.poll()
+    if rc is None and deadline_s is not None:
+        try:
+            rc = proc.wait(timeout=max(
+                deadline_s - (time.perf_counter() - T_START), 1))
+        except subprocess.TimeoutExpired:
+            pass
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+    out.seek(0)
+    err.seek(0)
+    sys.stderr.write(err.read())
+    sys.stderr.flush()
+    for line in out.read().splitlines():
+        print(line, flush=True)
+        if line.startswith('{"phase"'):
+            RECORDS.append(json.loads(line))
+    out.close()
+    err.close()
+    return rc
 
 
 def main() -> int:
@@ -3665,6 +3843,11 @@ def main() -> int:
                         help="also trace one flagship forward and one "
                              "training micro-batch with torch.profiler and "
                              "write their tables to PATH")
+    parser.add_argument("--multiprocess", action="store_true",
+                        help="run only phases 14d-17 (the run without it "
+                             "starts them so, beside phases 11-14c)")
+    parser.add_argument("--t-start", type=float, default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -3672,6 +3855,14 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs only on an NVIDIA GPU", file=sys.stderr)
         return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    if args.multiprocess:
+        global T_START
+        if args.t_start is not None:
+            T_START = args.t_start      # one clock for both processes' t_s
+        os.nice(MULTIPROCESS_NICE)
+        multiprocess_phases(torch, nvidia_smi(), root)
+        return 0
 
     import copy
 
@@ -3703,6 +3894,7 @@ def main() -> int:
                                                window_attention_bwd,
                                                window_attention_bwd_plain,
                                                window_attention_plain)
+    from dalle_tpu_torch.ops import geglu as geglu_module
     from dalle_tpu_torch.ops.geglu import (geglu_ff, geglu_ff_bwd,
                                            geglu_ff_bwd_plain, geglu_ff_plain)
     from dalle_tpu_torch.ops.geglu import \
@@ -3718,6 +3910,7 @@ def main() -> int:
                                            wire_quantize_u8,
                                            wire_quantize_u8_plain)
     from dalle_tpu_torch.optim import optimizer_state_bytes
+    from dalle_tpu_torch.time_geglu import generic_entry
     from dalle_tpu_torch.time_quant import quantize_bytes
     from dalle_tpu_torch.swarm import compression, device_codec
     from dalle_tpu_torch.swarm.error_feedback import ErrorFeedback
@@ -3792,14 +3985,6 @@ def main() -> int:
                                  f"version: max |diff| {err.max().item()} "
                                  f"(tolerance {tol} + {tol}*|plain|)")
         return err.max().item()
-
-    def release_memory():
-        """Return cached blocks, the cuBLAS workspaces of the timing
-        streams included (each stream that ran cuBLAS keeps one), so that
-        the next phase's peak memory counts only its own."""
-        torch.cuda.synchronize()
-        torch._C._cuda_clearCublasWorkspaces()
-        torch.cuda.empty_cache()
 
     def assert_no_generic(where):
         """The flagship runs only the fast kernels: no call since the last
@@ -4525,9 +4710,72 @@ def main() -> int:
             [(st[0], torch.cat([st[1], st[2]], dim=1), st[7], st[3])
              for st in ff], 5)[0]
         del ff, fwd_sets, bwd_sets, got, want
+        # the tensor cores' bound of three TF32 passes, and each instance's
+        # registers and spills (ptxas, when this run built the source)
+        for name, instances in (
+                ("geglu_ff_generic", ("geglu_generic_gate_f32",
+                                      "geglu_generic_out_f32")),
+                ("geglu_ff_bwd_generic", ("geglu_generic_bwd_f32",))):
+            rec = recs[name]
+            rec["bound_ms_3xtf32"] = 6 * M * D * K / (TF32_FLOP_PER_S / 3) \
+                * 1e3
+            rec["ms_vs_cublas"] = rec["ms"] / rec["cublas_ms"]
+            rec["resources"] = {n: ptxas.get(n, {}) for n in instances}
         for rec in recs.values():
             rec["tf32"] = torch.backends.cuda.matmul.allow_tf32
             emit(phase="kernel_check", **rec)
+
+        # bf16 through the generic entry points, called directly: at widths
+        # only they take, and at the flagship's (where the wrappers take
+        # the fast kernels, timed in phases 2 and 6 of this run)
+        for db_, kb_ in ((1000, 4000), (D, K)):
+            bsets = [[rand(bf, *sh, scale=sc) for sh, sc in (
+                ((M, db_), 1.0), ((db_, kb_), db_ ** -0.5),
+                ((db_, kb_), db_ ** -0.5), ((kb_, db_), kb_ ** -0.5),
+                ((kb_,), 0.1), ((kb_,), 0.1), ((db_,), 0.1), ((M, db_), 1.0))]
+                for _ in range(2)]
+            gfwd, gbwd = generic_entry(geglu_module, M, db_, kb_, bf, dev)
+            fwd_args = [st[:7] for st in bsets]
+            bwd_args = [st[:6] + st[7:] for st in bsets]
+            what = f"generic entry bf16 M={M} d={db_} K={kb_}"
+            err_f = compare(f"{what} forward", twice(
+                f"{what} forward", lambda *a: (gfwd(*a),), *fwd_args[0])[0],
+                geglu_ff_plain(*fwd_args[0]), BF16_TOL)
+            got = twice(f"{what} backward", gbwd, *bwd_args[0])
+            err_b = max(compare(f"{what} backward {n}", a, w, BF16_BWD_TOL)
+                        for n, a, w in zip(("dh|dg", "hg"), got,
+                                           geglu_ff_bwd_plain(*bwd_args[0])))
+            flops = 6 * M * db_ * kb_
+            rec = dict(
+                shape=f"x, dO ({M}, {db_}), Wi/Wg ({db_}, {kb_}), Wo "
+                      f"({kb_}, {db_}) bf16",
+                max_abs_err=dict(forward=err_f, backward=err_b),
+                tolerance=f"rtol=atol={BF16_TOL} (forward), {BF16_BWD_TOL} "
+                          "(backward tensors)", bitwise_reproducible=True,
+                fwd_ms=cuda_ms(gfwd, fwd_args, 10)[0],
+                bwd_ms=cuda_ms(gbwd, bwd_args, 10)[0],
+                bound_ms=bound((2 * M * db_ + 3 * db_ * kb_ + 2 * kb_ + db_)
+                               * 2, flops)[0],
+                bwd_bound_ms=bound((2 * M * db_ + 3 * db_ * kb_ + 2 * kb_
+                                    + 3 * M * kb_) * 2, flops)[0],
+                cublas_fwd_ms=cuda_ms(
+                    lambda x, w, h, wo: (torch.matmul(x, w),
+                                         torch.matmul(h, wo)),
+                    [(st[0], torch.cat([st[1], st[2]], dim=1),
+                      rand(bf, M, kb_), st[3]) for st in bsets], 10)[0],
+                cublas_bwd_ms=cuda_ms(
+                    lambda x, w, do, wo: (torch.matmul(x, w),
+                                          torch.matmul(do, wo.t())),
+                    [(st[0], torch.cat([st[1], st[2]], dim=1), st[7], st[3])
+                     for st in bsets], 10)[0],
+                resources={n: ptxas.get(n, {}) for n in (
+                    "geglu_generic_gate_bf16", "geglu_generic_out_bf16",
+                    "geglu_generic_bwd_bf16")})
+            if (db_, kb_) == (D, K):
+                rec["fast_fwd_ms"] = kernels["geglu_ff"]["ms"]
+                rec["fast_bwd_ms"] = kernels["geglu_ff_bwd"]["ms"]
+            emit(phase="generic_geglu_bf16_entry", **rec)
+            del bsets, fwd_args, bwd_args, got
 
         # (c) the bf16 GEGLU instances at widths that are multiples of 8
         mb_, db_, kb_ = 1000, 200, 808
@@ -4540,12 +4788,14 @@ def main() -> int:
             *ops[:7])[0], geglu_ff_plain(*ops[:7]), BF16_TOL)]
         got = twice("generic geglu_ff_bwd bf16", geglu_ff_bwd,
                     *ops[:6], ops[7])
-        errs += [compare(f"generic geglu_ff_bwd bf16 {n}", a, w, BF16_TOL)
+        errs += [compare(f"generic geglu_ff_bwd bf16 {n}", a, w,
+                         BF16_BWD_TOL)
                  for n, a, w in zip(("dh|dg", "hg"), got, geglu_ff_bwd_plain(
                      *ops[:6], ops[7]))]
         emit(phase="generic_geglu_bf16", shape=f"M={mb_}, d={db_}, K={kb_}"
              " bf16", max_abs_err=max(errs), tolerance=f"rtol=atol="
-             f"{BF16_TOL}", bitwise_reproducible=True)
+             f"{BF16_TOL} (output), {BF16_BWD_TOL} (backward tensors)",
+             bitwise_reproducible=True)
         del ops, got
 
         # (d) the tiny model: forward and one grad_step on the card against
@@ -4603,6 +4853,11 @@ def main() -> int:
              generic_launches=generic, launches=launches, seconds=tiny_s)
         for name, rec in recs.items():
             rec["launches"] = generic[name[:-len("_generic")]]
+        del cpu_model, card_model, grads_g, grads_c, logits_g, logits_c
+        release_memory()
+
+        # (e) the f32 flagship at full width on the card against the CPU
+        f32_flagship_phase(torch, np, compare, dev=dev)
         return recs
 
     bwd_kernels = check_backward_kernels()
@@ -5031,41 +5286,44 @@ def main() -> int:
     kernels.update(check_generic_route())
     release_memory()
 
-    # -- 11. the trainer peer ---------------------------------------------
-    trainer_phase(torch, smi, kernels, release_memory)
+    # -- 15a. the long-context model, its window kernel timed alone -------
+    long_context_phase(torch, smi, release_memory, cuda_ms)
 
-    # -- 12. real data, text prompts through the router, access tokens ----
-    root = os.path.dirname(os.path.abspath(__file__))
-    data_phase(torch, smi, root)
-    release_memory()
-    router_phase(torch, np, smi, root,
-                 lambda: init_params(flagship_model_config(
-                     param_dtype="bfloat16", depth=ROUTER_DEPTH),
-                     torch.Generator(device=dev).manual_seed(SEED)).eval(),
-                 release_memory)
-    auth_rounds = auth_phase(torch, smi, release_memory)
+    # -- 14d-17 in a second process, beside 11-14c ------------------------
+    second = start_multiprocess(root)
+    try:
+        # -- 11. the trainer peer -----------------------------------------
+        trainer_phase(torch, smi, kernels, release_memory)
 
-    # -- 13. the stacked dense_scan layout, the assistant, fault injection --
-    dense_phase(torch, smi, release_memory)
-    assist_chaos_phase(torch, smi, release_memory, auth_rounds)
+        # -- 12. real data, text prompts through the router, access tokens
+        data_phase(torch, smi, root)
+        release_memory()
+        router_phase(torch, np, smi, root,
+                     lambda: init_params(flagship_model_config(
+                         param_dtype="bfloat16", depth=ROUTER_DEPTH),
+                         torch.Generator(device=dev).manual_seed(
+                             SEED)).eval(),
+                     release_memory)
+        auth_rounds = auth_phase(torch, smi, release_memory)
 
-    # -- 14. save_ctx on XL, offload, the XL CLI, a multi-process peer ----
-    xl_phase(torch, smi, release_memory)
-    offload_phase(torch, smi, release_memory)
-    xl_cli_phase(torch, smi, release_memory, root)
-    slice_phase(torch, smi, release_memory, root)
+        # -- 13. the stacked dense_scan layout, the assistant, faults -----
+        dense_phase(torch, smi, release_memory)
+        assist_chaos_phase(torch, smi, release_memory, auth_rounds)
 
-    import tempfile
-    with tempfile.TemporaryDirectory(dir=os.path.join(root, "build")) as refs:
-        # -- 15. the sharded mesh: long context, ring, fsdp x tp, Ulysses --
-        mesh_phase(torch, smi, release_memory, cuda_ms, root, refs)
-
-        # -- 16. PowerSGD on a sharded peer, the untied head on a mesh ----
-        sharded_powersgd_phase(torch, smi, release_memory, root)
-        untied_phase(torch, smi, release_memory, root, refs=refs)
-
-        # -- 17. sp as a replica axis, XL's heads split by tp=8 -----------
-        undivided_phase(torch, smi, release_memory, root, refs)
+        # -- 14a-c. save_ctx on XL, offload, the XL CLI -------------------
+        xl_phase(torch, smi, release_memory)
+        offload_phase(torch, smi, release_memory)
+        xl_cli_phase(torch, smi, release_memory, root)
+    except BaseException:
+        stop_multiprocess(second)
+        raise
+    # -- 14d, 15b-e, 16, 17: the slice, the meshes, the dry run -----------
+    rc = stop_multiprocess(second, MULTIPROCESS_DEADLINE_S)
+    if rc != 0:
+        raise AssertionError(
+            "phases 14d-17 (the second process): " +
+            (f"still running {MULTIPROCESS_DEADLINE_S} s after the start"
+             if rc is None else f"exit code {rc}"))
 
     # -- 18. kernels line and the end ------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -17,8 +17,9 @@ On the card every call takes one of two routes, picked by
 :func:`geglu_route` from the operands' dtype and widths before any launch:
 the fast kernels above (bf16, d and K multiples of 64) or the generic
 instances of ``csrc/geglu_generic.cu`` (bf16 or f32, d and K multiples of
-8: one SIMT tiled-GEMM template with the gate, output and backward
-epilogues). Anything outside both raises.
+8: one ``mma.sync`` tensor-core GEMM template with the gate, output and
+backward epilogues; f32 products in three TF32 passes on the hi/lo split
+of each operand, :func:`split_tf32`). Anything outside both raises.
 
 Both fast sources are persistent, warp-specialised Hopper GEMMs built from
 ``csrc/gemm_sm90.cuh``: TMA loads into a shared-memory ring, ``wgmma``
@@ -82,6 +83,25 @@ def geglu_ff_bwd_plain(x, wi, wg, wo, bi, bg, dout):
     dh = (dhg * a).to(x.dtype)
     dg = (dhg * h * gelu_tanh_grad(g)).to(x.dtype)
     return torch.cat([dh, dg], dim=1), (h * a).to(x.dtype)
+
+
+def split_tf32(x: torch.Tensor):
+    """The 3xTF32 split of an f32 tensor, as ``csrc/geglu_generic.cu`` makes
+    it in registers: ``hi`` is ``x`` rounded to TF32 (10 mantissa bits: the
+    low 13 bits of the f32 pattern zero) to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds, and ``lo`` is ``x - hi`` (exact in
+    f32) truncated to TF32, so that ``a.b ~ a_lo.b_hi + a_hi.b_lo +
+    a_hi.b_hi``. Finite inputs only. The tests use it to hold that
+    arithmetic on the CPU; nothing on the model's path calls it."""
+    def to_int32(bits):   # the low 32 bits of a non-negative int64
+        return (bits - (bits >= 1 << 31).to(torch.int64) * (1 << 32)).to(
+            torch.int32).view(torch.float32)
+
+    def bits64(t):
+        return t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+    hi = to_int32((bits64(x.float()) + 0x1000) & 0xFFFFE000)
+    return hi, to_int32(bits64(x.float() - hi) & 0xFFFFE000)
 
 
 FAST_ALIGN = 64     # d and K of the fast kernels: multiples of this
@@ -168,11 +188,11 @@ def _check_operands(what: str, x, shapes) -> str:
     for name, (t, shape) in shapes.items():
         if (tuple(t.shape) != shape or t.dtype != x.dtype
                 or t.device != x.device or not t.is_contiguous()
-                or (route == "fast" and t.data_ptr() % 16)):
-            raise ValueError(f"{what}: {name} must be a contiguous "
-                             f"{'16-byte aligned ' if route == 'fast' else ''}"
-                             f"{x.dtype} {shape} tensor on {x.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+                or t.data_ptr() % 16):
+            raise ValueError(f"{what}: {name} must be a contiguous 16-byte "
+                             f"aligned {x.dtype} {shape} tensor on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
     return route
 
 

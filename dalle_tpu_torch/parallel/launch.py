@@ -10,6 +10,12 @@ reads back. Every process gets ``timeout`` seconds: one that fails, or
 outlives it, fails the call loudly (``RuntimeError`` with each process's
 last output), and every process is stopped.
 
+Groups started by different processes of one machine (the workers of a
+parallel test run, say) run one after another: :func:`group_lock`, an
+advisory ``fcntl.flock`` on a file in ``tempfile.gettempdir()``, is held
+for the life of each group, and a group's ``timeout`` starts once it holds
+the lock.
+
 Run as a module it is the child: ``python -m
 dalle_tpu_torch.parallel.launch TARGET RANK WORLD PORT ARGS_JSON OUT``,
 ``TARGET`` as ``package.module:function`` or ``path/to/file.py:function``.
@@ -17,7 +23,9 @@ dalle_tpu_torch.parallel.launch TARGET RANK WORLD PORT ARGS_JSON OUT``,
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import fcntl
 import importlib
 import importlib.util
 import json
@@ -56,13 +64,37 @@ def resolve(target: str) -> Callable:
 
 #: torch's intra-op threads in each process (several share one machine)
 THREADS = 2
+#: the lock file of :func:`group_lock`, in the temporary directory
+LOCK_NAME = "dalle_tpu_torch_process_groups.lock"
+
+
+@contextlib.contextmanager
+def group_lock():
+    """Holds the machine-wide lock of process groups while the block runs
+    (waiting for it first): an exclusive ``fcntl.flock`` on ``LOCK_NAME``
+    in ``tempfile.gettempdir()``, released when the block ends or the
+    process dies. Not re-entrant: a process that holds it starts no group
+    that takes it again."""
+    with open(os.path.join(tempfile.gettempdir(), LOCK_NAME), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def spawn(target: str, n: int, args: Optional[Dict] = None,
           timeout: float = 120.0) -> List[Dict]:
     """``target(rank, n, args)`` in ``n`` processes of one ``gloo`` group;
     the list of what each returned, by rank (its stdout under
-    ``"stdout"``). ``args`` must be JSON."""
+    ``"stdout"``). ``args`` must be JSON. The group runs under
+    :func:`group_lock`."""
+    with group_lock():
+        return _spawn(target, n, args, timeout)
+
+
+def _spawn(target: str, n: int, args: Optional[Dict],
+           timeout: float) -> List[Dict]:
     port = free_port()
     child_env = dict(os.environ)
     child_env["PYTHONPATH"] = os.pathsep.join(

@@ -19,7 +19,9 @@ quantizers' codes and scales must equal their plain versions' exactly.
 The generic attention and GEGLU instances (the route of f32 operands and of
 head dims and widths the fast kernels do not take) are held to the same
 bf16 tolerances, and in f32 to 1e-5 (the same f32 math summed in another
-order; f32 products on the card run in full f32, TF32 off). The tiny
+order: the plain version's products run in full f32 on cuBLAS, TF32 off,
+the kernels' in three TF32 passes on the hi/lo split of each operand,
+which keeps f32's accuracy). The tiny
 model's forward and one ``grad_step`` on the card, all through those
 instances, are held against the same parameters on the CPU (plain
 versions) at 2e-4, the tolerance the CPU tests hold the port to JAX with.
@@ -476,10 +478,17 @@ def test_cuda_attention_generic_kernels(cuda_device, dtype, head_dim, kind):
 
 
 # widths the fast kernels take in f32 only through the generic route, and
-# multiples of 8 that are not of 64 (a ragged M too)
+# multiples of 8 that are not of 64 (a ragged M too); then shapes that leave
+# a ragged edge of the generic tiles (forward 128 x 128 in bf16 and 128 x 64
+# in f32, backward 128 x 64; stages 64 deep in bf16, 32 in f32) on every
+# axis, K not a multiple of the tile (the output GEMM reads hg's padded
+# columns as zeros), and the flagship's widths in f32
 GENERIC_GEGLU = [(torch.float32, 320, 256, 1024), (torch.float32, 64, 64, 256),
                  (torch.float32, 200, 72, 136), (torch.bfloat16, 200, 72, 136),
-                 (torch.bfloat16, 1, 8, 16), (torch.float32, 1000, 1024, 4096)]
+                 (torch.bfloat16, 1, 8, 16), (torch.float32, 1000, 1024, 4096),
+                 (torch.float32, 130, 136, 264),
+                 (torch.bfloat16, 129, 1000, 4000),
+                 (torch.float32, 5120, 1024, 4096)]
 
 
 @pytest.mark.cuda

@@ -5,8 +5,11 @@ tests/test_multihost.py.
 
 The children are real processes joined in a ``gloo`` ``torch.distributed``
 group on a free loopback port, each with its own timeout (well under a
-minute). The slice's processes must end bitwise equal; a slice and a
-one-process peer that averaged in one round must end bitwise equal too.
+minute), started under ``parallel/launch.group_lock`` as the mesh tests'
+groups are (groups of parallel test workers run one after another; the
+timeout starts once the lock is held). The slice's processes must end
+bitwise equal; a slice and a one-process peer that averaged in one round
+must end bitwise equal too.
 The dp=2 gradient is held to the one-process gradient of the whole batch
 and to the JAX package's ``make_grad_step`` on a dp=2 CPU mesh at f32
 tolerance: each leaf within 1e-5 of its largest magnitude (the two
@@ -25,6 +28,8 @@ import jax
 import numpy as np
 import pytest
 import torch
+
+from dalle_tpu_torch.parallel.launch import group_lock
 
 REPO = Path(__file__).resolve().parent.parent
 CHILD_TIMEOUT = 50
@@ -214,8 +219,13 @@ def _env():
 
 
 def _run(children):
-    """Start every ``(script, args)`` child; each must exit 0 within
-    ``CHILD_TIMEOUT`` and print one JSON line."""
+    """Start every ``(script, args)`` child under the process groups' lock;
+    each must exit 0 within ``CHILD_TIMEOUT`` and print one JSON line."""
+    with group_lock():
+        return _run_locked(children)
+
+
+def _run_locked(children):
     procs = [subprocess.Popen([sys.executable, "-c", script, *map(str, args)],
                               env=_env(), cwd=REPO, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
