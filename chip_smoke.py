@@ -96,16 +96,16 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    (dtype x head_dim) against its plain version, forward and backward twice
    bitwise, then each of the six generic wrappers timed at the flagship's
    widths in f32 (``flagship_model_config(dtype="float32")``'s shapes) with
-   bound and library yardstick (the GEGLU pair also beside the bound of
-   three TF32 passes, ``bound_ms_3xtf32``, and with each instance's
-   registers and spills); the generic GEGLU entry points in bf16 at M =
-   5120, d = 1000, K = 4000 (widths only they take) and at the flagship's
-   (beside this run's fast kernels), each against its plain version twice
-   bitwise and timed beside cuBLAS's two products; the GEGLU instances in
-   bf16 at widths that are multiples of 8 only; then the tiny model
-   (``tiny_model_config`` with every attention type, fused LayerNorm and
-   GEGLU, f32, head_dim 16) through its forward and one ``grad_step`` on
-   the card against the same weights on the CPU (loss, logits, every
+   bound and library yardstick (the GEGLU pair and the window pair also
+   beside the bound of three TF32 passes, ``bound_ms_3xtf32``, and with
+   each instance's registers and spills); the generic GEGLU entry points in
+   bf16 at M = 5120, d = 1000, K = 4000 (widths only they take) and at the
+   flagship's (beside this run's fast kernels), each against its plain
+   version twice bitwise and timed beside cuBLAS's two products; the GEGLU
+   instances in bf16 at widths that are multiples of 8 only; then the tiny
+   model (``tiny_model_config`` with every attention type, fused LayerNorm
+   and GEGLU, f32, head_dim 16) through its forward and one ``grad_step``
+   on the card against the same weights on the CPU (loss, logits, every
    gradient within ``TINY_TOL``), counting the generic launches of that
    run; and (e) ``flagship_model_config(dtype="float32")`` at full width
    cut to ``MESH_DEPTH`` layers, micro-batch 1, the same on the card and on
@@ -3884,6 +3884,8 @@ def main() -> int:
                                      reset_launches)
     from dalle_tpu_torch.ops.attention import (BWD_PASSES,
                                                GENERIC_HEAD_DIMS,
+                                               POLICY_CONV,
+                                               WINDOW_GENERIC_PASSES,
                                                attention_route,
                                                kernel_resources,
                                                line_attention,
@@ -3893,7 +3895,8 @@ def main() -> int:
                                                window_attention,
                                                window_attention_bwd,
                                                window_attention_bwd_plain,
-                                               window_attention_plain)
+                                               window_attention_plain,
+                                               window_generic_kernel)
     from dalle_tpu_torch.ops import geglu as geglu_module
     from dalle_tpu_torch.ops.geglu import (geglu_ff, geglu_ff_bwd,
                                            geglu_ff_bwd_plain, geglu_ff_plain)
@@ -4529,6 +4532,7 @@ def main() -> int:
         f32 = torch.float32
         tolerance = {f32: F32_TOL, bf: BF16_TOL}
         attn_src = "dalle_tpu_torch/csrc/attention_generic.cu"
+        win_src = "dalle_tpu_torch/csrc/attention_window_generic.cuh"
         ff_src = "dalle_tpu_torch/csrc/geglu_generic.cu"
 
         def rand(dtype, *shape, scale=1.0):
@@ -4575,10 +4579,19 @@ def main() -> int:
                              if a is not None]
                 instances.append(dict(dtype=str(dtype), head_dim=hd,
                                       max_abs_err=max(errs)))
+        # the window kernels of every instance: registers and local bytes
+        # from the runtime, spill stores from ptxas (when this run built it)
+        win_kernels = {
+            key: [res["registers"], res["local_bytes"],
+                  ptxas.get(key, {}).get("spill_stores")]
+            for key, res in resources.items() if key.startswith("attn_win_")}
         emit(phase="generic_attention_instances", instances=instances,
              shape=f"B={bq}, H={hq}, text {tq}, grid {gq}; text call, "
                    "axial_col call with the text prefix, conv_like hw=1 "
-                   "call with the text prefix; backward twice, bitwise")
+                   "call with the text prefix; backward twice, bitwise",
+             window_kernels=win_kernels,
+             window_kernels_fields=["registers", "local_bytes",
+                                    "spill_stores"])
 
         # (b) the six wrappers at the flagship's widths in f32, timed
         recs = {}
@@ -4594,9 +4607,9 @@ def main() -> int:
                                   + 2 * B * H * s * Dh * 4 + B * H * t * 4)
 
         def fwd_record(name, replaces, fn, plain, lib, nbytes, pairs_,
-                       errs, shape):
+                       errs, shape, source=attn_src):
             bms, by = bound(nbytes, 4 * Dh * B * H * pairs_, F32_FLOP_PER_S)
-            return dict(name=name, route="cuda", source=attn_src,
+            return dict(name=name, route="cuda", source=source,
                         replaces=replaces, max_abs_err=max(errs),
                         tolerance=f"rtol=atol={F32_TOL} (f32 out), "
                                   f"{LSE_TOL} (f32 lse)",
@@ -4627,7 +4640,8 @@ def main() -> int:
             "dalle_tpu/ops/pallas/attention_kernels.py:518", window_call,
             lambda *a: window_call(*a, fn=window_attention_plain),
             sdpa_window, fwd_bytes(G * G, TT), win_pairs, errs,
-            f"conv_like hw={hw}, image queries, " + shape_f32)
+            f"conv_like hw={hw}, image queries, " + shape_f32,
+            source=win_src)
 
         bsets = [(q, k, v, do, line_fwd(q, k, v, False))
                  for q, k, v, do in sets]
@@ -4656,7 +4670,7 @@ def main() -> int:
         lib_sets = [sdpa_graph(*st[:4], conv_rows, image_queries=True)
                     for st in bsets]
         recs["window_attention_bwd_generic"] = backward_record(
-            "window_attention_bwd_generic", "cuda", attn_src,
+            "window_attention_bwd_generic", "cuda", win_src,
             "dalle_tpu/ops/pallas/attention_kernels.py:548", win_bwd,
             lambda *a: win_bwd(*a, fn=window_attention_bwd_plain), bsets,
             autograd_retained, lib_sets,
@@ -4721,6 +4735,19 @@ def main() -> int:
                 * 1e3
             rec["ms_vs_cublas"] = rec["ms"] / rec["cublas_ms"]
             rec["resources"] = {n: ptxas.get(n, {}) for n in instances}
+        # the same for the window pair (f32 at head_dim 64, conv_like)
+        for name, flops, passes in (
+                ("window_attention_generic", 4 * Dh * B * H * win_pairs,
+                 WINDOW_GENERIC_PASSES[:1]),
+                ("window_attention_bwd_generic", 10 * Dh * B * H * win_pairs,
+                 WINDOW_GENERIC_PASSES[1:])):
+            rec = recs[name]
+            rec["bound_ms_3xtf32"] = flops / (TF32_FLOP_PER_S / 3) * 1e3
+            rec["ms_vs_library"] = rec["ms"] / rec["library_ms"]
+            keys = [window_generic_kernel(f32, Dh, POLICY_CONV, p)
+                    for p in passes]
+            rec["resources"] = {n: resources[n] | ptxas.get(n, {})
+                                for n in keys}
         for rec in recs.values():
             rec["tf32"] = torch.backends.cuda.matmul.allow_tf32
             emit(phase="kernel_check", **rec)

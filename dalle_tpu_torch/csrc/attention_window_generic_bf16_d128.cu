@@ -1,0 +1,8 @@
+// The generic window attention kernels (attention_window_generic.cuh) for
+// bf16 at head_dim 128: one source a (dtype, head_dim) instance, so that the
+// build's parallel nvcc calls share the kernel bodies.
+
+#include "attention_window_generic.cuh"
+
+WIN_INSTANCE(bf16, 128, bf16_d128)
+WIN_ENTRY_POINTS(bf16, 128)

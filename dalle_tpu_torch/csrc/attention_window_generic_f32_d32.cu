@@ -1,0 +1,8 @@
+// The generic window attention kernels (attention_window_generic.cuh) for
+// f32 at head_dim 32: one source a (dtype, head_dim) instance, so that the
+// build's parallel nvcc calls share the kernel bodies.
+
+#include "attention_window_generic.cuh"
+
+WIN_INSTANCE(float, 32, f32_d32)
+WIN_ENTRY_POINTS(float, 32)

@@ -69,7 +69,9 @@
 #include <math.h>
 #include <type_traits>
 
-typedef __nv_bfloat16 bf16;
+#include "mma_sync.cuh"
+
+using namespace tc;  // conversions, cp.async, ldmatrix, mma.sync, split
 
 namespace {
 
@@ -81,20 +83,6 @@ constexpr float GELU_3C = (float)(3.0 * 0.044715);
 
 enum { DTYPE_F32 = 0, DTYPE_BF16 = 1 };  // mirrored by ops/geglu.py
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 __device__ __forceinline__ float gelu_tanh(float g) {
   const float u = SQRT_2_OVER_PI * (g + GELU_C * g * g * g);
   return 0.5f * g * (1.0f + tanhf(u));
@@ -105,75 +93,6 @@ __device__ __forceinline__ float gelu_tanh_grad(float g) {
   const float t = tanhf(u);
   const float du = SQRT_2_OVER_PI * (1.0f + GELU_3C * g * g);
   return 0.5f * (1.0f + t) + 0.5f * g * (1.0f - t * t) * du;
-}
-
-// ---------------------------------------------------------------------------
-// PTX
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared; zeros when !valid (source size 0 reads
-// nothing, so gmem only has to be a valid pointer).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The 3xTF32 split of the f32 whose bits are `raw`: hi = a rounded to TF32
-// (nearest, ties away from zero: what cvt.rna.tf32.f32 gives for finite a,
-// in two integer operations), and lo = a - hi (exact) cut to TF32 by
-// truncation (its low 13 bits zeroed).
-__device__ __forceinline__ void split_tf32(uint32_t raw, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (raw + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(__uint_as_float(raw) - __uint_as_float(hi)) &
-       0xFFFFE000u;
 }
 
 // ---------------------------------------------------------------------------

@@ -20,9 +20,11 @@ Replaces the TPU kernels of ``dalle_tpu/ops/pallas/attention_kernels.py``:
 On the card every call takes one of two routes, picked by
 :func:`attention_route` from q's dtype and head_dim before any launch: the
 fast kernels (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``: bf16
-with head_dim 64, the flagship's) or the generic instances
-(``csrc/attention_generic.cu``: bf16 or f32 with head_dim 16, 32, 64 or
-128, as the TPU kernels take any). Anything outside both raises.
+with head_dim 64, the flagship's) or the generic instances (bf16 or f32
+with head_dim 16, 32, 64 or 128, as the TPU kernels take any): the window
+calls on the tensor cores (``csrc/attention_window_generic.cuh``, f32 as
+3xTF32), the line calls in ``csrc/attention_generic.cu`` (SIMT). Anything
+outside both raises.
 
 The forwards return ``(out, lse)``: ``out`` (B, H, T, d) in q's dtype and
 the row logsumexp ``lse`` (B, H, 1, T) f32 in raster token order (for
@@ -63,17 +65,19 @@ from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, _build
 NEG_INF = -1e9
 POLICY_LINE, POLICY_CONV, POLICY_FULL = 0, 1, 2
 FAST_HEAD_DIM = 64                     # the fast kernels' compiled head dim
-GENERIC_HEAD_DIMS = (16, 32, 64, 128)  # csrc/attention_generic.cu's instances
-# operand dtypes of the generic instances (DTYPE_* of attention_generic.cu)
+GENERIC_HEAD_DIMS = (16, 32, 64, 128)  # the generic instances' head dims
+# operand dtypes of the generic instances (DTYPE_* of attention_generic.cu
+# and attention_window_generic.cuh)
 GENERIC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def attention_route(dtype: torch.dtype, head_dim: int) -> str:
     """The route of CUDA operands of ``dtype`` and ``head_dim``: ``"fast"``
     (``csrc/attention_fwd.cu``/``attention_bwd.cu``: bf16 with head_dim
-    64) or ``"generic"`` (``csrc/attention_generic.cu``: bf16 or f32 with
-    head_dim 16, 32, 64 or 128). Raises ``ValueError`` naming the missing
-    instance for anything else."""
+    64) or ``"generic"`` (bf16 or f32 with head_dim 16, 32, 64 or 128:
+    ``csrc/attention_window_generic.cuh`` for the window calls,
+    ``csrc/attention_generic.cu`` for the line calls). Raises
+    ``ValueError`` naming the missing instance for anything else."""
     if dtype == torch.bfloat16 and head_dim == FAST_HEAD_DIM:
         return "fast"
     if dtype in GENERIC_DTYPES and head_dim in GENERIC_HEAD_DIMS:
@@ -281,6 +285,33 @@ _SIGNATURES = {
         "attention_generic_bwd": [ctypes.POINTER(_AttnBwdArgs), _I, _I, _P]},
 }
 
+# csrc/attention_window_generic.cuh's entry points, which each of its
+# sources exports (one library a (dtype, head_dim) instance)
+_WINDOW_GENERIC = "attention_window_generic"
+_DTYPE_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def window_generic_library(dtype: torch.dtype, head_dim: int) -> str:
+    """The library (``csrc/<name>.cu``) of the generic window instance of
+    ``dtype`` and ``head_dim``."""
+    return f"{_WINDOW_GENERIC}_{_DTYPE_TAGS[dtype]}_d{head_dim}"
+
+
+def window_generic_instances():
+    """The ``(dtype, head_dim)`` pairs of the generic window kernels: every
+    generic one (bf16 at head_dim 64 takes the fast kernels)."""
+    return [(dt, hd) for dt in GENERIC_DTYPES for hd in GENERIC_HEAD_DIMS
+            if attention_route(dt, hd) == "generic"]
+
+
+for _dtype, _hd in window_generic_instances():
+    _SIGNATURES[window_generic_library(_dtype, _hd)] = {
+        f"{_WINDOW_GENERIC}_fwd": [ctypes.POINTER(_AttnArgs), _I, _I, _I,
+                                   _P],
+        f"{_WINDOW_GENERIC}_bwd": [ctypes.POINTER(_AttnBwdArgs), _I, _I, _I,
+                                   _P],
+        f"{_WINDOW_GENERIC}_resources": [_I, _I, _I, _I, _IP]}
+
 
 def _lib(name: str):
     lib = _build.load(name)
@@ -288,7 +319,8 @@ def _lib(name: str):
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = _I
-        err = getattr(lib, f"{name}_error")
+        err = getattr(lib, f"{_WINDOW_GENERIC}_error"
+                      if name.startswith(_WINDOW_GENERIC) else f"{name}_error")
         err.argtypes = [_I]
         err.restype = ctypes.c_char_p
         lib._typed = True
@@ -297,43 +329,75 @@ def _lib(name: str):
 
 BWD_PASSES = ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
               "attn_bwd_dkdv_prefix_kernel")
+# the passes of csrc/attention_window_generic.cuh, in its pass numbering
+WINDOW_GENERIC_PASSES = ("fwd", "dq", "dkdv", "dkdv_prefix")
+
+
+def window_generic_kernel(dtype: torch.dtype, head_dim: int, policy: int,
+                          kernel_pass: str) -> str:
+    """The name of a ``csrc/attention_window_generic.cuh`` kernel, as ptxas
+    and the profiler show it: ``attn_win_dq_f32_d64_conv``."""
+    pol = {POLICY_CONV: "conv", POLICY_FULL: "full"}[policy]
+    return f"attn_win_{kernel_pass}_{_DTYPE_TAGS[dtype]}_d{head_dim}_{pol}"
 
 
 def kernel_resources() -> dict:
     """Registers, static and dynamic shared memory (bytes a block) and local
     (spill) bytes a thread of every fast attention kernel instance, keyed
-    like ``attn_fwd_kernel<0>`` (the template's policy number), as the CUDA
-    runtime reports them. Builds and loads both libraries; needs a GPU."""
+    like ``attn_fwd_kernel<0>`` (the template's policy number), and of every
+    kernel of ``csrc/attention_window_generic.cuh``, keyed by its name
+    (:func:`window_generic_kernel`), as the CUDA runtime reports them.
+    Builds and loads the libraries; needs a GPU."""
     keys = ("registers", "smem_static", "smem_dynamic", "local_bytes")
     fwd = _lib("attention_fwd").attention_fwd_resources
     bwd = _lib("attention_bwd").attention_bwd_resources
-    out = {}
+    calls = []
     for policy in (POLICY_LINE, POLICY_CONV, POLICY_FULL):
-        calls = [("attn_fwd_kernel", lambda buf: fwd(policy, buf))] + [
-            (name, lambda buf, i=i: bwd(policy, i, buf))
+        calls += [(f"attn_fwd_kernel<{policy}>",
+                   lambda buf, p=policy: fwd(p, buf))] + [
+            (f"{name}<{policy}>", lambda buf, p=policy, i=i: bwd(p, i, buf))
             for i, name in enumerate(BWD_PASSES)]
-        for name, call in calls:
-            buf = (ctypes.c_int * 4)()
-            if call(buf) != 0:
-                raise RuntimeError(f"{name}<{policy}>: cudaFuncGetAttributes "
-                                   "failed")
-            out[f"{name}<{policy}>"] = dict(zip(keys, buf))
+    for dtype, hd in window_generic_instances():
+        win = _lib(window_generic_library(dtype, hd))
+        for policy in (POLICY_CONV, POLICY_FULL):
+            calls += [(window_generic_kernel(dtype, hd, policy, name),
+                       lambda buf, f=win.attention_window_generic_resources,
+                       c=GENERIC_DTYPES[dtype], hd=hd, p=policy, i=i:
+                       f(c, hd, p, i, buf))
+                      for i, name in enumerate(WINDOW_GENERIC_PASSES)]
+    out = {}
+    for name, call in calls:
+        buf = (ctypes.c_int * 4)()
+        if call(buf) != 0:
+            raise RuntimeError(f"{name}: cudaFuncGetAttributes failed")
+        out[name] = dict(zip(keys, buf))
     return out
 
 
-def _run(direction: str, route: str, args, q, counter: str) -> None:
+def _run(direction: str, route: str, args, q, counter: str,
+         operands) -> None:
     """Launches the ``direction`` ("fwd" or "bwd") entry point of ``route``
-    on the current stream, raises if the launch failed, and counts it."""
+    on the current stream, raises if the launch failed, and counts it. A
+    generic window call launches its instance's library
+    (:func:`window_generic_library`), a generic line call
+    ``attention_generic``; ``operands`` are the tensors whose rows the
+    window kernels copy (their alignment picks the copy width)."""
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if route == "fast":
         name = f"attention_{direction}"
         lib = _lib(name)
         err = getattr(lib, name)(ctypes.byref(args), stream)
-    else:
+    elif args.policy == POLICY_LINE:
         name = "attention_generic"
         lib = _lib(name)
         err = getattr(lib, f"{name}_{direction}")(
             ctypes.byref(args), GENERIC_DTYPES[q.dtype], q.shape[-1], stream)
+    else:
+        name = _WINDOW_GENERIC
+        lib = _lib(window_generic_library(q.dtype, q.shape[-1]))
+        err = getattr(lib, f"{name}_{direction}")(
+            ctypes.byref(args), GENERIC_DTYPES[q.dtype], q.shape[-1],
+            _copy_bytes(operands), stream)
     if err != 0:
         msg = getattr(lib, f"{name}_error")(err).decode()
         raise RuntimeError(f"{counter}: launch failed: {msg}")
@@ -347,6 +411,21 @@ def _kernel_ready(x: torch.Tensor) -> bool:
     (16-byte rows; the generic ones take any with unit stride along d)."""
     return (x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0)
+
+
+def _copy_bytes(operands) -> int:
+    """The widest copy (16, 8, 4 or 2 bytes) that every row of every
+    operand starts on: the generic window kernels copy rows that do not
+    start on 16 bytes in narrower pieces."""
+    width = 16
+    for x in operands:
+        if x is None:
+            continue
+        size = x.element_size()
+        for v in (x.data_ptr(), *(s * size for s in x.stride()[:3])):
+            while v % width:
+                width //= 2
+    return width
 
 
 def _check_operand(name: str, x: torch.Tensor, shape, like: torch.Tensor,
@@ -411,7 +490,7 @@ def _launch(counter: str, q, k, v, kp, vp, policy: int, n: int, grid: int,
         kp_s=_strides(kp), vp_s=_strides(vp), o_s=_strides(out), B=b, H=h,
         T=t, S=s, policy=policy, n=n, grid=grid, hw=hw,
         transpose=int(transpose), scale=d ** -0.5)
-    _run("fwd", route, args, q, counter)
+    _run("fwd", route, args, q, counter, (q, k, v, kp, vp))
     return out, lse
 
 
@@ -441,7 +520,7 @@ def _launch_bwd(counter: str, q, k, v, kp, vp, out, lse, dout, policy: int,
         dv_s=_strides(dv), dkp_s=_strides(dkp), dvp_s=_strides(dvp),
         B=b, H=h, T=t, S=s, policy=policy, n=n, grid=grid, hw=hw,
         transpose=int(transpose), scale=d ** -0.5)
-    _run("bwd", route, args, q, counter)
+    _run("bwd", route, args, q, counter, (q, k, v, kp, vp, out, dout))
     return dq, dk, dv, dkp, dvp
 
 

@@ -2,6 +2,8 @@
 given checkout.
 
     python3 dalle_tpu_torch/time_attention.py [--tree DIR] [--label NAME]
+        [--route fast|generic] [--dtype float32|bfloat16]
+        [--head-dim 16|32|64|128]
 
 ``dalle_tpu_torch`` is imported from ``DIR`` (by default the checkout this
 file is in), so that two versions of the kernels are timed one after the
@@ -17,6 +19,14 @@ axial_row and axial_col, the conv_like window forward, and the same three
 backwards, at B=4, 16 heads of 64, text 256 + a 32x32 grid; q, k, v and dO
 are strided (B, T, H, d) views, as the model makes them. Needs a GPU; exits
 2 without one.
+
+``--route generic`` times the generic instances instead, in ``--dtype``
+(float32 by default) at ``--head-dim`` (64 by default) with the
+flagship's width (1024 / head_dim heads): the conv_like window forward
+and backward (``csrc/attention_window_generic.cuh`` since it was
+written, ``csrc/attention_generic.cu`` before) and one axial_row layer's line
+forward and backward (``csrc/attention_generic.cu``), through the same
+four wrappers. bf16 at head_dim 64 is the fast route's and is refused.
 """
 
 from __future__ import annotations
@@ -39,7 +49,17 @@ def main() -> int:
                         help="checkout whose dalle_tpu_torch is timed")
     parser.add_argument("--label", default=None,
                         help="a name for the tree in the printed line")
+    parser.add_argument("--route", choices=("fast", "generic"),
+                        default="fast")
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"),
+                        default="float32",
+                        help="operand dtype of --route generic")
+    parser.add_argument("--head-dim", type=int, choices=(16, 32, 64, 128),
+                        default=64, help="head dim of --route generic")
     args = parser.parse_args()
+    if (args.route == "generic" and args.dtype == "bfloat16"
+            and args.head_dim == 64):
+        parser.error("bfloat16 at head_dim 64 takes the fast route")
     tree = Path(args.tree or Path(__file__).resolve().parents[1]).resolve()
     # the script's own directory goes: the package comes from the tree
     sys.path[0] = str(tree)
@@ -60,7 +80,11 @@ def main() -> int:
     if Path(dalle_tpu_torch.__file__).resolve().parents[1] != tree:
         raise RuntimeError(f"dalle_tpu_torch imported from "
                            f"{dalle_tpu_torch.__file__}, not from {tree}")
-    _build.build_all(["attention_fwd", "attention_bwd"])
+    _build.build_all(["attention_fwd", "attention_bwd"]
+                     if args.route == "fast" else
+                     [n for n in _build.sources()
+                      if n == "attention_generic"
+                      or n.startswith("attention_window_generic")])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -69,11 +93,15 @@ def main() -> int:
     cfg = flagship_model_config()
     h, dh, tt, g = cfg.heads, cfg.head_dim, cfg.text_seq_len, cfg.image_grid
     hw = cfg.conv_kernel // 2
+    dtype = torch.bfloat16
+    if args.route == "generic":
+        dtype, dh = getattr(torch, args.dtype), args.head_dim
+        h = cfg.dim // dh
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def view():
         return torch.randn((BATCH, tt + g * g, h, dh), generator=gen,
-                           device=dev).to(torch.bfloat16).transpose(1, 2)
+                           device=dev).to(dtype).transpose(1, 2)
 
     def split(x):
         return x[:, :, :tt], x[:, :, tt:]
@@ -122,7 +150,9 @@ def main() -> int:
 
     sets = [tuple(view() for _ in range(4)) for _ in range(SETS)]
     out = {"tree": args.label or str(tree), "card": smi}
-    for col in (False, True):
+    if args.route == "generic":
+        out.update(route="generic", dtype=args.dtype, head_dim=dh, heads=h)
+    for col in ((False, True) if args.route == "fast" else (False,)):
         name = "axial_col" if col else "axial_row"
         out[f"line_fwd_{name}_us"] = device_us(
             lambda q, k, v, do: line_fwd(q, k, v, col), sets)

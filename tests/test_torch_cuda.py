@@ -36,14 +36,18 @@ import torch
 from dalle_tpu_torch.config import tiny_model_config
 from dalle_tpu_torch.models.dalle import init_params
 from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, reset_launches
-from dalle_tpu_torch.ops.attention import (attention_route, line_attention,
+from dalle_tpu_torch.ops.attention import (POLICY_CONV, POLICY_FULL,
+                                           WINDOW_GENERIC_PASSES,
+                                           attention_route, kernel_resources,
+                                           line_attention,
                                            line_attention_bwd,
                                            line_attention_bwd_plain,
                                            line_attention_plain,
                                            window_attention,
                                            window_attention_bwd,
                                            window_attention_bwd_plain,
-                                           window_attention_plain)
+                                           window_attention_plain,
+                                           window_generic_kernel)
 from dalle_tpu_torch.ops.geglu import (geglu_ff, geglu_ff_bwd,
                                        geglu_ff_bwd_plain, geglu_ff_plain,
                                        geglu_route)
@@ -475,6 +479,84 @@ def test_cuda_attention_generic_kernels(cuda_device, dtype, head_dim, kind):
             assert a.shape == w.shape and a.dtype == dtype, grad
             torch.testing.assert_close(a.float(), w.float(), msg=grad,
                                        **TOL[dtype])
+
+
+def _window_generic_check(dtype, head_dim, grid, hw, q, k, v, kp, vp, dout):
+    """The generic window kernels against the plain versions: forward,
+    then the backward twice (bitwise equal), one launch each counted."""
+    reset_launches()
+    out, lse = window_attention(q, k, v, kp, vp, grid, hw)
+    out_p, lse_p = window_attention_plain(q, k, v, kp, vp, grid, hw)
+    torch.testing.assert_close(out.float(), out_p.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, lse_p, **F32)
+    got = _same_twice(window_attention_bwd, q, k, v, kp, vp, out, lse, dout,
+                      grid, hw)
+    assert GENERIC_LAUNCHES["window_attention"] == \
+        LAUNCHES["window_attention"] == 1
+    assert GENERIC_LAUNCHES["window_attention_bwd"] == \
+        LAUNCHES["window_attention_bwd"] == 2
+    want = window_attention_bwd_plain(q, k, v, kp, vp, out, lse, dout, grid,
+                                      hw)
+    for grad, a, w in zip(("dq", "dk", "dv", "dkp", "dvp"), got, want):
+        assert (a is None) == (w is None), grad
+        if a is not None:
+            assert a.shape == w.shape and a.dtype == dtype, grad
+            torch.testing.assert_close(a.float(), w.float(), msg=grad,
+                                       **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,head_dim", GENERIC_ATTENTION,
+                         ids=lambda v: str(v).replace("torch.", ""))
+@pytest.mark.parametrize("kind", ["conv_like", "conv_like_noprefix", "full"])
+def test_cuda_window_generic_kernels_cross_tiles(cuda_device, dtype,
+                                                  head_dim, kind):
+    """The window calls across tiles: a 16 x 16 grid (256 queries: four
+    64-row query tiles, several key tiles a row) after a 40-token prefix
+    (one whole and one ragged prefix tile; the prefix dk/dv's clusters
+    split the query tiles), strided (B, T, H, d) views."""
+    b, h, grid, text = 2, 3, 16, 40
+    t = grid * grid
+    q, k, v, dout = (_rand((b, t, h, head_dim), 90 + i, cuda_device, dtype)
+                     .transpose(1, 2) for i in range(4))
+    kp = vp = None
+    if kind != "conv_like_noprefix":
+        kp, vp = (_rand((b, text, h, head_dim), 95 + i, cuda_device, dtype)
+                  .transpose(1, 2) for i in range(2))
+    hw = None if kind == "full" else 2
+    _window_generic_check(dtype, head_dim, grid, hw, q, k, v, kp, vp, dout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,head_dim", [(torch.float32, 64),
+                                            (torch.bfloat16, 32)],
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_cuda_window_generic_kernels_unaligned(cuda_device, dtype, head_dim):
+    """Operands whose rows do not start on 16 bytes (a storage offset of
+    one element) take narrower copies inside the same kernels."""
+    b, h, grid, text = 2, 2, 8, 24
+    t = grid * grid
+
+    def shifted(rows, seed):
+        x = _rand((b * rows * h * head_dim + 1,), seed, cuda_device, dtype)
+        return x[1:].view(b, rows, h, head_dim).transpose(1, 2)
+
+    q, k, v, dout = (shifted(t, 100 + i) for i in range(4))
+    kp, vp = (shifted(text, 104 + i) for i in range(2))
+    assert q.data_ptr() % 16 != 0
+    _window_generic_check(dtype, head_dim, grid, 1, q, k, v, kp, vp, dout)
+
+
+@pytest.mark.cuda
+def test_cuda_window_generic_f32_d64_does_not_spill(cuda_device):
+    """The f32 head_dim 64 instance (the f32 flagship's) keeps its
+    accumulators in registers: no local memory in any of its kernels."""
+    res = kernel_resources()
+    for policy in (POLICY_CONV, POLICY_FULL):
+        for name in WINDOW_GENERIC_PASSES:
+            key = window_generic_kernel(torch.float32, 64, policy, name)
+            assert res[key]["local_bytes"] == 0, (key, res[key])
+            assert res[key]["registers"] <= 255, (key, res[key])
 
 
 # widths the fast kernels take in f32 only through the generic route, and
