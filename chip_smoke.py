@@ -96,9 +96,10 @@ nonzero exit and no ``ok`` line (there is no CPU fallback):
    (dtype x head_dim) against its plain version, forward and backward twice
    bitwise, then each of the six generic wrappers timed at the flagship's
    widths in f32 (``flagship_model_config(dtype="float32")``'s shapes) with
-   bound and library yardstick (the GEGLU pair and the window pair also
-   beside the bound of three TF32 passes, ``bound_ms_3xtf32``, and with
-   each instance's registers and spills); the generic GEGLU entry points in
+   bound and library yardstick (the GEGLU pair and the attention pairs,
+   line and window, also beside the bound of three TF32 passes,
+   ``bound_ms_3xtf32``, and with each instance's registers and spills; no
+   generic attention kernel may spill); the generic GEGLU entry points in
    bf16 at M = 5120, d = 1000, K = 4000 (widths only they take) and at the
    flagship's (beside this run's fast kernels), each against its plain
    version twice bitwise and timed beside cuBLAS's two products; the GEGLU
@@ -3884,7 +3885,7 @@ def main() -> int:
                                      reset_launches)
     from dalle_tpu_torch.ops.attention import (BWD_PASSES,
                                                GENERIC_HEAD_DIMS,
-                                               POLICY_CONV,
+                                               POLICY_CONV, POLICY_LINE,
                                                WINDOW_GENERIC_PASSES,
                                                attention_route,
                                                kernel_resources,
@@ -4531,16 +4532,16 @@ def main() -> int:
         against the CPU, whose generic launches the records report."""
         f32 = torch.float32
         tolerance = {f32: F32_TOL, bf: BF16_TOL}
-        attn_src = "dalle_tpu_torch/csrc/attention_generic.cu"
-        win_src = "dalle_tpu_torch/csrc/attention_window_generic.cuh"
+        attn_src = "dalle_tpu_torch/csrc/attention_window_generic.cuh"
         ff_src = "dalle_tpu_torch/csrc/geglu_generic.cu"
 
         def rand(dtype, *shape, scale=1.0):
             return (torch.randn(shape, generator=gen, device=dev)
                     * scale).to(dtype)
 
-        # (a) each (dtype, head_dim) instance: a text call, an axial_col
-        # call with a prefix and a conv window call, forward and backward
+        # (a) each (dtype, head_dim) instance: a text call, axial_row and
+        # axial_col calls with a prefix and a conv window call, forward and
+        # backward
         bq, hq, gq, tq = 2, 2, 8, 32
         instances = []
         for dtype in (f32, bf):
@@ -4555,6 +4556,9 @@ def main() -> int:
                     ("line text", line_attention, line_attention_bwd,
                      line_attention_plain, line_attention_bwd_plain,
                      (*t_ops[:3], None, None), t_ops[3], (tq, 0, False)),
+                    ("line axial_row", line_attention, line_attention_bwd,
+                     line_attention_plain, line_attention_bwd_plain,
+                     (*i_ops[:3], *t_ops[1:3]), i_ops[3], (gq, gq, False)),
                     ("line axial_col", line_attention, line_attention_bwd,
                      line_attention_plain, line_attention_bwd_plain,
                      (*i_ops[:3], *t_ops[1:3]), i_ops[3], (gq, gq, True)),
@@ -4579,19 +4583,26 @@ def main() -> int:
                              if a is not None]
                 instances.append(dict(dtype=str(dtype), head_dim=hd,
                                       max_abs_err=max(errs)))
-        # the window kernels of every instance: registers and local bytes
-        # from the runtime, spill stores from ptxas (when this run built it)
-        win_kernels = {
+        # the generic kernels of every instance and policy: registers and
+        # local bytes from the runtime, spill stores from ptxas (when this
+        # run built it); none may spill
+        gen_kernels = {
             key: [res["registers"], res["local_bytes"],
                   ptxas.get(key, {}).get("spill_stores")]
             for key, res in resources.items() if key.startswith("attn_win_")}
+        spilled = {key: r for key, r in gen_kernels.items()
+                   if r[1] or r[2]}
+        if spilled:
+            raise AssertionError(f"generic attention kernels spill: "
+                                 f"{spilled}")
         emit(phase="generic_attention_instances", instances=instances,
              shape=f"B={bq}, H={hq}, text {tq}, grid {gq}; text call, "
-                   "axial_col call with the text prefix, conv_like hw=1 "
-                   "call with the text prefix; backward twice, bitwise",
-             window_kernels=win_kernels,
-             window_kernels_fields=["registers", "local_bytes",
-                                    "spill_stores"])
+                   "axial_row and axial_col calls with the text prefix, "
+                   "conv_like hw=1 call with the text prefix; backward "
+                   "twice, bitwise",
+             generic_kernels=gen_kernels,
+             generic_kernels_fields=["registers", "local_bytes",
+                                     "spill_stores"])
 
         # (b) the six wrappers at the flagship's widths in f32, timed
         recs = {}
@@ -4640,8 +4651,7 @@ def main() -> int:
             "dalle_tpu/ops/pallas/attention_kernels.py:518", window_call,
             lambda *a: window_call(*a, fn=window_attention_plain),
             sdpa_window, fwd_bytes(G * G, TT), win_pairs, errs,
-            f"conv_like hw={hw}, image queries, " + shape_f32,
-            source=win_src)
+            f"conv_like hw={hw}, image queries, " + shape_f32)
 
         bsets = [(q, k, v, do, line_fwd(q, k, v, False))
                  for q, k, v, do in sets]
@@ -4670,7 +4680,7 @@ def main() -> int:
         lib_sets = [sdpa_graph(*st[:4], conv_rows, image_queries=True)
                     for st in bsets]
         recs["window_attention_bwd_generic"] = backward_record(
-            "window_attention_bwd_generic", "cuda", win_src,
+            "window_attention_bwd_generic", "cuda", attn_src,
             "dalle_tpu/ops/pallas/attention_kernels.py:548", win_bwd,
             lambda *a: win_bwd(*a, fn=window_attention_bwd_plain), bsets,
             autograd_retained, lib_sets,
@@ -4735,16 +4745,23 @@ def main() -> int:
                 * 1e3
             rec["ms_vs_cublas"] = rec["ms"] / rec["cublas_ms"]
             rec["resources"] = {n: ptxas.get(n, {}) for n in instances}
-        # the same for the window pair (f32 at head_dim 64, conv_like)
-        for name, flops, passes in (
+        # the same for the attention pairs (f32 at head_dim 64): the line
+        # pair of one axial_row layer, the conv_like window pair
+        for name, flops, passes, policy in (
+                ("line_attention_generic",
+                 4 * Dh * B * H * (text_pairs + row_pairs),
+                 WINDOW_GENERIC_PASSES[:1], POLICY_LINE),
+                ("line_attention_bwd_generic",
+                 10 * Dh * B * H * (text_pairs + row_pairs),
+                 WINDOW_GENERIC_PASSES[1:], POLICY_LINE),
                 ("window_attention_generic", 4 * Dh * B * H * win_pairs,
-                 WINDOW_GENERIC_PASSES[:1]),
+                 WINDOW_GENERIC_PASSES[:1], POLICY_CONV),
                 ("window_attention_bwd_generic", 10 * Dh * B * H * win_pairs,
-                 WINDOW_GENERIC_PASSES[1:])):
+                 WINDOW_GENERIC_PASSES[1:], POLICY_CONV)):
             rec = recs[name]
             rec["bound_ms_3xtf32"] = flops / (TF32_FLOP_PER_S / 3) * 1e3
             rec["ms_vs_library"] = rec["ms"] / rec["library_ms"]
-            keys = [window_generic_kernel(f32, Dh, POLICY_CONV, p)
+            keys = [window_generic_kernel(f32, Dh, policy, p)
                     for p in passes]
             rec["resources"] = {n: resources[n] | ptxas.get(n, {})
                                 for n in keys}

@@ -1,10 +1,11 @@
-// Shared pieces of attention_fwd.cu, attention_bwd.cu and
-// attention_generic.cu, in two sections.
+// Shared pieces of attention_fwd.cu, attention_bwd.cu and the generic
+// kernels of attention_window_generic.cuh, in two sections.
 //
 // The first assumes no tile shape, dtype or head dim: the argument structs
 // of the C entry points, the three key-range policies and their mask
-// arithmetic (Geo, raster_of, pos_of, step, allowed). attention_generic.cu
-// uses only this section.
+// arithmetic (Geo, raster_of, pos_of, step, allowed). The generic kernels
+// use this section, and of the second only acc_to_a (their copies and
+// fragment loads are mma_sync.cuh's).
 //
 // The second serves the fast kernels: tile geometry, cp.async loads into
 // XOR-swizzled shared-memory tiles, ldmatrix fragment loads and the bf16
@@ -32,8 +33,8 @@
 
 typedef __nv_bfloat16 bf16;
 
-// Arguments of the forward entry points (attention_fwd, attention_generic_fwd;
-// mirrored by ops/attention.py). Every tensor is (B, H, T, d) with element
+// Arguments of the forward entry points (attention_fwd,
+// attention_window_generic_fwd; mirrored by ops/attention.py). Every tensor is (B, H, T, d) with element
 // strides for b, h, t and unit stride along d.
 struct AttnArgs {
   const void* q;
@@ -54,7 +55,7 @@ struct AttnArgs {
 };
 
 // Arguments of the backward entry points (attention_bwd,
-// attention_generic_bwd).
+// attention_window_generic_bwd).
 struct AttnBwdArgs {
   const void* q;
   const void* k;

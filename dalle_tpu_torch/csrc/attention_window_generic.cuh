@@ -1,28 +1,39 @@
-// Generic forward and backward [prefix || raster-window causal] attention
-// on the tensor cores (the kernels; see "Sources" below), for the operands the fast kernels (attention_fwd.cu,
-// attention_bwd.cu: bf16 with head_dim 64) do not take: f32 at head_dim 16,
-// 32, 64 or 128, and bf16 at 16, 32 or 128. ops/attention.py's
-// attention_route picks the route; a generic window call launches these
-// kernels, a generic line call attention_generic.cu's.
+// Generic forward and backward attention on the tensor cores, for the
+// operands the fast kernels (attention_fwd.cu, attention_bwd.cu: bf16 with
+// head_dim 64) do not take: f32 at head_dim 16, 32, 64 or 128, and bf16 at
+// 16, 32 or 128. ops/attention.py's attention_route picks the route; every
+// generic call, line or window, launches these kernels.
 //
 // Replaces, for those operands, the TPU kernels of
-// dalle_tpu/ops/pallas/attention_kernels.py: _window_attention_fwd (:518)
-// and _window_attention_bwd (:548), POLICY_CONV (conv_like, hw =
-// conv_kernel / 2) and POLICY_FULL (hw = None). The kernels are templated
-// on the policy; POLICY_LINE (the line kernels, :227 and :259) fits the
-// same templates (its key ranges, skips and masks are written here) and
-// is left to attention_generic.cu until it is routed and measured.
+// dalle_tpu/ops/pallas/attention_kernels.py: _line_attention_fwd (:227) and
+// _line_attention_bwd (:259), POLICY_LINE ([prefix || causal line]: the
+// text-causal call, axial_row, and axial_col with `transpose`), and
+// _window_attention_fwd (:518) and _window_attention_bwd (:548),
+// POLICY_CONV (conv_like, hw = conv_kernel / 2) and POLICY_FULL (hw =
+// None). The kernels are templated on the policy, which sets the key
+// ranges, the tile skips and the masks (the section "key and query ranges"
+// below and attention_common.cuh's Pos arithmetic).
 //
-// Math, with the cast points of window_attention_plain and
-// window_attention_bwd_plain (ops/attention.py): scores s = (q . k) *
-// d^-1/2 in f32, masked scores -1e9; forward: the softmax online over key
-// tiles in f32, P cast to the operand dtype before P.V (a no-op in f32),
-// the division by the f32 denominator at the end, lse = m + log(denominator)
-// in raster order; backward: P = exp(s - lse) in f32, dd = rowsum(dO . O),
-// dS = P (dP - dd) cast to the operand dtype before its products, dq =
-// (dS . k) * scale over the prefix and the main keys, dk = (dS^T . q) *
-// scale, dv = P^T . dO with P in f32 (bf16: P = hi + lo, both bf16, as
-// attention_bwd.cu takes it).
+// Math, with the cast points of the plain versions (ops/attention.py):
+// scores s = (q . k) * d^-1/2 in f32, masked scores -1e9; forward: the
+// softmax online over key tiles in f32, P cast to the operand dtype before
+// P.V (a no-op in f32), the division by the f32 denominator at the end, lse
+// = m + log(denominator) in raster order; backward: P = exp(s - lse) in
+// f32, dd = rowsum(dO . O), dS = P (dP - dd) cast to the operand dtype
+// before its products, dq = (dS . k) * scale over the prefix and the main
+// keys, dk = (dS^T . q) * scale, dv = P^T . dO with P in f32 (bf16: P = hi
+// + lo, both bf16, as attention_bwd.cu takes it).
+//
+// Lines. Main tokens are walked in packed order, lines contiguous: a
+// packed row j sits at raster row raster_of(j), so an axial_col line (a
+// raster column) is gathered row by row and out, dq, dk, dv, lse and dd
+// are written back in raster order. A text call is one line of T tokens
+// (grid 0, no prefix, T any length). Lines shorter than a warp's 16 rows
+// (n need not divide 16) put several lines in one warp's rows: a tile is
+// skipped only when no row of the warp reaches it, and is taken without a
+// mask only when every row reaches every key, which a warp whose rows
+// cross a line edge never does (the main keys start at the line of the
+// block's first row, so a block reads at most its own lines).
 //
 // Design: FA2's layout on mma.sync, as in attention_fwd.cu and
 // attention_bwd.cu. A block of 4 warps owns 64 rows (queries; keys in the
@@ -69,13 +80,16 @@
 // bf16 D = 128: 87,040 / 105,472.
 //
 // What bounds it: at the flagship's widths in f32 (B 4, 16 heads of 64, a
-// 32 x 32 grid after a 256-token prefix, hw 5) the forward does 5.2 GFLOP
-// of used pairs (31.2 us at 495 / 3 TFLOP/s for three TF32 passes) for a
-// few MB: the tensor cores and the instructions around them (the split,
-// the masks, exp), not memory. On an H100 80GB HBM3 at 700 W
-// (chip_smoke.py phase 10, PERF.md) the forward takes 259 us and the
-// backward 847 us there, 0.33x / 0.48x SDPA's f32 calls and 12% / 9% of
-// the 3xTF32 bound; the SIMT kernels they replace took 1079 / 2960 us.
+// 32 x 32 grid after a 256-token prefix, hw 5) the window forward does 5.2
+// GFLOP of used pairs (31.2 us at 495 / 3 TFLOP/s for three TF32 passes)
+// for a few MB: the tensor cores and the instructions around them (the
+// split, the masks, exp), not memory. On an H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 10, PERF.md) the window forward takes 256 us and
+// its backward 845 us there, 0.33x / 0.49x SDPA's f32 calls and 12% / 9%
+// of the 3xTF32 bound; one axial_row layer's line calls (the text call and
+// the image call) take 163 / 690 us, 0.17x / 0.32x SDPA's and 19% / 11% of
+// their bound. The SIMT kernels they replace took 1079 / 2960 us (window)
+// and 819 / 2307 us (line).
 //
 // Why not wgmma: its TF32 form reads B only K-major from shared memory; V,
 // contracted over keys in P.V, is MN-major, and the transpose flag exists
@@ -87,12 +101,15 @@
 // operand row starts on (`vec`). Outputs are the wrapper's own, 16-byte
 // aligned.
 //
-// Sources: this header holds the kernels; attention_window_generic_<dtype>
-// _d<head_dim>.cu instantiates one (dtype, head_dim) pair each, a library
-// with the same C entry points, so that the build's parallel nvcc calls
-// share the work: nvcc takes 15-35 s an instance on the card's host (all
-// seven in one source took 60-90 s, the whole build of the other sources
-// 29 s).
+// Sources: this header holds the kernels. Each (dtype, head_dim) instance
+// has two sources, each a library with the same C entry points:
+// attention_window_generic_<dtype>_d<head_dim>.cu (WIN_INSTANCE: conv and
+// full) and attention_line_generic_<dtype>_d<head_dim>.cu (LINE_INSTANCE),
+// so that the build's parallel nvcc calls share the work. On the card's
+// host (8 cores, every source at once) the instance sources took 31-48 s
+// with the window policies alone and 35-63 s with all three in one source
+// (the whole build 47.8 s then 62.9 s; all seven window instances in one
+// source took 60-90 s in an earlier build).
 
 #pragma once
 
@@ -1043,16 +1060,27 @@ __device__ __forceinline__ void dkdv_prefix_body(const AttnBwdArgs& a,
 typedef void (*FwdKernel)(AttnArgs, int);
 typedef void (*BwdKernel)(AttnBwdArgs, int);
 
-template <typename T, int D>
-struct Kern;  // the named kernels of each instance (WIN_INSTANCE)
+// The four kernels of one policy: the forward, the dq pass, the dk/dv pass
+// and the prefix's dk/dv pass (null where a source does not define them).
+struct Passes {
+  FwdKernel fwd;
+  BwdKernel dq, dkdv, prefix;
+};
+
+// The kernels of policy POLICY in the instance (T, D): none, unless the
+// source defines them with WIN_POLICY_KERNELS, which specialises this.
+template <typename T, int D, int POLICY>
+struct Kern {
+  static Passes get() { return Passes{}; }
+};
 
 }  // namespace
 
-// WIN_INSTANCE(T, D, TAG): the kernels of one (dtype, head_dim) instance,
-// both policies, under names a profiler and ptxas show:
-// attn_win_{fwd,dq,dkdv,dkdv_prefix}_<tag>_<policy>; and Kern<T, D>. The
-// minimum of one block an SM lets ptxas use up to 255 registers: without
-// it, it held the f32 D = 64 dk/dv pass to 128 and spilled.
+// WIN_POLICY_KERNELS(T, D, TAG, POLICY, PNAME): the kernels of one policy of
+// one (dtype, head_dim) instance, under names a profiler and ptxas show,
+// attn_win_{fwd,dq,dkdv,dkdv_prefix}_<tag>_<pname>, and Kern<T, D, POLICY>.
+// The minimum of one block an SM lets ptxas use up to 255 registers:
+// without it, it held the f32 D = 64 dk/dv pass to 128 and spilled.
 #define WIN_POLICY_KERNELS(T, D, TAG, POLICY, PNAME)                       \
   __global__ void __launch_bounds__(THREADS, 1)                            \
       attn_win_fwd_##TAG##_##PNAME(AttnArgs a, int vec) {                  \
@@ -1069,40 +1097,45 @@ struct Kern;  // the named kernels of each instance (WIN_INSTANCE)
   __global__ void __launch_bounds__(THREADS, 1)                            \
       attn_win_dkdv_prefix_##TAG##_##PNAME(AttnBwdArgs a, int vec) {       \
     dkdv_prefix_body<T, D, POLICY>(a, vec);                                \
-  }
-
-#define WIN_INSTANCE(T, D, TAG)                                            \
-  WIN_POLICY_KERNELS(T, D, TAG, POLICY_CONV, conv)                         \
-  WIN_POLICY_KERNELS(T, D, TAG, POLICY_FULL, full)                         \
+  }                                                                        \
   namespace {                                                              \
   template <>                                                              \
-  struct Kern<T, D> {                                                      \
-    static FwdKernel fwd(int p) {                                          \
-      return p == POLICY_CONV ? attn_win_fwd_##TAG##_conv                  \
-                              : attn_win_fwd_##TAG##_full;                 \
-    }                                                                      \
-    static BwdKernel dq(int p) {                                           \
-      return p == POLICY_CONV ? attn_win_dq_##TAG##_conv                   \
-                              : attn_win_dq_##TAG##_full;                  \
-    }                                                                      \
-    static BwdKernel dkdv(int p) {                                         \
-      return p == POLICY_CONV ? attn_win_dkdv_##TAG##_conv                 \
-                              : attn_win_dkdv_##TAG##_full;                \
-    }                                                                      \
-    static BwdKernel prefix(int p) {                                       \
-      return p == POLICY_CONV ? attn_win_dkdv_prefix_##TAG##_conv          \
-                              : attn_win_dkdv_prefix_##TAG##_full;         \
+  struct Kern<T, D, POLICY> {                                              \
+    static Passes get() {                                                  \
+      return Passes{attn_win_fwd_##TAG##_##PNAME,                          \
+                    attn_win_dq_##TAG##_##PNAME,                           \
+                    attn_win_dkdv_##TAG##_##PNAME,                         \
+                    attn_win_dkdv_prefix_##TAG##_##PNAME};                 \
     }                                                                      \
   };                                                                       \
   }
 
+// WIN_INSTANCE(T, D, TAG): the window policies' kernels (conv_like, full);
+// LINE_INSTANCE(T, D, TAG): the line policy's. Each instance has a source
+// of each (see "Sources" above).
+#define WIN_INSTANCE(T, D, TAG)                                            \
+  WIN_POLICY_KERNELS(T, D, TAG, POLICY_CONV, conv)                         \
+  WIN_POLICY_KERNELS(T, D, TAG, POLICY_FULL, full)
+
+#define LINE_INSTANCE(T, D, TAG)                                           \
+  WIN_POLICY_KERNELS(T, D, TAG, POLICY_LINE, line)
+
 // The launches, for the instances a source defines with WIN_INSTANCE.
 namespace {
+
+// The kernels of `policy` in the instance (T, D).
+template <typename T, int D>
+Passes passes(int policy) {
+  if (policy == POLICY_LINE) return Kern<T, D, POLICY_LINE>::get();
+  if (policy == POLICY_CONV) return Kern<T, D, POLICY_CONV>::get();
+  if (policy == POLICY_FULL) return Kern<T, D, POLICY_FULL>::get();
+  return Passes{};
+}
 
 template <typename T, int D>
 int launch_fwd(const AttnArgs& a, int vec, cudaStream_t s) {
   using C = Cfg<T, D>;
-  const FwdKernel k = Kern<T, D>::fwd(a.policy);
+  const FwdKernel k = passes<T, D>(a.policy).fwd;
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, C::FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -1114,9 +1147,8 @@ int launch_fwd(const AttnArgs& a, int vec, cudaStream_t s) {
 template <typename T, int D>
 int launch_bwd(const AttnBwdArgs& a, int vec, cudaStream_t s) {
   using C = Cfg<T, D>;
-  const BwdKernel kernels[3] = {Kern<T, D>::dq(a.policy),
-                                Kern<T, D>::dkdv(a.policy),
-                                Kern<T, D>::prefix(a.policy)};
+  const Passes p = passes<T, D>(a.policy);
+  const BwdKernel kernels[3] = {p.dq, p.dkdv, p.prefix};
   for (BwdKernel k : kernels) {
     const cudaError_t err = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BWD_SMEM);
@@ -1153,10 +1185,11 @@ int launch_bwd(const AttnBwdArgs& a, int vec, cudaStream_t s) {
 template <typename T, int D>
 int resources(int policy, int pass, int* out) {
   using C = Cfg<T, D>;
-  const void* fn = pass == 0   ? (const void*)Kern<T, D>::fwd(policy)
-                   : pass == 1 ? (const void*)Kern<T, D>::dq(policy)
-                   : pass == 2 ? (const void*)Kern<T, D>::dkdv(policy)
-                               : (const void*)Kern<T, D>::prefix(policy);
+  const Passes p = passes<T, D>(policy);
+  const void* fn = pass == 0   ? (const void*)p.fwd
+                   : pass == 1 ? (const void*)p.dq
+                   : pass == 2 ? (const void*)p.dkdv
+                               : (const void*)p.prefix;
   cudaFuncAttributes fa;
   const cudaError_t err = cudaFuncGetAttributes(&fa, fn);
   out[0] = fa.numRegs;
@@ -1166,15 +1199,17 @@ int resources(int policy, int pass, int* out) {
   return (int)err;
 }
 
+// Whether the source defines `policy`'s kernels, and `vec` is a copy width.
+template <typename T, int D>
 bool valid(int policy, int vec) {
-  return (policy == POLICY_CONV || policy == POLICY_FULL) &&
+  return passes<T, D>(policy).fwd != nullptr &&
          (vec == 16 || vec == 8 || vec == 4 || vec == 2);
 }
 
 }  // namespace
 
-// The C entry points of one source, for its instance (T, D); any other
-// dtype or head_dim is refused. vec: the widest copy (16, 8, 4 or, for
+// The C entry points of one source, for its instance (T, D) and the
+// policies it defines; any other dtype, head_dim or policy is refused. vec: the widest copy (16, 8, 4 or, for
 // bf16, 2 bytes) that every row of q, k, v, kp, vp (and o, dout) starts on.
 #define WIN_ENTRY_POINTS(T, D)                                              \
   namespace {                                                               \
@@ -1186,7 +1221,7 @@ bool valid(int policy, int vec) {
   extern "C" int attention_window_generic_fwd(const AttnArgs* a, int dtype, \
                                               int head_dim, int vec,        \
                                               void* stream) {               \
-    if (!ours(dtype, head_dim) || !valid(a->policy, vec) ||                 \
+    if (!ours(dtype, head_dim) || !valid<T, D>(a->policy, vec) ||           \
         vec < (int)sizeof(T))                                               \
       return (int)cudaErrorInvalidValue;                                    \
     return launch_fwd<T, D>(*a, vec, static_cast<cudaStream_t>(stream));   \
@@ -1194,14 +1229,14 @@ bool valid(int policy, int vec) {
   extern "C" int attention_window_generic_bwd(const AttnBwdArgs* a,         \
                                               int dtype, int head_dim,      \
                                               int vec, void* stream) {      \
-    if (!ours(dtype, head_dim) || !valid(a->policy, vec) ||                 \
+    if (!ours(dtype, head_dim) || !valid<T, D>(a->policy, vec) ||           \
         vec < (int)sizeof(T) || (a->kp == nullptr) != (a->dkp == nullptr))  \
       return (int)cudaErrorInvalidValue;                                    \
     return launch_bwd<T, D>(*a, vec, static_cast<cudaStream_t>(stream));   \
   }                                                                         \
   extern "C" int attention_window_generic_resources(                        \
       int dtype, int head_dim, int policy, int pass, int* out) {            \
-    if (!ours(dtype, head_dim) || !valid(policy, 16) || pass < 0 ||         \
+    if (!ours(dtype, head_dim) || !valid<T, D>(policy, 16) || pass < 0 ||   \
         pass > 3)                                                           \
       return (int)cudaErrorInvalidValue;                                    \
     return resources<T, D>(policy, pass, out);                              \

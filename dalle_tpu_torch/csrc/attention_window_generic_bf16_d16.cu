@@ -1,6 +1,7 @@
-// The generic window attention kernels (attention_window_generic.cuh) for
-// bf16 at head_dim 16: one source a (dtype, head_dim) instance, so that the
-// build's parallel nvcc calls share the kernel bodies.
+// The generic window attention kernels (attention_window_generic.cuh:
+// conv_like and full) for bf16 at head_dim 16. Each instance has this source
+// and attention_line_generic_bf16_d16.cu, so that the build's parallel nvcc
+// calls share the kernel bodies.
 
 #include "attention_window_generic.cuh"
 

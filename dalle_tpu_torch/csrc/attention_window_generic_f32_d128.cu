@@ -1,6 +1,7 @@
-// The generic window attention kernels (attention_window_generic.cuh) for
-// f32 at head_dim 128: one source a (dtype, head_dim) instance, so that the
-// build's parallel nvcc calls share the kernel bodies.
+// The generic window attention kernels (attention_window_generic.cuh:
+// conv_like and full) for f32 at head_dim 128. Each instance has this source
+// and attention_line_generic_f32_d128.cu, so that the build's parallel nvcc
+// calls share the kernel bodies.
 
 #include "attention_window_generic.cuh"
 

@@ -14,9 +14,8 @@ a rematerialised block in backward counts again.
 The attention and GEGLU wrappers have two routes on the card, picked from
 the operands' dtype and shape before any launch (``attention_route``,
 ``geglu_route``): the fast kernels, or the generic instances
-(``csrc/attention_window_generic.cuh`` for window calls,
-``csrc/attention_generic.cu`` for line calls, ``csrc/geglu_generic.cu``)
-for what the fast ones do not take. A call on either route adds one to ``LAUNCHES``
+(``csrc/attention_window_generic.cuh`` for line and window calls,
+``csrc/geglu_generic.cu``) for what the fast ones do not take. A call on either route adds one to ``LAUNCHES``
 under the wrapper's name; a call on the generic route also adds one to
 ``GENERIC_LAUNCHES``, so a run can show which route its path took.
 

@@ -21,10 +21,9 @@ On the card every call takes one of two routes, picked by
 :func:`attention_route` from q's dtype and head_dim before any launch: the
 fast kernels (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``: bf16
 with head_dim 64, the flagship's) or the generic instances (bf16 or f32
-with head_dim 16, 32, 64 or 128, as the TPU kernels take any): the window
-calls on the tensor cores (``csrc/attention_window_generic.cuh``, f32 as
-3xTF32), the line calls in ``csrc/attention_generic.cu`` (SIMT). Anything
-outside both raises.
+with head_dim 16, 32, 64 or 128, as the TPU kernels take any): line and
+window calls alike on the tensor cores (``csrc/attention_window_generic.cuh``,
+templated on the policy; f32 as 3xTF32). Anything outside both raises.
 
 The forwards return ``(out, lse)``: ``out`` (B, H, T, d) in q's dtype and
 the row logsumexp ``lse`` (B, H, 1, T) f32 in raster token order (for
@@ -66,8 +65,8 @@ NEG_INF = -1e9
 POLICY_LINE, POLICY_CONV, POLICY_FULL = 0, 1, 2
 FAST_HEAD_DIM = 64                     # the fast kernels' compiled head dim
 GENERIC_HEAD_DIMS = (16, 32, 64, 128)  # the generic instances' head dims
-# operand dtypes of the generic instances (DTYPE_* of attention_generic.cu
-# and attention_window_generic.cuh)
+# operand dtypes of the generic instances (DTYPE_* of
+# attention_window_generic.cuh)
 GENERIC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -75,8 +74,7 @@ def attention_route(dtype: torch.dtype, head_dim: int) -> str:
     """The route of CUDA operands of ``dtype`` and ``head_dim``: ``"fast"``
     (``csrc/attention_fwd.cu``/``attention_bwd.cu``: bf16 with head_dim
     64) or ``"generic"`` (bf16 or f32 with head_dim 16, 32, 64 or 128:
-    ``csrc/attention_window_generic.cuh`` for the window calls,
-    ``csrc/attention_generic.cu`` for the line calls). Raises
+    ``csrc/attention_window_generic.cuh``, line and window calls). Raises
     ``ValueError`` naming the missing instance for anything else."""
     if dtype == torch.bfloat16 and head_dim == FAST_HEAD_DIM:
         return "fast"
@@ -280,37 +278,40 @@ _SIGNATURES = {
                       "attention_fwd_resources": [_I, _IP]},
     "attention_bwd": {"attention_bwd": [ctypes.POINTER(_AttnBwdArgs), _P],
                       "attention_bwd_resources": [_I, _I, _IP]},
-    "attention_generic": {
-        "attention_generic_fwd": [ctypes.POINTER(_AttnArgs), _I, _I, _P],
-        "attention_generic_bwd": [ctypes.POINTER(_AttnBwdArgs), _I, _I, _P]},
 }
 
 # csrc/attention_window_generic.cuh's entry points, which each of its
-# sources exports (one library a (dtype, head_dim) instance)
+# sources exports: one library a (dtype, head_dim) instance and policy
+# family, attention_window_generic_<dtype>_d<head_dim> (conv_like and full)
+# and attention_line_generic_<dtype>_d<head_dim> (the line policy)
 _WINDOW_GENERIC = "attention_window_generic"
 _DTYPE_TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def window_generic_library(dtype: torch.dtype, head_dim: int) -> str:
-    """The library (``csrc/<name>.cu``) of the generic window instance of
-    ``dtype`` and ``head_dim``."""
-    return f"{_WINDOW_GENERIC}_{_DTYPE_TAGS[dtype]}_d{head_dim}"
+def generic_library(dtype: torch.dtype, head_dim: int, policy: int) -> str:
+    """The library (``csrc/<name>.cu``) of the generic kernels of ``dtype``,
+    ``head_dim`` and ``policy``: the line policy's in a source of its own
+    (beside the window policies') so that the parallel build shares the
+    work."""
+    family = "line" if policy == POLICY_LINE else "window"
+    return f"attention_{family}_generic_{_DTYPE_TAGS[dtype]}_d{head_dim}"
 
 
-def window_generic_instances():
-    """The ``(dtype, head_dim)`` pairs of the generic window kernels: every
-    generic one (bf16 at head_dim 64 takes the fast kernels)."""
+def generic_instances():
+    """The ``(dtype, head_dim)`` pairs of the generic kernels: every generic
+    one (bf16 at head_dim 64 takes the fast kernels)."""
     return [(dt, hd) for dt in GENERIC_DTYPES for hd in GENERIC_HEAD_DIMS
             if attention_route(dt, hd) == "generic"]
 
 
-for _dtype, _hd in window_generic_instances():
-    _SIGNATURES[window_generic_library(_dtype, _hd)] = {
-        f"{_WINDOW_GENERIC}_fwd": [ctypes.POINTER(_AttnArgs), _I, _I, _I,
-                                   _P],
-        f"{_WINDOW_GENERIC}_bwd": [ctypes.POINTER(_AttnBwdArgs), _I, _I, _I,
-                                   _P],
-        f"{_WINDOW_GENERIC}_resources": [_I, _I, _I, _I, _IP]}
+for _dtype, _hd in generic_instances():
+    for _policy in (POLICY_LINE, POLICY_CONV):
+        _SIGNATURES[generic_library(_dtype, _hd, _policy)] = {
+            f"{_WINDOW_GENERIC}_fwd": [ctypes.POINTER(_AttnArgs), _I, _I,
+                                       _I, _P],
+            f"{_WINDOW_GENERIC}_bwd": [ctypes.POINTER(_AttnBwdArgs), _I, _I,
+                                       _I, _P],
+            f"{_WINDOW_GENERIC}_resources": [_I, _I, _I, _I, _IP]}
 
 
 def _lib(name: str):
@@ -319,8 +320,9 @@ def _lib(name: str):
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = _I
-        err = getattr(lib, f"{_WINDOW_GENERIC}_error"
-                      if name.startswith(_WINDOW_GENERIC) else f"{name}_error")
+        generic = f"{_WINDOW_GENERIC}_fwd" in _SIGNATURES[name]
+        err = getattr(lib, f"{_WINDOW_GENERIC}_error" if generic
+                      else f"{name}_error")
         err.argtypes = [_I]
         err.restype = ctypes.c_char_p
         lib._typed = True
@@ -331,14 +333,18 @@ BWD_PASSES = ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
               "attn_bwd_dkdv_prefix_kernel")
 # the passes of csrc/attention_window_generic.cuh, in its pass numbering
 WINDOW_GENERIC_PASSES = ("fwd", "dq", "dkdv", "dkdv_prefix")
+# its policies, by the names its kernels carry
+GENERIC_POLICIES = {POLICY_LINE: "line", POLICY_CONV: "conv",
+                    POLICY_FULL: "full"}
 
 
 def window_generic_kernel(dtype: torch.dtype, head_dim: int, policy: int,
                           kernel_pass: str) -> str:
     """The name of a ``csrc/attention_window_generic.cuh`` kernel, as ptxas
-    and the profiler show it: ``attn_win_dq_f32_d64_conv``."""
-    pol = {POLICY_CONV: "conv", POLICY_FULL: "full"}[policy]
-    return f"attn_win_{kernel_pass}_{_DTYPE_TAGS[dtype]}_d{head_dim}_{pol}"
+    and the profiler show it: ``attn_win_dq_f32_d64_conv``,
+    ``attn_win_fwd_f32_d64_line``."""
+    return (f"attn_win_{kernel_pass}_{_DTYPE_TAGS[dtype]}_d{head_dim}_"
+            f"{GENERIC_POLICIES[policy]}")
 
 
 def kernel_resources() -> dict:
@@ -357,11 +363,11 @@ def kernel_resources() -> dict:
                    lambda buf, p=policy: fwd(p, buf))] + [
             (f"{name}<{policy}>", lambda buf, p=policy, i=i: bwd(p, i, buf))
             for i, name in enumerate(BWD_PASSES)]
-    for dtype, hd in window_generic_instances():
-        win = _lib(window_generic_library(dtype, hd))
-        for policy in (POLICY_CONV, POLICY_FULL):
+    for dtype, hd in generic_instances():
+        for policy in GENERIC_POLICIES:
+            lib = _lib(generic_library(dtype, hd, policy))
             calls += [(window_generic_kernel(dtype, hd, policy, name),
-                       lambda buf, f=win.attention_window_generic_resources,
+                       lambda buf, f=lib.attention_window_generic_resources,
                        c=GENERIC_DTYPES[dtype], hd=hd, p=policy, i=i:
                        f(c, hd, p, i, buf))
                       for i, name in enumerate(WINDOW_GENERIC_PASSES)]
@@ -378,23 +384,17 @@ def _run(direction: str, route: str, args, q, counter: str,
          operands) -> None:
     """Launches the ``direction`` ("fwd" or "bwd") entry point of ``route``
     on the current stream, raises if the launch failed, and counts it. A
-    generic window call launches its instance's library
-    (:func:`window_generic_library`), a generic line call
-    ``attention_generic``; ``operands`` are the tensors whose rows the
-    window kernels copy (their alignment picks the copy width)."""
+    generic call, line or window, launches its instance's library
+    (:func:`generic_library`); ``operands`` are the tensors whose
+    rows the generic kernels copy (their alignment picks the copy width)."""
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if route == "fast":
         name = f"attention_{direction}"
         lib = _lib(name)
         err = getattr(lib, name)(ctypes.byref(args), stream)
-    elif args.policy == POLICY_LINE:
-        name = "attention_generic"
-        lib = _lib(name)
-        err = getattr(lib, f"{name}_{direction}")(
-            ctypes.byref(args), GENERIC_DTYPES[q.dtype], q.shape[-1], stream)
     else:
         name = _WINDOW_GENERIC
-        lib = _lib(window_generic_library(q.dtype, q.shape[-1]))
+        lib = _lib(generic_library(q.dtype, q.shape[-1], args.policy))
         err = getattr(lib, f"{name}_{direction}")(
             ctypes.byref(args), GENERIC_DTYPES[q.dtype], q.shape[-1],
             _copy_bytes(operands), stream)
@@ -415,8 +415,8 @@ def _kernel_ready(x: torch.Tensor) -> bool:
 
 def _copy_bytes(operands) -> int:
     """The widest copy (16, 8, 4 or 2 bytes) that every row of every
-    operand starts on: the generic window kernels copy rows that do not
-    start on 16 bytes in narrower pieces."""
+    operand starts on: the generic kernels copy rows that do not start on
+    16 bytes in narrower pieces."""
     width = 16
     for x in operands:
         if x is None:

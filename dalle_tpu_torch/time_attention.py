@@ -23,10 +23,15 @@ are strided (B, T, H, d) views, as the model makes them. Needs a GPU; exits
 ``--route generic`` times the generic instances instead, in ``--dtype``
 (float32 by default) at ``--head-dim`` (64 by default) with the
 flagship's width (1024 / head_dim heads): the conv_like window forward
-and backward (``csrc/attention_window_generic.cuh`` since it was
-written, ``csrc/attention_generic.cu`` before) and one axial_row layer's line
-forward and backward (``csrc/attention_generic.cu``), through the same
-four wrappers. bf16 at head_dim 64 is the fast route's and is refused.
+and backward and one axial_row layer's line forward and backward, through
+the same four wrappers (``csrc/attention_window_generic.cuh`` in this
+checkout, the line calls under its line policy; an older checkout times
+its own generic sources). Beside them it prints PyTorch's
+``scaled_dot_product_attention`` on the same operands and dtype: one call
+for the axial_row layer and one for the window's image queries over
+[text; image], each with the layer's mask (device time), and their
+backwards (autograd through a kept graph, eager: ``sdpa_*_bwd_us``).
+bf16 at head_dim 64 is the fast route's and is refused.
 """
 
 from __future__ import annotations
@@ -41,6 +46,42 @@ SEED = 0
 BATCH = 4
 SETS = 3
 ITERS = 20
+
+
+def sdpa_us(torch, sets, cfg, dev, device_us, events_us) -> dict:
+    """PyTorch's ``scaled_dot_product_attention`` on the generic route's
+    operands: one call for the axial_row layer (every token, the layer's
+    mask) and one for the conv_like window's image queries over [text;
+    image], forward by CUDA-graph replay and backward by autograd through
+    a kept graph, eager (us a call)."""
+    from dalle_tpu_torch.models.attention import zoo_attention_mask
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tt, g = cfg.text_seq_len, cfg.image_grid
+    row, conv = (torch.from_numpy(zoo_attention_mask(
+        kind, tt, g, cfg.conv_kernel)).to(dev)
+        for kind in ("axial_row", "conv_like"))
+    calls = {"line": lambda q, k, v: sdpa(q, k, v, attn_mask=row),
+             "window": lambda q, k, v: sdpa(q[:, :, tt:], k, v,
+                                            attn_mask=conv[tt:])}
+    out = {}
+    for name, fn in calls.items():
+        out[f"sdpa_{name}_fwd_us"] = device_us(
+            lambda q, k, v, do, fn=fn: fn(q, k, v), sets)
+        kept = []
+        for q, k, v, do in sets:
+            leaves = [x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v)]
+            o = fn(*leaves)
+            kept.append((o, leaves, do[:, :, do.shape[2] - o.shape[2]:]))
+
+        def run():
+            for i in range(ITERS):
+                o, leaves, do = kept[i % len(kept)]
+                torch.autograd.grad(o, leaves, do, retain_graph=True)
+        run()
+        out[f"sdpa_{name}_bwd_us"] = events_us(run)
+        del kept
+    return out
 
 
 def main() -> int:
@@ -83,8 +124,7 @@ def main() -> int:
     _build.build_all(["attention_fwd", "attention_bwd"]
                      if args.route == "fast" else
                      [n for n in _build.sources()
-                      if n == "attention_generic"
-                      or n.startswith("attention_window_generic")])
+                      if n.startswith("attention") and "generic" in n])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -140,10 +180,13 @@ def main() -> int:
         with torch.cuda.graph(graph):
             run()
         graph.replay()
+        return events_us(graph.replay)
+
+    def events_us(run):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        graph.replay()
+        run()
         stop.record()
         stop.synchronize()
         return start.elapsed_time(stop) * 1e3 / ITERS
@@ -164,6 +207,8 @@ def main() -> int:
         lambda q, k, v, do: win_fwd(q, k, v), sets)
     out["window_bwd_us"] = device_us(
         win_bwd, [(q, k, v, do, win_fwd(q, k, v)) for q, k, v, do in sets])
+    if args.route == "generic":
+        out.update(sdpa_us(torch, sets, cfg, dev, device_us, events_us))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -37,6 +37,7 @@ from dalle_tpu_torch.config import tiny_model_config
 from dalle_tpu_torch.models.dalle import init_params
 from dalle_tpu_torch.ops import GENERIC_LAUNCHES, LAUNCHES, reset_launches
 from dalle_tpu_torch.ops.attention import (POLICY_CONV, POLICY_FULL,
+                                           POLICY_LINE,
                                            WINDOW_GENERIC_PASSES,
                                            attention_route, kernel_resources,
                                            line_attention,
@@ -557,6 +558,101 @@ def test_cuda_window_generic_f32_d64_does_not_spill(cuda_device):
             key = window_generic_kernel(torch.float32, 64, policy, name)
             assert res[key]["local_bytes"] == 0, (key, res[key])
             assert res[key]["registers"] <= 255, (key, res[key])
+
+
+def _line_generic_check(dtype, line, q, k, v, kp, vp, dout):
+    """The generic line kernels (the template's line policy) against the
+    plain versions: forward, then the backward twice (bitwise equal), one
+    launch each counted. ``line``: (n, grid_side, transpose)."""
+    reset_launches()
+    out, lse = line_attention(q, k, v, kp, vp, *line)
+    out_p, lse_p = line_attention_plain(q, k, v, kp, vp, *line)
+    torch.testing.assert_close(out.float(), out_p.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, lse_p, **F32)
+    got = _same_twice(line_attention_bwd, q, k, v, kp, vp, out, lse, dout,
+                      *line)
+    assert GENERIC_LAUNCHES["line_attention"] == \
+        LAUNCHES["line_attention"] == 1
+    assert GENERIC_LAUNCHES["line_attention_bwd"] == \
+        LAUNCHES["line_attention_bwd"] == 2
+    want = line_attention_bwd_plain(q, k, v, kp, vp, out, lse, dout, *line)
+    for grad, a, w in zip(("dq", "dk", "dv", "dkp", "dvp"), got, want):
+        assert (a is None) == (w is None), grad
+        if a is not None:
+            assert a.shape == w.shape and a.dtype == dtype, grad
+            torch.testing.assert_close(a.float(), w.float(), msg=grad,
+                                       **TOL[dtype])
+
+
+# line calls across the generic kernels' tiles: the flagship's 32 x 32 grid
+# (1024 queries: 16 query blocks of two lines each) after its 256-token
+# prefix and after a 40-token one (a ragged prefix tile), axial_row and
+# axial_col; text calls of 77 tokens (two blocks, the second ragged) and
+# 256 (four blocks, the causal walk over several key tiles)
+LINE_CROSS = {"axial_row": (32, 256, False), "axial_row_p40": (32, 40, False),
+              "axial_col": (32, 256, True), "axial_col_p40": (32, 40, True),
+              "axial_col_noprefix": (32, 0, True), "text77": (77, 0, None),
+              "text256": (256, 0, None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,head_dim", GENERIC_ATTENTION,
+                         ids=lambda v: str(v).replace("torch.", ""))
+@pytest.mark.parametrize("kind", list(LINE_CROSS))
+def test_cuda_line_generic_kernels_cross_tiles(cuda_device, dtype, head_dim,
+                                               kind):
+    """The line calls across tiles, strided (B, T, H, d) views."""
+    lines, text, transpose = LINE_CROSS[kind]
+    b, h = 2, 3
+    if transpose is None:
+        t, line = lines, (lines, 0, False)
+    else:
+        t, line = lines * lines, (lines, lines, transpose)
+    q, k, v, dout = (_rand((b, t, h, head_dim), 110 + i, cuda_device, dtype)
+                     .transpose(1, 2) for i in range(4))
+    kp = vp = None
+    if text:
+        kp, vp = (_rand((b, text, h, head_dim), 115 + i, cuda_device, dtype)
+                  .transpose(1, 2) for i in range(2))
+    _line_generic_check(dtype, line, q, k, v, kp, vp, dout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,head_dim", [(torch.float32, 64),
+                                            (torch.bfloat16, 32)],
+                         ids=lambda v: str(v).replace("torch.", ""))
+@pytest.mark.parametrize("kind", ["text", "axial_col"])
+def test_cuda_line_generic_kernels_unaligned(cuda_device, dtype, head_dim,
+                                             kind):
+    """Line operands whose rows do not start on 16 bytes (a storage offset
+    of one element) take narrower copies inside the same kernels."""
+    b, h, grid, text = 2, 2, 10, 24
+
+    def shifted(rows, seed):
+        x = _rand((b * rows * h * head_dim + 1,), seed, cuda_device, dtype)
+        return x[1:].view(b, rows, h, head_dim).transpose(1, 2)
+
+    if kind == "text":
+        q, k, v, dout = (shifted(text, 120 + i) for i in range(4))
+        kp = vp = None
+        line = (text, 0, False)
+    else:
+        q, k, v, dout = (shifted(grid * grid, 120 + i) for i in range(4))
+        kp, vp = (shifted(text, 124 + i) for i in range(2))
+        line = (grid, grid, True)
+    assert q.data_ptr() % 16 != 0
+    _line_generic_check(dtype, line, q, k, v, kp, vp, dout)
+
+
+@pytest.mark.cuda
+def test_cuda_line_generic_f32_d64_does_not_spill(cuda_device):
+    """The line kernels of the f32 head_dim 64 instance (the f32 flagship's
+    line calls) keep their accumulators in registers: no local memory."""
+    res = kernel_resources()
+    for name in WINDOW_GENERIC_PASSES:
+        key = window_generic_kernel(torch.float32, 64, POLICY_LINE, name)
+        assert res[key]["local_bytes"] == 0, (key, res[key])
+        assert res[key]["registers"] <= 255, (key, res[key])
 
 
 # widths the fast kernels take in f32 only through the generic route, and
